@@ -1,0 +1,484 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
+CUDA card and ``nvcc``; it imports nothing of JAX or of the ``repro``
+package. Phases, each printed as it ends; any failure exits non-zero:
+
+1. device: the card's name and power limit (``nvidia-smi``), torch and
+   CUDA versions, and the parallel ``nvcc`` build of every kernel;
+2. each kernel against its plain torch version on the card at 512×1024,
+   plus the bitwise invariances (streamed == declarative, double_buffer on
+   == off, two tilings agree) and the generated uLBM PE against the
+   hand-written LBM kernel;
+3. the main path at real size, with every launch count set to 0 just
+   before and read just after: diffusion 8192² (64 steps, m 4), the
+   paper's 300×720 LBM grid through ``run_for_point`` at m 4 (and its
+   declarative and hand-written twins), LBM 4096² through ``run_blocked``
+   (and the hand-written kernel); each run is held to
+   ``StreamKernel.reference`` on the card;
+4. physics through the kernels: Taylor-Green decay and the diffusion sine
+   mode;
+5. at the main-path shapes, each kernel held to its plain version again
+   and timed (CUDA events) against its bound, its plain version and, for
+   diffusion, one PyTorch call sequence (``library_ms``).
+
+The last two lines are the ``kernels`` JSON object and
+``{"ok": true, "device": {...}}``.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+
+#: Kernel vs its plain version: both round the same f32 operations in the
+#: same order (nvcc with -fmad=false, torch eager), so only a fault shows.
+KERNEL_TOL = dict(rtol=1e-6, atol=1e-6)
+#: Full-grid runs against StreamKernel.reference: the reference runs the
+#: same operations untiled; stated at the CPU tests' f32 tolerance.
+RUN_TOL = dict(rtol=2e-5, atol=1e-6)
+#: Generated uLBM PE vs hand-written kernel: the two sum rho's nine terms
+#: the same way but route bounce-back through different op trees
+#: (tests/test_codegen.py holds the JAX pair to the same numbers).
+GEN_VS_HAND_TOL = dict(rtol=2e-5, atol=1e-7)
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def phase(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def max_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def check_close(name, got, want, tol) -> float:
+    import torch
+
+    err = max_err(got, want)
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite values")
+    if not torch.allclose(got, want, **tol):
+        fail(f"{name}: max abs err {err} outside rtol {tol['rtol']} "
+             f"atol {tol['atol']}")
+    phase(f"  {name}: max abs err {err:.3e} (rtol {tol['rtol']}, "
+          f"atol {tol['atol']})")
+    return err
+
+
+def check_equal(name, a, b) -> None:
+    import torch
+
+    if not torch.equal(a, b):
+        fail(f"{name}: not bitwise equal (max abs err {max_err(a, b)})")
+    phase(f"  {name}: bitwise equal")
+
+
+def cuda_ms(fn, iters: int = 10):
+    """Mean ms per call by CUDA events, after one warm-up call, and the
+    last call's result."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, out
+
+
+def timed_pair(name, kernel_fn, plain_fn, plain_iters=2, iters=10):
+    """Time a kernel and its plain version on the same main-path inputs
+    and hold the kernel's result to the plain one."""
+    ms, got = cuda_ms(kernel_fn, iters)
+    plain_ms, want = cuda_ms(plain_fn, plain_iters)
+    err = check_close(f"{name} vs plain", got, want, KERNEL_TOL)
+    return ms, plain_ms, err
+
+
+def card_peaks(name: str) -> tuple[float, float]:
+    """(HBM bytes/s, FP32 non-tensor FLOP/s) from NVIDIA's data sheets."""
+    if "PCIe" in name:
+        return 2.0e12, 51e12
+    if "NVL" in name:
+        return 3.9e12, 60e12
+    return 3.35e12, 67e12  # H100 SXM (80GB HBM3)
+
+
+def main() -> None:
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print("chip_smoke.py must run from a checkout holding "
+              "src/repro_torch", file=sys.stderr)
+        sys.exit(2)
+    sys.path.insert(0, SRC)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py runs on the card only",
+              file=sys.stderr)
+        sys.exit(1)
+
+    from repro_torch.apps import diffusion as dif
+    from repro_torch.apps import lbm
+    from repro_torch.core.codegen import StripeProgram
+    from repro_torch.kernels import build
+    from repro_torch.core.legalize import launch_tile, tile_smem_bytes
+    from repro_torch.kernels.lbm_stream.lbm_stream import (
+        LBM_PLANES,
+        lbm_multistep,
+        lbm_multistep_plain,
+    )
+    from repro_torch.kernels.lbm_stream.ops import (
+        lbm_run_blocked,
+        lbm_run_for_point,
+    )
+    from repro_torch.kernels.spd_stream.spd_stream import (
+        spd_multistep,
+        spd_multistep_plain,
+    )
+    from repro_torch.kernels.spd_stream.streaming import (
+        spd_multistep_streamed,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # ---- 1. device and build ------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60,
+    ).stdout.strip().splitlines()
+    card_line = smi[0] if smi else "nvidia-smi: no output"
+    kind = torch.cuda.get_device_name(0)
+    phase("phase 1: device")
+    phase(f"  {card_line}")
+    phase(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}, {kind}")
+    dsim = dif.DiffusionSimulation(512, 1024)
+    lsim = lbm.LBMSimulation(lbm.LBMProblem(512, 1024))
+    dprog = dsim.kernel.program
+    lkern = lsim.stream_kernel()
+    lprog = lkern.program
+    build_s = build.build_all({
+        "spd_Diff2D": dprog.cuda_source(),
+        "spd_PEx1": lprog.cuda_source(),
+        "lbm_stream": build.lbm_source(),
+    })
+    phase(f"  built 3 kernel libraries in {build_s:.2f} s (nvcc in "
+          "parallel)")
+    hbm, fp32 = card_peaks(kind)
+
+    # ---- 2. kernels against their plain versions at 512x1024 ----------
+    phase("phase 2: kernels vs plain versions, 512x1024")
+    errs = {}
+    u0, _ = dif.sine_init(512, 1024)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    u = (u0 + 0.01 * torch.randn(512, 1024, generator=gen).cuda())
+    st = dsim.state(u)
+    for m in (1, 2, 4):
+        plain = spd_multistep_plain(dprog, st, (0.2,), m=m, block_h=32,
+                                    block_w=128)
+        a = dsim.kernel(st, (0.2,), m=m, block_h=32, block_w=128)
+        b = dsim.kernel.multistep(st, (0.2,), m=m, block_h=32, block_w=128)
+        errs.setdefault("dif", []).append(
+            check_close(f"diffusion streamed m={m}", a, plain, KERNEL_TOL))
+        check_equal(f"diffusion streamed == declarative m={m}", a, b)
+    cases = {}
+    f, attr, _ = lbm.taylor_green_init(512, 1024)
+    cases["tgv"] = (f, attr, (1 / 0.8, 0.0, 1.0), 0.0, 1 / 0.8)
+    f, attr = lbm.couette_init(512, 1024)
+    cases["couette"] = (f, attr, (1 / 0.9, 0.07, 1.0), 0.07, 1 / 0.9)
+    for cname, (f, attr, regs, u_lid, one_tau) in cases.items():
+        state = lsim.stream_state(f, attr)
+        for m in (1, 4):
+            plain = spd_multistep_plain(lprog, state, regs, m=m, block_h=16,
+                                        block_w=32)
+            a = lkern(state, regs, m=m, block_h=16, block_w=32)
+            a1 = lkern(state, regs, m=m, block_h=16, block_w=32,
+                       double_buffer=False)
+            b = lkern.multistep(state, regs, m=m, block_h=16, block_w=32)
+            c = lkern(state, regs, m=m, block_h=8, block_w=64)
+            errs.setdefault("pe", []).append(check_close(
+                f"uLBM PE {cname} m={m} streamed", a, plain, KERNEL_TOL))
+            errs.setdefault("pe_decl", []).append(check_close(
+                f"uLBM PE {cname} m={m} declarative", b, plain, KERNEL_TOL))
+            check_equal(f"uLBM PE {cname} m={m} streamed == declarative",
+                        a, b)
+            check_equal(f"uLBM PE {cname} m={m} double_buffer on == off",
+                        a, a1)
+            check_equal(f"uLBM PE {cname} m={m} plan 16x32 == 8x64", a, c)
+            hp = lbm_multistep_plain(f, attr, one_tau, u_lid, m=m,
+                                     block_h=16, block_w=64)
+            h = lbm_multistep(f, attr, one_tau, u_lid, m=m, block_h=16)
+            errs.setdefault("hand", []).append(check_close(
+                f"hand-written LBM {cname} m={m}", h, hp, KERNEL_TOL))
+            check_close(f"generated PE vs hand-written {cname} m={m}",
+                        a[:9], h, GEN_VS_HAND_TOL)
+    lib = lprog.library()
+    for db in (True, False):
+        bw, db2 = lkern.tile(1024, 16, 4, double_buffer=db)
+        want = tile_smem_bytes(16, bw, 4, halo=1, halo_x=1,
+                               planes=lprog.planes(3 if db2 else 2))
+        got = lib.spd_smem_bytes(16, bw, 4, 3 if db2 else 2)
+        if got != want:
+            fail(f"shared-memory pricing {want} B != kernel's {got} B")
+    phase("  legalizer's shared-memory pricing == kernel's allocation")
+    del plain, a, a1, b, c, h, hp, state
+    torch.cuda.empty_cache()
+
+    # ---- 3. the main path at real size --------------------------------
+    phase("phase 3: main path at real size")
+    for fn in (spd_multistep_streamed, spd_multistep, lbm_multistep):
+        fn.launches = 0
+    StripeProgram.launches.clear()
+    runs = {}
+
+    big = dif.DiffusionSimulation(8192, 8192)
+    u0, _ = dif.sine_init(8192, 8192)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = big.run(u0, steps=64, m=4)
+    torch.cuda.synchronize()
+    runs["dif"] = time.perf_counter() - t0
+    ref = big.kernel.reference(big.state(u0), (0.2,), m=64)[0]
+    check_close("diffusion 8192^2, 64 steps, m=4 vs reference", out, ref,
+                RUN_TOL)
+    phase(f"    {runs['dif'] * 1e3:.1f} ms for 16 launches, "
+          f"{8192 * 8192 * 64 / runs['dif'] / 1e6:.0f} MLUPS")
+    del out, ref, u0
+    torch.cuda.empty_cache()
+
+    class Point:  # a DSE design point at the paper's m = 4
+        m, detail = 4, {"block_rows": 20}
+
+    paper = lbm.LBMSimulation(lbm.LBMProblem(300, 720, u_lid=0.05))
+    pkern = paper.stream_kernel()
+    f, attr = lbm.cavity_init(300, 720)
+    pstate = paper.stream_state(f, attr)
+    pregs = paper.stream_regs()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, plan = pkern.run_for_point(pstate, pregs, point=Point(), steps=64)
+    torch.cuda.synchronize()
+    runs["paper"] = time.perf_counter() - t0
+    ref = pkern.reference(pstate, pregs, m=64)
+    check_close(f"LBM 300x720 cavity run_for_point plan {plan} vs "
+                "reference", out, ref, RUN_TOL)
+    phase(f"    {runs['paper'] * 1e3:.1f} ms for 16 launches, "
+          f"{300 * 720 * 64 / runs['paper'] / 1e6:.0f} MLUPS")
+    decl = pstate
+    for _ in range(16):
+        decl = pkern.multistep(decl, pregs, m=4, block_h=plan[0])
+    check_equal("LBM 300x720 declarative == streamed", decl, out)
+    hand, hplan = lbm_run_for_point(f, attr, paper.problem.one_tau,
+                                    Point(), steps=64, u_lid=0.05)
+    check_close(f"LBM 300x720 hand-written plan {hplan} vs generated",
+                hand, out[:9], GEN_VS_HAND_TOL)
+
+    f, attr, _ = lbm.taylor_green_init(4096, 4096)
+    tsim = lbm.LBMSimulation(lbm.LBMProblem(4096, 4096))
+    tkern = tsim.stream_kernel()
+    tstate = tsim.stream_state(f, attr)
+    tregs = tsim.stream_regs()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tkern.run_blocked(tstate, tregs, steps=16, m=4, block_h=16)
+    torch.cuda.synchronize()
+    runs["tgv"] = time.perf_counter() - t0
+    ref = tkern.reference(tstate, tregs, m=16)
+    check_close("LBM 4096^2 TGV run_blocked m=4 vs reference", out, ref,
+                RUN_TOL)
+    phase(f"    {runs['tgv'] * 1e3:.1f} ms for 4 launches, "
+          f"{4096 * 4096 * 16 / runs['tgv'] / 1e6:.0f} MLUPS")
+    hand = lbm_run_blocked(f, attr, tsim.problem.one_tau, steps=16, m=4,
+                           block_h=16)
+    check_close("LBM 4096^2 hand-written vs generated", hand, out[:9],
+                GEN_VS_HAND_TOL)
+    body = dict(StripeProgram.launches)
+    launches = {
+        "spd_multistep_streamed[Diff2D]": body.get("Diff2D", 0),
+        "spd_multistep_streamed[PEx1]":
+            spd_multistep_streamed.launches - body.get("Diff2D", 0),
+        "spd_multistep[PEx1]": spd_multistep.launches,
+        "stripe_body": sum(body.values()),
+        "lbm_multistep": lbm_multistep.launches,
+    }
+    phase(f"  launches on the main path: {launches}")
+    for name, n in launches.items():
+        if n < 1:
+            fail(f"kernel {name} was not launched on the main path")
+    del out, ref, hand, decl
+    torch.cuda.empty_cache()
+
+    # ---- 4. physics through the kernels -------------------------------
+    phase("phase 4: physics")
+    tau = 0.8
+    f, attr, ksq = lbm.taylor_green_init(64, 64, u0=0.02)
+    psim = lbm.LBMSimulation(lbm.LBMProblem(64, 64, tau=tau))
+    e0 = lbm.tgv_kinetic_energy(f)
+    g = psim.stream_kernel().run_blocked(psim.stream_state(f, attr),
+                                         psim.stream_regs(), steps=200, m=4,
+                                         block_h=16)
+    e1 = lbm.tgv_kinetic_energy(g[:9])
+    want = e0 * math.exp(-2.0 * lbm.viscosity(tau) * ksq * 200)
+    if not abs(e1 - want) <= 0.02 * want:
+        fail(f"TGV energy {e1} vs analytic {want}")
+    phase(f"  TGV 64x64, 200 steps: energy {e1:.6e} vs analytic "
+          f"{want:.6e} (rel {abs(e1 - want) / want:.2e} <= 0.02)")
+    sim = dif.DiffusionSimulation(32, 128, alpha=0.2)
+    u0, decay = dif.sine_init(32, 128)
+    uu = sim.run(u0, 40, m=4, block_h=8)
+    ratio = float(torch.linalg.norm(uu) / torch.linalg.norm(u0))
+    want = decay(0.2) ** 40
+    if not abs(ratio - want) <= 1e-4 * want:
+        fail(f"diffusion decay {ratio} vs exact {want}")
+    phase(f"  diffusion sine 32x128, 40 steps: ratio {ratio:.7f} vs exact "
+          f"{want:.7f} (rel {abs(ratio - want) / want:.2e} <= 1e-4)")
+
+    # ---- 5. timing at the main-path shapes ----------------------------
+    phase("phase 5: timing (CUDA events) and kernel vs plain at the "
+          "main-path shapes")
+    kernels = []
+
+    def record(name, source, replaces, n, ms, plain_ms, nbytes, ops,
+               err, library_ms=None):
+        t_bytes, t_ops = nbytes / hbm * 1e3, ops / fp32 * 1e3
+        bound = max(t_bytes, t_ops)
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms,
+        })
+        phase(f"  {name}: {ms:.4f} ms/launch, bound {bound:.4f} ms "
+              f"({kernels[-1]['bound_by']}, {bound / ms:.1%} of it), "
+              f"plain {plain_ms:.2f} ms"
+              + (f", library {library_ms:.4f} ms" if library_ms else ""))
+
+    # Diffusion 8192^2, m 4, block 32x128: the run's launch.
+    st = big.state(dif.sine_init(8192, 8192)[0])
+    buf = torch.empty_like(st)
+    bw = big.kernel.tile(8192, 32, 4)[0]
+    ms, plain_ms, err = timed_pair(
+        "diffusion 8192^2 m=4",
+        lambda: spd_multistep_streamed(dprog, st, (0.2,), m=4, block_h=32,
+                                       block_w=bw, out=buf),
+        lambda: spd_multistep_plain(dprog, st, (0.2,), m=4, block_h=32,
+                                    block_w=bw))
+    import torch.nn.functional as F
+
+    a = 0.2
+    w5 = torch.tensor([[0, a, 0], [a, 1 - 4 * a, a], [0, a, 0]],
+                      dtype=torch.float32, device="cuda").view(1, 1, 3, 3)
+
+    def conv_steps():
+        x = st[None]
+        for _ in range(4):
+            x = F.conv2d(F.pad(x, (1, 1, 1, 1), mode="circular"), w5)
+        return x
+
+    lib_ms, _ = cuda_ms(conv_steps)
+    flops = big.hardware_report.flops
+    record("spd_multistep_streamed[Diff2D]",
+           "src/repro_torch/csrc/spd_stream.cuh",
+           "src/repro/kernels/spd_stream/streaming.py:180",
+           launches["spd_multistep_streamed[Diff2D]"], ms, plain_ms,
+           2 * 8192 * 8192 * 4, flops * 4 * 8192 * 8192,
+           max(errs["dif"] + [err]), lib_ms)
+    del st, buf
+    torch.cuda.empty_cache()
+
+    # uLBM PE 4096^2, m 4, block 16: the run_blocked launch.
+    buf = torch.empty_like(tstate)
+    bw = tkern.tile(4096, 16, 4)[0]
+    ms, plain_ms, err = timed_pair(
+        "uLBM PE 4096^2 m=4",
+        lambda: spd_multistep_streamed(lprog, tstate, tregs, m=4,
+                                       block_h=16, block_w=bw, out=buf),
+        lambda: spd_multistep_plain(lprog, tstate, tregs, m=4, block_h=16,
+                                    block_w=bw), plain_iters=1)
+    pe_flops = tsim.hardware_report.flops
+    record("spd_multistep_streamed[PEx1]",
+           "src/repro_torch/csrc/spd_stream.cuh",
+           "src/repro/kernels/spd_stream/streaming.py:180",
+           launches["spd_multistep_streamed[PEx1]"], ms, plain_ms,
+           2 * 10 * 4096 * 4096 * 4, pe_flops * 4 * 4096 * 4096,
+           max(errs["pe"] + [err]))
+    del buf
+    torch.cuda.empty_cache()
+
+    # The paper's 300x720 grid, m 4: declarative and streamed launches
+    # (the stripe body's time is that of the launch it runs in).
+    bh = plan[0]
+    pbuf = torch.empty_like(pstate)
+    bwd = pkern.tile(720, bh, 4, double_buffer=False)[0]
+    ms_d, plain_d, err_d = timed_pair(
+        "uLBM PE 300x720 m=4 declarative",
+        lambda: spd_multistep(lprog, pstate, pregs, m=4, block_h=bh,
+                              block_w=bwd, out=pbuf),
+        lambda: spd_multistep_plain(lprog, pstate, pregs, m=4, block_h=bh,
+                                    block_w=bwd), iters=50)
+    nb, ops = 2 * 10 * 300 * 720 * 4, pe_flops * 4 * 300 * 720
+    record("spd_multistep[PEx1]", "src/repro_torch/csrc/spd_stream.cuh",
+           "src/repro/kernels/spd_stream/spd_stream.py:65",
+           launches["spd_multistep[PEx1]"], ms_d, plain_d, nb, ops,
+           max(errs["pe_decl"] + [err_d]))
+    bws, dbs = pkern.tile(720, bh, 4)
+    ms_s, plain_s, err_s = timed_pair(
+        "uLBM PE 300x720 m=4 streamed",
+        lambda: spd_multistep_streamed(lprog, pstate, pregs, m=4,
+                                       block_h=bh, block_w=bws,
+                                       double_buffer=dbs, out=pbuf),
+        lambda: spd_multistep_plain(lprog, pstate, pregs, m=4, block_h=bh,
+                                    block_w=bws), iters=50)
+    record("stripe_body[PEx1]", "src/repro_torch/core/codegen.py",
+           "src/repro/core/codegen.py:461",
+           launches["stripe_body"], ms_s, plain_s, nb, ops,
+           max(errs["pe"] + errs["pe_decl"] + errs["dif"] + [err_s]))
+
+    # Hand-written LBM 4096^2, m 4, block 16.
+    f4 = tstate[:9].contiguous()
+    attr4 = tstate[9].contiguous()
+    fbuf = torch.empty_like(f4)
+    bwh = launch_tile(4096, 16, 4, halo=1, halo_x=1,
+                      planes=lambda db: LBM_PLANES, double_buffer=False)[0]
+    ms, plain_ms, err = timed_pair(
+        "hand-written LBM 4096^2 m=4",
+        lambda: lbm_multistep(f4, attr4, 1 / 0.8, 0.0, m=4, block_h=16,
+                              block_w=bwh, out=fbuf),
+        lambda: lbm_multistep_plain(f4, attr4, 1 / 0.8, 0.0, m=4,
+                                    block_h=16, block_w=bwh), plain_iters=1)
+    record("lbm_multistep", "src/repro_torch/csrc/lbm_stream.cu",
+           "src/repro/kernels/lbm_stream/lbm_stream.py:119",
+           launches["lbm_multistep"], ms, plain_ms,
+           19 * 4096 * 4096 * 4, 131 * 4 * 4096 * 4096,
+           max(errs["hand"] + [err]))
+
+    phase(f"total {time.perf_counter() - t_start:.1f} s")
+    print(card_line)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count(),
+    }}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,164 @@
+"""Build and load the port's CUDA kernels (docs/port.md §build).
+
+Every kernel is compiled by ``nvcc`` into a shared library with a plain C
+interface and loaded with ``ctypes``: pointers and the CUDA stream travel
+as ``c_void_p``, each entry point returns ``cudaGetLastError()`` (or -1
+for an under-priced shared-memory size) and :func:`check` raises on
+anything but 0. Libraries are cached under ``build/repro_torch/`` by a
+hash of their source, the headers they include and the flags, so a
+process builds each kernel once; nothing is compiled at import time.
+
+Flags: ``sm_90a``, ``-O3`` and ``-fmad=false`` — no multiply-add is
+contracted, so a kernel's arithmetic is op for op that of its plain torch
+version — and no ``--use_fast_math``, which would change ``/``, ``sqrt``
+and ``exp``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    """``build/repro_torch/`` of the checkout (``build/`` is ignored)."""
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin); the port's CUDA "
+            "kernels are built on the machine with the card"
+        )
+    return path
+
+
+def _headers() -> str:
+    return "".join(
+        p.read_text() for p in sorted(CSRC.glob("*.cuh"))
+    )
+
+
+def _paths(name: str, source: str) -> tuple[Path, Path]:
+    key = hashlib.sha256(
+        (source + _headers() + " ".join(NVCC_FLAGS)).encode()
+    ).hexdigest()[:16]
+    d = build_dir()
+    return d / f"{name}-{key}.cu", d / f"{name}-{key}.so"
+
+
+def _start(name: str, source: str):
+    """Start one ``nvcc``; returns ``(so_path, process or None)``."""
+    cu, so = _paths(name, source)
+    if so.exists():
+        return so, None
+    cu.parent.mkdir(parents=True, exist_ok=True)
+    cu.write_text(source)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(cu)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return so, (proc, tmp, cmd)
+
+
+def _finish(so: Path, job) -> None:
+    if job is None:
+        return
+    proc, tmp, cmd = job
+    out, _ = proc.communicate()
+    so.with_suffix(".log").write_text(out)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}"
+        )
+    os.replace(tmp, so)
+
+
+def build_all(sources: dict[str, str]) -> float:
+    """Compile every ``{name: source}`` at once, one ``nvcc`` each, all
+    started together; returns the wall seconds."""
+    t0 = time.perf_counter()
+    jobs = [_start(name, src) for name, src in sources.items()]
+    for so, job in jobs:
+        _finish(so, job)
+    return time.perf_counter() - t0
+
+
+def load(name: str, source: str) -> ctypes.CDLL:
+    """The library of ``source``, compiled on first use."""
+    so, job = _start(name, source)
+    _finish(so, job)
+    key = str(so)
+    if key not in _LIBS:
+        _LIBS[key] = ctypes.CDLL(key)
+    return _LIBS[key]
+
+
+def check(rc: int, what: str) -> None:
+    """Raise unless a C entry point returned 0."""
+    if rc == -1:
+        raise RuntimeError(f"{what}: shared memory passed is below the "
+                           "kernel's own pricing of the tile")
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+class SpdRegs(ctypes.Structure):
+    """``struct SpdRegs`` of ``csrc/spd_tile.cuh``, passed by value."""
+
+    _fields_ = [("v", ctypes.c_float * 16)]
+
+
+def spd_regs(values) -> SpdRegs:
+    regs = SpdRegs()
+    for i, v in enumerate(values):
+        regs.v[i] = float(v)
+    return regs
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def load_spd_library(program) -> ctypes.CDLL:
+    """Build and bind a generated stream kernel (see ``csrc/spd_stream.cuh``)."""
+    lib = load(f"spd_{program.name}", program.cuda_source())
+    lib.spd_multistep.argtypes = [_P, _P, _I, _I, _I, _I, _I, SpdRegs, _LL,
+                                  _P]
+    lib.spd_multistep.restype = _I
+    lib.spd_multistep_streamed.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I,
+                                           SpdRegs, _LL, _P]
+    lib.spd_multistep_streamed.restype = _I
+    lib.spd_smem_bytes.argtypes = [_I, _I, _I, _I]
+    lib.spd_smem_bytes.restype = _LL
+    return lib
+
+
+def lbm_source() -> str:
+    return (CSRC / "lbm_stream.cu").read_text()
+
+
+def load_lbm_library() -> ctypes.CDLL:
+    """Build and bind the hand-written D2Q9 kernel (``csrc/lbm_stream.cu``)."""
+    lib = load("lbm_stream", lbm_source())
+    lib.lbm_multistep.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
+                                  ctypes.c_float, ctypes.c_float, _LL, _P]
+    lib.lbm_multistep.restype = _I
+    lib.lbm_smem_bytes.argtypes = [_I, _I, _I]
+    lib.lbm_smem_bytes.restype = _LL
+    return lib

@@ -1,0 +1,188 @@
+"""The port's StreamKernel on the CPU against the JAX StreamKernel.
+
+Inputs are made with numpy from a seed and handed to both packages. The
+port's plain version (the IR interpreted over the launch's tiles) must
+equal the port's own full-grid reference bit for bit, and the JAX
+package's kernel within rtol 2e-5 / atol 1e-6: XLA on the CPU and torch
+round the same op tree at the same points, but multi-step runs compound
+last-bit differences (different summation trees in XLA fusions).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro.apps import diffusion as jdif
+from repro.apps import lbm as jlbm
+from repro_torch.apps import diffusion as tdif
+from repro_torch.apps import lbm as tlbm
+from repro_torch.core import CodegenError
+from repro_torch.kernels.spd_stream.spd_stream import spd_multistep_plain
+
+RTOL, ATOL = 2e-5, 1e-6
+TGV_REGS = (1 / 0.8, 0.0, 1.0)
+COUETTE_REGS = (1 / 0.9, 0.07, 1.0)
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.fixture(scope="module")
+def dif_pair():
+    return (tdif.DiffusionSimulation(32, 128, alpha=0.2, device="cpu"),
+            jdif.DiffusionSimulation(32, 128, alpha=0.2))
+
+
+def _dif_state(seed=0):
+    u0, _ = jdif.sine_init(32, 128)
+    noise = np.random.default_rng(seed).standard_normal((32, 128))
+    return np.asarray(u0) + 0.01 * noise.astype(np.float32)
+
+
+@pytest.mark.parametrize("m", [1, 2, 4])
+def test_diffusion_matches_jax(dif_pair, m):
+    tsim, jsim = dif_pair
+    u = _dif_state()
+    got = tsim.kernel(tsim.state(u), (0.2,), m=m, block_h=8)
+    want = jsim.kernel.reference(jsim.state(u), (0.2,), m=m)
+    _close(got, want)
+    assert torch.equal(got, tsim.kernel.reference(tsim.state(u), (0.2,),
+                                                  m=m))
+
+
+def test_diffusion_matches_jax_interpret_launch(dif_pair):
+    """One case against the JAX package's own Pallas launch, run in
+    interpret mode as its tests run it."""
+    tsim, jsim = dif_pair
+    u = _dif_state(1)
+    got = tsim.kernel.run_blocked(tsim.state(u), (0.2,), steps=4, m=2,
+                                  block_h=8)
+    want = jsim.kernel.run_blocked(jsim.state(u), (0.2,), steps=4, m=2,
+                                   block_h=8, interpret=True)
+    _close(got, want)
+
+
+@pytest.fixture(scope="module", params=["hdl", "spd"])
+def lbm_pair(request):
+    prob = dict(height=16, width=128)
+    tsim = tlbm.LBMSimulation(tlbm.LBMProblem(**prob), bndry=request.param,
+                              device="cpu")
+    jsim = jlbm.LBMSimulation(jlbm.LBMProblem(**prob), bndry=request.param)
+    return tsim.stream_kernel(), jsim.stream_kernel()
+
+
+def _lbm_fields(case):
+    if case == "tgv":
+        f, attr, _ = jlbm.taylor_green_init(16, 128)
+        regs = TGV_REGS
+    else:
+        f, attr = jlbm.couette_init(16, 128)
+        regs = COUETTE_REGS
+    rng = np.random.default_rng(7)
+    f = np.asarray(f) * (1 + 0.01 * rng.standard_normal((9, 16, 128)))
+    return f.astype(np.float32), np.asarray(attr), regs
+
+
+@pytest.mark.parametrize("case", ["tgv", "couette"])
+@pytest.mark.parametrize("m", [1, 4])
+def test_ulbm_pe_matches_jax(lbm_pair, case, m):
+    tk, jk = lbm_pair
+    f, attr, regs = _lbm_fields(case)
+    state = tk.pack(list(f) + [attr])
+    got = tk(state, regs, m=m, block_h=8)
+    want = jk.reference(jk.pack(list(f) + [attr]), regs, m=m)
+    _close(got, want)
+    assert torch.equal(got, tk.reference(state, regs, m=m))
+
+
+def test_tiling_invariance_is_bitwise(lbm_pair):
+    """Every (block_h, block_w) plan — ragged last column tiles included —
+    and both launches give the same bits."""
+    tk, _ = lbm_pair
+    f, attr, regs = _lbm_fields("couette")
+    state = tk.pack(list(f) + [attr])
+    want = tk.reference(state, regs, m=2)
+    assert torch.equal(tk.multistep(state, regs, m=2, block_h=16), want)
+    for block_h, block_w in [(4, 32), (8, 48), (16, 17), (2, 128)]:
+        got = spd_multistep_plain(tk.program, state, regs, m=2,
+                                  block_h=block_h, block_w=block_w)
+        assert torch.equal(got, want), (block_h, block_w)
+    for db in (True, False):
+        assert torch.equal(tk(state, regs, m=2, block_h=8, block_w=40,
+                              double_buffer=db), want)
+
+
+def test_run_blocked_and_run_for_point(lbm_pair):
+    tk, _ = lbm_pair
+    f, attr, regs = _lbm_fields("tgv")
+    state = tk.pack(list(f) + [attr])
+    got = tk.run_blocked(state, regs, steps=8, m=4, block_h=8)
+    assert torch.equal(got, tk.reference(state, regs, m=8))
+
+    class Point:
+        m, detail = 4, {"block_rows": 12}
+
+    out, (bh, m, db) = tk.run_for_point(state, regs, point=Point(), steps=8)
+    assert (bh, m, db) == (8, 4, True)
+    assert torch.equal(out, got)
+
+
+def test_kernel_rejects_illegal_plans_and_batches(dif_pair):
+    tsim, _ = dif_pair
+    state = tsim.state(_dif_state())
+    with pytest.raises(ValueError):
+        tsim.kernel(state, (0.2,), m=1, block_h=5)  # 32 % 5 != 0
+    with pytest.raises(ValueError):
+        tsim.kernel(state, (0.2,), m=16, block_h=8)  # m*halo > block_h
+    with pytest.raises(CodegenError):
+        tsim.kernel(state, (), m=1, block_h=8)  # wrong register count
+    with pytest.raises(CodegenError, match="batched"):
+        tsim.kernel(state[None], (0.2,), m=1, block_h=8)
+
+
+def test_x_offsets_beyond_row_width_wrap():
+    """A dx larger than the grid width wraps like roll, through the
+    guard columns loaded mod W."""
+    from repro_torch.core import Registry, parse_spd
+
+    kern = Registry().compile(parse_spd("""
+        Name BigDX;
+        Main_In {mi::u};
+        Main_Out {mo::v};
+        HDL S1, 0, (t) = Stencil2D(u), dy=0, dx=11, W=8, mode=wrap;
+        EQU N1, v = t + 0.0;
+    """)).stream_kernel(device="cpu")
+    state = kern.pack([np.random.default_rng(0).standard_normal((8, 8))])
+    assert torch.equal(kern(state, m=1, block_h=8),
+                       kern.reference(state, m=1))
+
+
+def test_diffusion_physics_decay():
+    sim = tdif.DiffusionSimulation(32, 128, alpha=0.2, device="cpu")
+    u0, decay = tdif.sine_init(32, 128, device="cpu")
+    u = sim.run(u0, 40, m=4, block_h=8)
+    ratio = float(torch.linalg.norm(u) / torch.linalg.norm(u0))
+    assert ratio == pytest.approx(decay(0.2) ** 40, rel=1e-4)
+
+
+def test_diffusion_oracle_and_default_block():
+    sim = tdif.DiffusionSimulation(30, 64, alpha=0.2, device="cpu")
+    u0, _ = tdif.sine_init(30, 64, device="cpu")
+    got = sim.run(u0, 2, m=2)
+    _close(got, jdif.diffusion_ref_run(np.asarray(u0), 0.2, 2))
+    _close(tdif.diffusion_ref_run(u0, 0.2, 2),
+           jdif.diffusion_ref_run(np.asarray(u0), 0.2, 2))
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdif.DiffusionSimulation(16, 64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tlbm.LBMSimulation(tlbm.LBMProblem(16, 64))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tlbm.taylor_green_init(16, 64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdif.compile_diffusion(64).stream_kernel()
