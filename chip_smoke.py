@@ -9,19 +9,29 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    CUDA versions, and the parallel ``nvcc`` build of every kernel;
 2. each kernel against its plain torch version on the card at 512×1024,
    plus the bitwise invariances (streamed == declarative, double_buffer on
-   == off, two tilings agree) and the generated uLBM PE against the
-   hand-written LBM kernel;
+   == off, two tilings agree), the generated uLBM PE against the
+   hand-written LBM kernel, both halo launches on a ring shard and on a
+   width-extended shard, and a (2, 2) mesh on ``["cuda:0"] * 4`` against
+   the single-device run;
 3. the main path at real size, with every launch count set to 0 just
    before and read just after: diffusion 8192² (64 steps, m 4), the
    paper's 300×720 LBM grid through ``run_for_point`` at m 4 (and its
    declarative and hand-written twins), LBM 4096² through ``run_blocked``
    (and the hand-written kernel); each run is held to
    ``StreamKernel.reference`` on the card;
+3b. spatial parallelism on one card, counts set to 0 again: the same
+   inputs through ``ShardedStreamKernel`` on a device list that repeats
+   ``cuda:0`` — diffusion 8192² on a (4, 1) ring and a (2, 2) mesh, overlap
+   on and off (and the declarative twin), uLBM 4096² on a (2, 2) mesh, the
+   300×720 cavity through ``run_for_point`` on a (2, 2) mesh — each
+   bitwise equal to its single-device run of phase 3, with its wall time,
+   MLUPS and the exchange's time apart from the launches;
 4. physics through the kernels: Taylor-Green decay and the diffusion sine
    mode;
 5. at the main-path shapes, each kernel held to its plain version again
    and timed (CUDA events) against its bound, its plain version and, for
-   diffusion, one PyTorch call sequence (``library_ms``).
+   diffusion, one PyTorch call sequence (``library_ms``); the halo
+   kernels at one shard of the phase-3b runs.
 
 The last two lines are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -146,11 +156,16 @@ def main() -> None:
         lbm_run_blocked,
         lbm_run_for_point,
     )
+    from repro_torch.kernels.spd_stream.sharded import (
+        spd_multistep_halo,
+        spd_multistep_halo_plain,
+    )
     from repro_torch.kernels.spd_stream.spd_stream import (
         spd_multistep,
         spd_multistep_plain,
     )
     from repro_torch.kernels.spd_stream.streaming import (
+        spd_multistep_halo_streamed,
         spd_multistep_streamed,
     )
 
@@ -199,6 +214,33 @@ def main() -> None:
         errs.setdefault("dif", []).append(
             check_close(f"diffusion streamed m={m}", a, plain, KERNEL_TOL))
         check_equal(f"diffusion streamed == declarative m={m}", a, b)
+
+    def halo_pair(name, prog, state, regs, bh, bw):
+        """Both halo launches on a ring shard (256 rows + two guard
+        blocks, full width) and a guarded shard (the same rows, width
+        512 + 2 m), against their plain version."""
+        for m in (1, 4):
+            for kind, width in (("ring", state.shape[2]),
+                                ("guarded", 512 + 2 * m)):
+                ext = state[:, :256 + 2 * bh, :width].contiguous()
+                plain = spd_multistep_halo_plain(prog, ext, regs, m=m,
+                                                 block_h=bh, block_w=bw)
+                a = spd_multistep_halo_streamed(prog, ext, regs, m=m,
+                                                block_h=bh, block_w=bw)
+                a1 = spd_multistep_halo_streamed(prog, ext, regs, m=m,
+                                                 block_h=bh, block_w=bw,
+                                                 double_buffer=False)
+                b = spd_multistep_halo(prog, ext, regs, m=m, block_h=bh,
+                                       block_w=bw)
+                tag = f"{name} {kind} shard m={m}"
+                errs.setdefault("halo_s", []).append(check_close(
+                    f"{tag} halo streamed", a, plain, KERNEL_TOL))
+                errs.setdefault("halo_d", []).append(check_close(
+                    f"{tag} halo declarative", b, plain, KERNEL_TOL))
+                check_equal(f"{tag} halo streamed == declarative", a, b)
+                check_equal(f"{tag} halo double_buffer on == off", a, a1)
+
+    halo_pair("diffusion", dprog, st, (0.2,), 32, 128)
     cases = {}
     f, attr, _ = lbm.taylor_green_init(512, 1024)
     cases["tgv"] = (f, attr, (1 / 0.8, 0.0, 1.0), 0.0, 1 / 0.8)
@@ -230,6 +272,12 @@ def main() -> None:
                 f"hand-written LBM {cname} m={m}", h, hp, KERNEL_TOL))
             check_close(f"generated PE vs hand-written {cname} m={m}",
                         a[:9], h, GEN_VS_HAND_TOL)
+        halo_pair(f"uLBM PE {cname}", lprog, state, regs, 16, 32)
+        single = lkern.run_blocked(state, regs, steps=8, m=4, block_h=16)
+        sk = lkern.sharded(4, devices=["cuda:0"] * 4, dx=2)
+        check_equal(f"uLBM PE {cname} (2, 2) mesh on cuda:0 x4 == single "
+                    "device", sk.run_blocked(state, regs, steps=8, m=4,
+                                             block_h=16), single)
     lib = lprog.library()
     for db in (True, False):
         bw, db2 = lkern.tile(1024, 16, 4, double_buffer=db)
@@ -261,7 +309,8 @@ def main() -> None:
                 RUN_TOL)
     phase(f"    {runs['dif'] * 1e3:.1f} ms for 16 launches, "
           f"{8192 * 8192 * 64 / runs['dif'] / 1e6:.0f} MLUPS")
-    del out, ref, u0
+    dif_single = out
+    del ref
     torch.cuda.empty_cache()
 
     class Point:  # a DSE design point at the paper's m = 4
@@ -280,6 +329,7 @@ def main() -> None:
     ref = pkern.reference(pstate, pregs, m=64)
     check_close(f"LBM 300x720 cavity run_for_point plan {plan} vs "
                 "reference", out, ref, RUN_TOL)
+    paper_single = out
     phase(f"    {runs['paper'] * 1e3:.1f} ms for 16 launches, "
           f"{300 * 720 * 64 / runs['paper'] / 1e6:.0f} MLUPS")
     decl = pstate
@@ -304,6 +354,7 @@ def main() -> None:
     ref = tkern.reference(tstate, tregs, m=16)
     check_close("LBM 4096^2 TGV run_blocked m=4 vs reference", out, ref,
                 RUN_TOL)
+    tgv_single = out
     phase(f"    {runs['tgv'] * 1e3:.1f} ms for 4 launches, "
           f"{4096 * 4096 * 16 / runs['tgv'] / 1e6:.0f} MLUPS")
     hand = lbm_run_blocked(f, attr, tsim.problem.one_tau, steps=16, m=4,
@@ -324,6 +375,85 @@ def main() -> None:
         if n < 1:
             fail(f"kernel {name} was not launched on the main path")
     del out, ref, hand, decl
+    torch.cuda.empty_cache()
+
+    # ---- 3b. spatial parallelism on one card --------------------------
+    phase("phase 3b: spatial parallelism on one card (device list "
+          "['cuda:0'] * d)")
+    for fn in (spd_multistep_halo_streamed, spd_multistep_halo,
+               spd_multistep_streamed, spd_multistep):
+        fn.launches = 0
+    StripeProgram.launches.clear()
+    mesh = {}
+
+    def exchange_ms(sk, state, m, block_h):
+        """CUDA-event ms of one exchange of the run's shards, alone."""
+        sb = sk.shards(state, m=m, block_h=block_h)
+        ms, _ = cuda_ms(lambda: (sb.exchange_x(), sb.exchange_y()), 20)
+        return ms, sb.exchange_bytes()
+
+    def mesh_run(name, kern, state, regs, dy, dx, want, steps, m, block_h,
+                 single_s, **kw):
+        sk = kern.sharded(dy * dx, devices=["cuda:0"] * (dy * dx), dx=dx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if "point" in kw:
+            out, plan = sk.run_for_point(state, regs, steps=steps, **kw)
+            block_h, m = plan[0], plan[1]
+            name = f"{name} plan {plan}"
+        else:
+            out = sk.run_blocked(state, regs, steps=steps, m=m,
+                                 block_h=block_h, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_equal(f"{name} == single device", out, want)
+        ex, nbytes = exchange_ms(sk, state, m, block_h)
+        cells = state.shape[1] * state.shape[2]
+        share = ex * (steps // m) / (wall * 1e3)
+        mesh[name] = dict(wall_ms=wall * 1e3,
+                          mlups=cells * steps / wall / 1e6,
+                          single_mlups=cells * steps / single_s / 1e6,
+                          exchange_ms=ex, exchange_bytes=nbytes,
+                          exchange_share=share)
+        phase(f"    {wall * 1e3:.1f} ms, {mesh[name]['mlups']:.0f} MLUPS "
+              f"(single device {mesh[name]['single_mlups']:.0f}); "
+              f"exchange alone {ex:.4f} ms x {steps // m} launches = "
+              f"{share:.1%} of the wall, {nbytes} B each")
+        torch.cuda.empty_cache()
+
+    dstate = big.state(u0)
+    for dy, dx in ((4, 1), (2, 2)):
+        for overlap in (True, False):
+            mesh_run(
+                f"diffusion 8192^2 ({dy}, {dx}) overlap={overlap}",
+                big.kernel, dstate, (0.2,), dy, dx, dif_single[None], 64,
+                4, 32, runs["dif"], overlap=overlap)
+    ring = big.kernel.sharded(4, devices=["cuda:0"] * 4)
+    decl = dstate
+    for _ in range(16):
+        decl = ring.multistep(decl, (0.2,), m=4, block_h=32)
+    check_equal("diffusion 8192^2 (4, 1) declarative halo twin == single "
+                "device", decl, dif_single[None])
+    del decl
+    n_dif = spd_multistep_halo_streamed.launches
+    mesh_run("uLBM PE 4096^2 TGV (2, 2)", tkern, tstate, tregs, 2, 2,
+             tgv_single, 16, 4, 16, runs["tgv"])
+    mesh_run("LBM 300x720 cavity run_for_point (2, 2)", pkern, pstate,
+             pregs, 2, 2, paper_single, 64, None, None, runs["paper"],
+             point=Point())
+    body = dict(StripeProgram.launches)
+    launches_mesh = {
+        "spd_multistep_halo_streamed[Diff2D]": n_dif,
+        "spd_multistep_halo_streamed[PEx1]":
+            spd_multistep_halo_streamed.launches - n_dif,
+        "spd_multistep_halo[Diff2D]": spd_multistep_halo.launches,
+        "stripe_body": sum(body.values()),
+    }
+    phase(f"  launches on the mesh path: {launches_mesh}")
+    for name, n in launches_mesh.items():
+        if n < 1:
+            fail(f"kernel {name} was not launched on the mesh path")
+    del dif_single, tgv_single
     torch.cuda.empty_cache()
 
     # ---- 4. physics through the kernels -------------------------------
@@ -453,6 +583,55 @@ def main() -> None:
            launches["stripe_body"], ms_s, plain_s, nb, ops,
            max(errs["pe"] + errs["pe_decl"] + errs["dif"] + [err_s]))
 
+    # The halo kernels at one shard of the phase-3b runs: each launch
+    # reads local_h + 2 m halo rows and writes local_h rows.
+    def halo_bytes(p, local_h, mh, w):
+        return 4 * p * ((local_h + 2 * mh) + local_h) * w
+
+    sk = tkern.sharded(4, devices=["cuda:0"] * 4, dx=2)
+    sb = sk.shards(tstate, m=4, block_h=16)
+    sb.exchange_x()
+    sb.exchange_y()
+    ext = sb.src(0, 0)
+    wl = ext.shape[2]
+    hbuf = torch.empty((10, 2048, wl), device="cuda")
+    bw, db = tkern.tile(wl, 16, 4)
+    ms, plain_ms, err = timed_pair(
+        f"uLBM PE (2, 2) shard 2048x{wl} m=4 streamed halo",
+        lambda: spd_multistep_halo_streamed(lprog, ext, tregs, m=4,
+                                            block_h=16, block_w=bw,
+                                            double_buffer=db, out=hbuf),
+        lambda: spd_multistep_halo_plain(lprog, ext, tregs, m=4, block_h=16,
+                                         block_w=bw), plain_iters=1)
+    record("spd_multistep_halo_streamed[PEx1]",
+           "src/repro_torch/csrc/spd_stream.cuh",
+           "src/repro/kernels/spd_stream/streaming.py:216",
+           launches_mesh["spd_multistep_halo_streamed[PEx1]"], ms, plain_ms,
+           halo_bytes(10, 2048, 4, wl), pe_flops * 4 * 2048 * wl,
+           max(errs["halo_s"] + [err]))
+    del sk, sb, ext, hbuf
+    torch.cuda.empty_cache()
+    sk = big.kernel.sharded(4, devices=["cuda:0"] * 4)
+    sb = sk.shards(dstate, m=4, block_h=32)
+    sb.exchange_y()
+    ext = sb.src(0, 0)
+    hbuf = torch.empty((1, 2048, 8192), device="cuda")
+    bw = big.kernel.tile(8192, 32, 4, double_buffer=False)[0]
+    ms, plain_ms, err = timed_pair(
+        "diffusion (4, 1) shard 2048x8192 m=4 declarative halo",
+        lambda: spd_multistep_halo(dprog, ext, (0.2,), m=4, block_h=32,
+                                   block_w=bw, out=hbuf),
+        lambda: spd_multistep_halo_plain(dprog, ext, (0.2,), m=4,
+                                         block_h=32, block_w=bw))
+    record("spd_multistep_halo[Diff2D]",
+           "src/repro_torch/csrc/spd_stream.cuh",
+           "src/repro/kernels/spd_stream/sharded.py:46",
+           launches_mesh["spd_multistep_halo[Diff2D]"], ms, plain_ms,
+           halo_bytes(1, 2048, 4, 8192), flops * 4 * 2048 * 8192,
+           max(errs["halo_d"] + [err]))
+    del sk, sb, ext, hbuf, dstate
+    torch.cuda.empty_cache()
+
     # Hand-written LBM 4096^2, m 4, block 16.
     f4 = tstate[:9].contiguous()
     attr4 = tstate[9].contiguous()
@@ -471,6 +650,7 @@ def main() -> None:
            19 * 4096 * 4096 * 4, 131 * 4 * 4096 * 4096,
            max(errs["hand"] + [err]))
 
+    phase(f"  mesh runs: {json.dumps(mesh)}")
     phase(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line)
     print(json.dumps({"kernels": kernels}))

@@ -121,12 +121,19 @@ class DiffusionSimulation:
     def state(self, u) -> torch.Tensor:
         return self.kernel.pack([u])
 
-    def run(self, u, steps: int, *, m: int = 1, block_h: int | None = None):
-        """Advance ``steps`` diffusion steps through the stream kernel."""
+    def run(self, u, steps: int, *, m: int = 1, block_h: int | None = None,
+            d: int = 1):
+        """Advance ``steps`` diffusion steps through the stream kernel.
+
+        ``d > 1`` shards the grid's rows over that many devices with halo
+        exchange (docs/port.md §distribute): ``cuda:0 … cuda:d-1``, or the
+        CPU d times on the CPU; needs ``d | height``.
+        """
         if block_h is None:
             block_h, m, _ = blocking_plan(self.height, 32, m,
-                                          halo=self.kernel.halo)
-        out = self.kernel.run_blocked(
+                                          halo=self.kernel.halo, d=d)
+        kern = self.kernel if d == 1 else self.kernel.sharded(d)
+        out = kern.run_blocked(
             self.state(u), (self.alpha,), steps=steps, m=m,
             block_h=block_h,
         )

@@ -1,5 +1,6 @@
 """The SPD stream-computing DSL on PyTorch: parser, DFG, compiler,
-transforms, legalizer and the Hopper stream-kernel codegen."""
+transforms, legalizer, the Hopper stream-kernel codegen and its device
+mesh."""
 
 from .codegen import (
     CodegenError,
@@ -11,6 +12,12 @@ from .codegen import (
 )
 from .compiler import CompiledCore, HardwareReport, Registry, SPDCompileError
 from .dfg import Core, Node, SPDError, SPDGraphError, schedule
+from .distribute import (
+    ShardedStreamKernel,
+    device_axis_values,
+    mesh_axis_values,
+    ring_mesh,
+)
 from .legalize import (
     SMEM_BYTES,
     VMEM_BYTES,
@@ -43,18 +50,22 @@ __all__ = [
     "SPDError",
     "SPDGraphError",
     "SPDParseError",
+    "ShardedStreamKernel",
     "StencilSummary",
     "StreamKernel",
     "StripeProgram",
     "VMEM_BYTES",
     "blocking_plan",
     "default_registry_modules",
+    "device_axis_values",
     "launch_tile",
     "legal_block_values",
     "lower_stripe",
+    "mesh_axis_values",
     "parse_spd",
     "parse_spd_file",
     "resolve_run_plan",
+    "ring_mesh",
     "schedule",
     "shard_height",
     "spatial_duplicate",

@@ -31,7 +31,9 @@ docs/port.md §ir). Three pieces:
    declarative (:mod:`repro_torch.kernels.spd_stream.spd_stream`) launch;
    (block_h, m) plans are legalized by the copied
    :mod:`repro_torch.core.legalize` and the column tile ``block_w`` is
-   priced against the block's shared memory (docs/port.md §tile).
+   priced against the block's shared memory (docs/port.md §tile);
+   :meth:`StreamKernel.sharded` runs the same program per shard of a
+   device mesh (docs/port.md §distribute).
 
 Correctness contract (``tests/test_torch_codegen.py``): on the CPU the
 tiled plain version equals m applications of :meth:`CompiledCore.apply`
@@ -727,19 +729,27 @@ def _tile_shift(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
 
 
 def gather_tiles(state: torch.Tensor, block_h: int, block_w: int,
-                 mh: int, mw: int) -> torch.Tensor:
+                 mh: int, mw: int, *, guard: bool = False) -> torch.Tensor:
     """Cut ``(P, H, W)`` into ``(T, P, R, C)`` tiles with guard cells.
 
     Tile ``(by, bx)`` (row-major, ``T = (H / block_h)·ceil(W / block_w)``)
     covers rows ``by·block_h - mh ...`` and columns ``bx·block_w - mw ...``,
     both taken mod the grid — the periodic stripe assembly of the
     reference's ``src_starts``, extended to columns.
+
+    ``guard=True`` cuts a guard-block-extended shard (the halo launches,
+    docs/port.md §distribute): the first and last ``block_h`` rows are
+    guard blocks, tile ``by`` covers rows ``(by + 1)·block_h - mh ...``
+    with no wrap, and ``T = (H / block_h - 2)·ceil(W / block_w)``.
     """
     _, h, w = state.shape
     nby, nbx = h // block_h, math.ceil(w / block_w)
     dev = state.device
+    if guard:
+        nby -= 2
     rows = (torch.arange(nby, device=dev)[:, None] * block_h - mh
-            + torch.arange(block_h + 2 * mh, device=dev)) % h
+            + torch.arange(block_h + 2 * mh, device=dev))
+    rows = rows + block_h if guard else rows % h
     cols = (torch.arange(nbx, device=dev)[:, None] * block_w - mw
             + torch.arange(block_w + 2 * mw, device=dev)) % w
     t = state[:, rows[:, None, :, None], cols[None, :, None, :]]
@@ -809,6 +819,7 @@ class StreamKernel:
         self._regs = list(core.regs)
         self.program = lower_stripe(compiled, self.halo, self.halo_x)
         self.device = resolve_device(device)
+        self._sharded: dict[tuple[int, int], object] = {}
 
     # ---- launches ----------------------------------------------------------
 
@@ -859,6 +870,27 @@ class StreamKernel:
             m=int(m), block_h=int(block_h),
             double_buffer=bool(double_buffer),
         )
+
+    def sharded(self, d: int, devices: Sequence | None = None,
+                dx: int = 1):
+        """Decompose this kernel across ``d`` devices.
+
+        Returns a :class:`repro_torch.core.distribute.ShardedStreamKernel`
+        running this kernel's tile function per shard, with halo exchange
+        between fused launches (docs/port.md §distribute). ``dx`` factors
+        ``d`` into a ``(dy, dx)`` mesh. ``devices`` may repeat a device
+        (``["cuda:0"] * 4`` runs a (2, 2) mesh on one card); ``None``
+        takes ``cuda:0 … cuda:d-1``, or the CPU d times for a kernel on
+        the CPU. ``d == 1`` delegates straight back. Default-device
+        wrappers are cached per ``(d, dx)``.
+        """
+        from .distribute import ShardedStreamKernel
+
+        if devices is not None:
+            return ShardedStreamKernel(self, d, devices, dx=dx)
+        if (d, dx) not in self._sharded:
+            self._sharded[(d, dx)] = ShardedStreamKernel(self, d, dx=dx)
+        return self._sharded[(d, dx)]
 
     def run_for_point(self, state, regs: Sequence = (), *, point,
                       steps: int | None = None):

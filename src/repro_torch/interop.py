@@ -24,7 +24,49 @@ def resolve_device(device) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "port's plain torch versions"
         )
+    if dev.type == "cuda" and dev.index is not None:
+        n = torch.cuda.device_count()
+        if dev.index >= n:
+            raise RuntimeError(
+                f"no CUDA device {dev}: this machine has {n} card(s); pass "
+                "an index below that, or device='cpu' to run the port's "
+                "plain torch versions"
+            )
     return dev
+
+
+def resolve_devices(devices, d: int) -> list:
+    """The ``d`` devices of a mesh, as ``torch.device``s.
+
+    ``None`` takes ``cuda:0 … cuda:d-1`` and raises when fewer cards are
+    present. An explicit list may repeat a device — ``["cuda:0"] * 4``
+    runs four shards on one card, ``["cpu"] * 4`` on the CPU, the
+    counterpart of XLA's forced host devices — but may not mix the CPU
+    and CUDA. ``ValueError`` when the list holds fewer than ``d``.
+    """
+    d = int(d)
+    if d < 1:
+        raise ValueError(f"device axis must be >= 1, got d={d}")
+    if devices is None:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n < d:
+            raise ValueError(
+                f"need {d} devices, have {n} CUDA card(s); pass an explicit "
+                f"device list that repeats a device, e.g. ['cuda:0'] * {d} "
+                "(the counterpart of XLA's forced host devices)"
+            )
+        return [torch.device("cuda", i) for i in range(d)]
+    devs = [resolve_device(x) for x in devices]
+    if len(devs) < d:
+        raise ValueError(f"need {d} devices, have {len(devs)} in the list")
+    devs = [torch.device("cuda", torch.cuda.current_device())
+            if x.type == "cuda" and x.index is None else x
+            for x in devs[:d]]
+    if len({x.type for x in devs}) > 1:
+        raise ValueError(
+            f"a device list may not mix the CPU and CUDA: {devs}"
+        )
+    return devs
 
 
 def from_numpy(x, device) -> torch.Tensor:

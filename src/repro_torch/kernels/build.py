@@ -136,7 +136,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def load_spd_library(program) -> ctypes.CDLL:
-    """Build and bind a generated stream kernel (see ``csrc/spd_stream.cuh``)."""
+    """Build and bind a generated stream kernel's four launches (see
+    ``csrc/spd_stream.cuh``)."""
     lib = load(f"spd_{program.name}", program.cuda_source())
     lib.spd_multistep.argtypes = [_P, _P, _I, _I, _I, _I, _I, SpdRegs, _LL,
                                   _P]
@@ -144,6 +145,12 @@ def load_spd_library(program) -> ctypes.CDLL:
     lib.spd_multistep_streamed.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I,
                                            SpdRegs, _LL, _P]
     lib.spd_multistep_streamed.restype = _I
+    lib.spd_multistep_halo.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                       SpdRegs, _LL, _P]
+    lib.spd_multistep_halo.restype = _I
+    lib.spd_multistep_halo_streamed.argtypes = [_P, _P, _I, _I, _I, _I, _I,
+                                                _I, _I, _I, SpdRegs, _LL, _P]
+    lib.spd_multistep_halo_streamed.restype = _I
     lib.spd_smem_bytes.argtypes = [_I, _I, _I, _I]
     lib.spd_smem_bytes.restype = _LL
     return lib

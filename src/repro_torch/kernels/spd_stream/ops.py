@@ -14,8 +14,9 @@ import torch
 from repro_torch.core.codegen import StripeProgram
 from repro_torch.core.legalize import blocking_plan, resolve_run_plan
 
+from .sharded import spd_multistep_halo
 from .spd_stream import spd_multistep
-from .streaming import spd_multistep_streamed
+from .streaming import spd_multistep_halo_streamed, spd_multistep_streamed
 
 
 def stream_run_blocked(program: StripeProgram, state, regs, *, steps: int,
@@ -46,6 +47,8 @@ __all__ = [
     "blocking_plan",
     "resolve_run_plan",
     "spd_multistep",
+    "spd_multistep_halo",
+    "spd_multistep_halo_streamed",
     "spd_multistep_streamed",
     "stream_run_blocked",
 ]

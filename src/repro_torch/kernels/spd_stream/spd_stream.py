@@ -1,4 +1,5 @@
-"""The declarative launch of a generated SPD stream kernel.
+"""The declarative launch of a generated SPD stream kernel, and the launch
+body all four SPD launches share.
 
 Replaces the JAX package's ``kernels/spd_stream/spd_stream.py:
 spd_multistep`` (a Pallas grid of ``H / block_h`` programs with periodic
@@ -17,6 +18,12 @@ On a CPU tensor the launch runs :func:`spd_multistep_plain`, the torch
 interpreter of the same IR over the same tiles; on a CUDA tensor it
 launches the kernel or raises. The streamed launch is held to this one
 bit for bit.
+
+:func:`launch` is the one body of the four launches — periodic or over a
+guard-block-extended shard (``guard``), declarative or streamed — as the
+kernel source is one template: the contract checks, the column tile, the
+plain version on the CPU, the device checks, the shared-memory price, the
+call and the counts.
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ from repro_torch.core.legalize import launch_tile, tile_smem_bytes
 
 
 def check_plan(program: StripeProgram, state, m: int, block_h: int) -> None:
-    """The launch contract of both SPD launches (ValueError otherwise)."""
+    """The launch contract of both periodic launches (ValueError
+    otherwise)."""
     _check_state(state, program.P)
     h = state.shape[1]
     if m < 1:
@@ -47,22 +55,88 @@ def check_plan(program: StripeProgram, state, m: int, block_h: int) -> None:
         )
 
 
-def cuda_args(state, out):
-    """Device checks of a launch; returns the output tensor."""
-    if state.device.type != "cuda":
-        raise RuntimeError(
-            f"the stream kernels take CPU or CUDA tensors, got {state.device}"
+def check_halo(program: StripeProgram, ext, m: int, block_h: int) -> int:
+    """The launch contract of both halo launches (the reference's
+    ``ValueError``s); returns ``local_h``."""
+    _check_state(ext, program.P)
+    rows = ext.shape[1]
+    local_h = rows - 2 * block_h
+    if local_h < 1 or local_h % block_h:
+        raise ValueError(
+            f"extended shard of {rows} rows is not local_h + 2*block_h "
+            f"with block_h={block_h} dividing local_h"
         )
-    if not state.is_contiguous():
-        raise ValueError("state must be contiguous")
+    mh = m * program.halo
+    if mh > block_h:
+        raise ValueError(
+            f"m*halo={mh} must be <= block_h={block_h} (halo source)"
+        )
+    return local_h
+
+
+def _rows_contiguous(t) -> bool:
+    p, rows, w = t.shape
+    return t.stride(2) == 1 and t.stride(1) == w and (
+        p == 1 or (t.stride(0) >= rows * w and t.stride(0) % w == 0))
+
+
+def plane_rows(t) -> int:
+    """Rows from one plane of ``t`` to the next (the halo kernels' plane
+    stride, in rows)."""
+    p, rows, w = t.shape
+    return t.stride(0) // w if p > 1 else rows
+
+
+def _span(t) -> tuple[int, int]:
+    last = sum((n - 1) * s for n, s in zip(t.shape, t.stride())) + 1
+    return t.data_ptr(), t.data_ptr() + last * t.element_size()
+
+
+def cuda_args(x, out, out_rows: int | None = None):
+    """Device checks of a launch; returns the output tensor.
+
+    A periodic launch (``out_rows=None``) takes a contiguous ``x`` and
+    writes a tensor like it. A halo launch writes ``(P, out_rows, W)``;
+    there ``x`` and ``out`` need contiguous rows only, each plane a whole
+    number of rows apart, so each may be a row range of a larger ``(P,
+    rows', W)`` buffer (the kernels take each plane stride in rows).
+    """
+    if x.device.type != "cuda":
+        raise RuntimeError(
+            f"the stream kernels take CPU or CUDA tensors, got {x.device}"
+        )
+    if out_rows is None:
+        dense, shape = torch.Tensor.is_contiguous, tuple(x.shape)
+        layout = "contiguous"
+    else:
+        dense, shape = _rows_contiguous, (x.shape[0], out_rows, x.shape[2])
+        layout = ("with contiguous rows, planes a whole number of rows "
+                  "apart")
+    if not dense(x):
+        raise ValueError(f"the launch's input must be {layout}")
     if out is None:
-        return torch.empty_like(state)
-    if (out.shape != state.shape or out.dtype != state.dtype
-            or out.device != state.device or not out.is_contiguous()):
-        raise ValueError("out must be a contiguous f32 tensor like state")
-    if out.data_ptr() == state.data_ptr():
-        raise ValueError("the launch is never in place: out aliases state")
+        return torch.empty(shape, dtype=x.dtype, device=x.device)
+    if (tuple(out.shape) != shape or out.dtype != x.dtype
+            or out.device != x.device or not dense(out)):
+        raise ValueError(f"out must be a {shape} f32 tensor {layout} on "
+                         f"{x.device}")
+    (a0, a1), (b0, b1) = _span(x), _span(out)
+    if a0 < b1 and b0 < a1:
+        raise ValueError("the launch is never in place: out overlaps its "
+                         "input")
     return out
+
+
+def deliver(res, out):
+    """A plain version's result, written into ``out`` when one is given
+    (the CPU path honours ``out`` as the kernel does)."""
+    if out is None:
+        return res
+    if out.shape != res.shape or out.dtype != res.dtype or \
+            out.device != res.device:
+        raise ValueError(f"out must be a {tuple(res.shape)} f32 tensor on "
+                         f"{res.device}")
+    return out.copy_(res)
 
 
 def spd_multistep_plain(program: StripeProgram, state, regs, *, m: int,
@@ -77,6 +151,72 @@ def spd_multistep_plain(program: StripeProgram, state, regs, *, m: int,
     return scatter_centers(tiles, h, w, block_h, block_w, mh, mw)
 
 
+def spd_multistep_halo_plain(program: StripeProgram, ext, regs, *, m: int,
+                             block_h: int, block_w: int):
+    """The halo launches' plain version: the IR interpreted with torch over
+    the launch's tiles (ext rows without wrap, columns mod W), m steps,
+    the ``local_h`` rows of centers reassembled."""
+    _, rows, w = ext.shape
+    mh, mw = m * program.halo, m * program.halo_x
+    tiles = gather_tiles(ext, block_h, block_w, mh, mw, guard=True)
+    for _ in range(m):
+        tiles = program.run(tiles, regs)
+    return scatter_centers(tiles, rows - 2 * block_h, w, block_h, block_w,
+                           mh, mw)
+
+
+def launch(fn, program: StripeProgram, x, regs, *, m: int, block_h: int,
+           block_w: int | None, double_buffer: bool, out, guard: bool):
+    """The body of the four SPD launches.
+
+    ``fn`` is the public wrapper: its name is the kernel's ``extern "C"``
+    entry point, and its ``launches`` counts the kernel's launches. A
+    streamed wrapper (named ``*_streamed``) takes ``double_buffer``; a
+    declarative one passes False. ``guard`` launches over a
+    guard-block-extended shard: ext rows without wrap, ``rows - 2·block_h``
+    output rows, row-range tensors allowed. ``block_w=None`` takes the
+    widest column tile that fits the block's shared memory, and a
+    streamed launch drops to the single-buffer protocol when no
+    prefetching tile fits.
+    """
+    streamed = fn.__name__.endswith("_streamed")
+    if guard:
+        out_rows = check_halo(program, x, m, block_h)
+    else:
+        check_plan(program, x, m, block_h)
+        out_rows = None
+    _, rows, w = x.shape
+    block_w, double_buffer = launch_tile(
+        w, block_h, m, halo=program.halo, halo_x=program.halo_x,
+        planes=lambda db: program.planes(3 if db else 2), block_w=block_w,
+        double_buffer=double_buffer,
+    )
+    if x.device.type == "cpu":
+        plain = spd_multistep_halo_plain if guard else spd_multistep_plain
+        return deliver(plain(program, x, regs, m=m, block_h=block_h,
+                             block_w=block_w), out)
+    from repro_torch.kernels.build import check, spd_regs
+
+    out = cuda_args(x, out, out_rows)
+    smem = tile_smem_bytes(block_h, block_w, m, halo=program.halo,
+                           halo_x=program.halo_x,
+                           planes=program.planes(3 if double_buffer else 2))
+    args = [x.data_ptr(), out.data_ptr(), rows, w]
+    if guard:
+        args += [plane_rows(x), plane_rows(out)]
+    args += [block_h, block_w, m]
+    if streamed:
+        args.append(int(double_buffer))
+    with torch.cuda.device(x.device):
+        check(getattr(program.library(), fn.__name__)(
+            *args, spd_regs(regs), smem,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        ), fn.__name__)
+    fn.launches += 1
+    StripeProgram.count_launch(program.name)
+    return out
+
+
 def spd_multistep(program: StripeProgram, state, regs, *, m: int,
                   block_h: int, block_w: int | None = None, out=None):
     """Fused m-step launch, one thread block per tile.
@@ -85,30 +225,8 @@ def spd_multistep(program: StripeProgram, state, regs, *, m: int,
     ``block_w=None`` takes the widest column tile whose two-buffer tile
     fits the block's shared memory.
     """
-    check_plan(program, state, m, block_h)
-    _, h, w = state.shape
-    block_w, _ = launch_tile(
-        w, block_h, m, halo=program.halo, halo_x=program.halo_x,
-        planes=lambda db: program.planes(2), block_w=block_w,
-        double_buffer=False,
-    )
-    if state.device.type == "cpu":
-        return spd_multistep_plain(program, state, regs, m=m,
-                                   block_h=block_h, block_w=block_w)
-    from repro_torch.kernels.build import check, spd_regs
-
-    out = cuda_args(state, out)
-    smem = tile_smem_bytes(block_h, block_w, m, halo=program.halo,
-                           halo_x=program.halo_x, planes=program.planes(2))
-    lib = program.library()
-    check(lib.spd_multistep(
-        state.data_ptr(), out.data_ptr(), h, w, block_h, block_w, m,
-        spd_regs(regs), smem,
-        torch.cuda.current_stream(state.device).cuda_stream,
-    ), "spd_multistep")
-    spd_multistep.launches += 1
-    StripeProgram.count_launch(program.name)
-    return out
+    return launch(spd_multistep, program, state, regs, m=m, block_h=block_h,
+                  block_w=block_w, double_buffer=False, out=out, guard=False)
 
 
 spd_multistep.launches = 0

@@ -17,16 +17,18 @@ tile's loads with this tile's arithmetic, are the design's answers.
 Both protocols run the same generated tile function as the declarative
 launch, so all three are bitwise identical. On a CPU tensor the launch
 runs the shared plain version.
+
+:func:`spd_multistep_halo_streamed` is the same walk over one
+guard-block-extended shard of a device mesh (docs/port.md §distribute),
+the twin of :func:`repro_torch.kernels.spd_stream.sharded
+.spd_multistep_halo`.
 """
 
 from __future__ import annotations
 
-import torch
-
 from repro_torch.core.codegen import StripeProgram
-from repro_torch.core.legalize import launch_tile, tile_smem_bytes
 
-from .spd_stream import check_plan, cuda_args, spd_multistep_plain
+from .spd_stream import launch
 
 
 def spd_multistep_streamed(program: StripeProgram, state, regs, *, m: int,
@@ -39,31 +41,39 @@ def spd_multistep_streamed(program: StripeProgram, state, regs, *, m: int,
     ``double_buffer`` drops to the single-buffer protocol when no
     prefetching tile fits the block's shared memory.
     """
-    check_plan(program, state, m, block_h)
-    _, h, w = state.shape
-    block_w, double_buffer = launch_tile(
-        w, block_h, m, halo=program.halo, halo_x=program.halo_x,
-        planes=lambda db: program.planes(3 if db else 2), block_w=block_w,
-        double_buffer=double_buffer,
-    )
-    if state.device.type == "cpu":
-        return spd_multistep_plain(program, state, regs, m=m,
-                                   block_h=block_h, block_w=block_w)
-    from repro_torch.kernels.build import check, spd_regs
-
-    out = cuda_args(state, out)
-    planes = program.planes(3 if double_buffer else 2)
-    smem = tile_smem_bytes(block_h, block_w, m, halo=program.halo,
-                           halo_x=program.halo_x, planes=planes)
-    lib = program.library()
-    check(lib.spd_multistep_streamed(
-        state.data_ptr(), out.data_ptr(), h, w, block_h, block_w, m,
-        int(double_buffer), spd_regs(regs), smem,
-        torch.cuda.current_stream(state.device).cuda_stream,
-    ), "spd_multistep_streamed")
-    spd_multistep_streamed.launches += 1
-    StripeProgram.count_launch(program.name)
-    return out
+    return launch(spd_multistep_streamed, program, state, regs, m=m,
+                  block_h=block_h, block_w=block_w,
+                  double_buffer=double_buffer, out=out, guard=False)
 
 
 spd_multistep_streamed.launches = 0
+
+
+def spd_multistep_halo_streamed(program: StripeProgram, ext, regs, *,
+                                m: int, block_h: int,
+                                block_w: int | None = None,
+                                double_buffer: bool = True, out=None):
+    """Streamed fused m-step launch over one guard-block-extended shard.
+
+    The streamed twin of
+    :func:`repro_torch.kernels.spd_stream.sharded.spd_multistep_halo`
+    (replaces the JAX package's ``kernels/spd_stream/streaming.py:
+    spd_multistep_halo_streamed``): ``ext`` is the ``(P, local_h +
+    2·block_h, W)`` shard, output block i's stripe is ext rows ``(i +
+    1)·block_h - m·halo ...`` with no wrap, and persistent blocks walk the
+    tiles with the same ``cp.async`` prefetch as
+    :func:`spd_multistep_streamed`. Same contract, errors and bits as the
+    declarative launch; ``m·halo == 0`` takes the periodic streamed
+    launch.
+    """
+    if m * program.halo == 0:
+        return spd_multistep_streamed(
+            program, ext, regs, m=m, block_h=block_h, block_w=block_w,
+            double_buffer=double_buffer, out=out,
+        )
+    return launch(spd_multistep_halo_streamed, program, ext, regs, m=m,
+                  block_h=block_h, block_w=block_w,
+                  double_buffer=double_buffer, out=out, guard=True)
+
+
+spd_multistep_halo_streamed.launches = 0

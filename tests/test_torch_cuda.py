@@ -74,3 +74,101 @@ def test_smem_pricing_equals_the_kernels(card):
     for nbuf in (2, 3):
         assert lib.spd_smem_bytes(16, 32, 4, nbuf) == tile_smem_bytes(
             16, 32, 4, halo=1, halo_x=1, planes=kern.program.planes(nbuf))
+
+
+@pytest.mark.parametrize("m", [1, 4])
+def test_halo_launches_equal_plain(card, m):
+    """Guard-extended shards (96 rows: 64 + two 16-row guard blocks) of
+    the uLBM PE and of diffusion, at a width with a ragged last column
+    tile and at one without: both halo launches == their plain version on
+    every column, streamed == declarative, double_buffer on == off."""
+    from repro_torch.kernels.spd_stream import (
+        spd_multistep_halo,
+        spd_multistep_halo_streamed,
+    )
+    from repro_torch.kernels.spd_stream.sharded import (
+        spd_multistep_halo_plain,
+    )
+
+    sim = lbm.LBMSimulation(lbm.LBMProblem(96, 104))
+    f, attr = lbm.couette_init(96, 104)
+    pe = (sim.stream_kernel().program, sim.stream_state(f, attr),
+          (1 / 0.9, 0.07, 1.0))
+    dsim = dif.DiffusionSimulation(96, 104)
+    d = (dsim.kernel.program, dsim.state(dif.sine_init(96, 104)[0]), (0.2,))
+    for program, state, regs in (pe, d):
+        for width in (104, 96):
+            ext = state[:, :, :width].contiguous()
+            want = spd_multistep_halo_plain(program, ext, regs, m=m,
+                                            block_h=16, block_w=32)
+            got = spd_multistep_halo(program, ext, regs, m=m, block_h=16,
+                                     block_w=32)
+            assert torch.equal(got, want)
+            for db in (True, False):
+                assert torch.equal(spd_multistep_halo_streamed(
+                    program, ext, regs, m=m, block_h=16, block_w=32,
+                    double_buffer=db), want)
+
+
+@pytest.mark.parametrize("case", ["tgv", "couette"])
+def test_mesh_on_one_card_equals_single(card, case):
+    sim = lbm.LBMSimulation(lbm.LBMProblem(64, 96))
+    kern = sim.stream_kernel()
+    if case == "tgv":
+        f, attr, _ = lbm.taylor_green_init(64, 96)
+        regs = (1 / 0.8, 0.0, 1.0)
+    else:
+        f, attr = lbm.couette_init(64, 96)
+        regs = (1 / 0.9, 0.07, 1.0)
+    state = sim.stream_state(f, attr)
+    single = kern.run_blocked(state, regs, steps=8, m=4, block_h=8)
+    sk = kern.sharded(4, devices=["cuda:0"] * 4, dx=2)
+    for overlap in (True, False):
+        assert torch.equal(sk.run_blocked(state, regs, steps=8, m=4,
+                                          block_h=8, overlap=overlap),
+                           single)
+    assert torch.equal(sk.multistep(state, regs, m=4, block_h=8),
+                       kern.run_blocked(state, regs, steps=4, m=4,
+                                        block_h=8))
+
+
+def test_launch_and_mesh_device_checks(card):
+    """A halo launch writes into a row range of a larger buffer and
+    refuses an output that overlaps its input; a CUDA state given to a
+    mesh of CPU devices raises instead of running on the host."""
+    from repro_torch.kernels.spd_stream import spd_multistep_halo_streamed
+
+    dsim = dif.DiffusionSimulation(64, 96)
+    prog, state = dsim.kernel.program, dsim.state(dif.sine_init(64, 96)[0])
+    want = spd_multistep_halo_streamed(prog, state, (0.2,), m=2, block_h=8)
+    buf = torch.zeros((1, 64, 96), device="cuda")
+    got = spd_multistep_halo_streamed(prog, state, (0.2,), m=2, block_h=8,
+                                      out=buf[:, 8:56])
+    assert got.data_ptr() == buf[:, 8:56].data_ptr()
+    assert torch.equal(buf[:, 8:56], want)
+    with pytest.raises(ValueError, match="overlaps its input"):
+        spd_multistep_halo_streamed(prog, buf, (0.2,), m=2, block_h=8,
+                                    out=buf[:, 8:56])
+    sk = dsim.kernel.sharded(2, devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="mesh on cpu"):
+        sk.run_blocked(state, (0.2,), steps=2, m=2, block_h=8)
+
+
+def test_mesh_over_distinct_cards_equals_single(card):
+    """The default device list cuda:0 … cuda:3: peer copies between
+    cards and one launch per card, still bitwise the single-card run."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (a mesh over distinct cards)")
+    sim = lbm.LBMSimulation(lbm.LBMProblem(64, 96))
+    kern = sim.stream_kernel()
+    f, attr = lbm.couette_init(64, 96)
+    state = sim.stream_state(f, attr)
+    regs = (1 / 0.9, 0.07, 1.0)
+    single = kern.run_blocked(state, regs, steps=8, m=4, block_h=4)
+    for dx in (1, 2, 4):
+        sk = kern.sharded(4, dx=dx)
+        assert [dev for row in sk.grid for dev in row] == [
+            torch.device("cuda", i) for i in range(4)]
+        out = sk.run_blocked(state, regs, steps=8, m=4, block_h=4)
+        assert out.device == torch.device("cuda", 0)
+        assert torch.equal(out, single)

@@ -29,10 +29,13 @@ import repro_torch.apps.lbm
 import repro_torch.kernels.build
 import repro_torch.kernels.spd_stream
 import repro_torch.kernels.lbm_stream.ops
+import repro_torch.core.distribute
 from repro_torch.apps import diffusion
 sim = diffusion.DiffusionSimulation(16, 32, device="cpu")
 u0, _ = diffusion.sine_init(16, 32, device="cpu")
 assert sim.run(u0, 4, m=2, block_h=8).shape == (16, 32)
+assert sim.run(u0, 4, m=2, block_h=4, d=2).equal(sim.run(u0, 4, m=2,
+                                                         block_h=4))
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 assert not bad, bad
 print("ok")
