@@ -28,10 +28,20 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    MLUPS and the exchange's time apart from the launches;
 4. physics through the kernels: Taylor-Green decay and the diffusion sine
    mode;
+6. LM serving (run before phase 5): (a) the flash-attention kernel
+   against its plain version on the reference's test matrix at D 128 in
+   f32 and bf16, two block shapes, and the Qwen3-8B prefill shape; (b)
+   Qwen3-8B at full width in bf16 (random weights from a seeded
+   generator): the prefill step on 4 prompts of 2048 tokens, flash
+   launches counted from 0, next-token logits held to the same model with
+   plain attention; (c) the continuous-batching engine at full width, 8
+   requests on 4 slots; (d) greedy consistency at full width and 4
+   layers in f32: engine tokens == argmax of the kernel-run forward, and
+   decode logits == forward logits;
 5. at the main-path shapes, each kernel held to its plain version again
    and timed (CUDA events) against its bound, its plain version and, for
-   diffusion, one PyTorch call sequence (``library_ms``); the halo
-   kernels at one shard of the phase-3b runs.
+   diffusion and flash attention, one PyTorch call (``library_ms``); the
+   halo kernels at one shard of the phase-3b runs.
 
 The last two lines are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -120,13 +130,203 @@ def timed_pair(name, kernel_fn, plain_fn, plain_iters=2, iters=10):
     return ms, plain_ms, err
 
 
-def card_peaks(name: str) -> tuple[float, float]:
-    """(HBM bytes/s, FP32 non-tensor FLOP/s) from NVIDIA's data sheets."""
+def card_peaks(name: str) -> tuple[float, float, float]:
+    """(HBM bytes/s, FP32 non-tensor FLOP/s, bf16 dense tensor-core
+    FLOP/s) from NVIDIA's data sheets."""
     if "PCIe" in name:
-        return 2.0e12, 51e12
+        return 2.0e12, 51e12, 756e12
     if "NVL" in name:
-        return 3.9e12, 60e12
-    return 3.35e12, 67e12  # H100 SXM (80GB HBM3)
+        return 3.9e12, 60e12, 835e12
+    return 3.35e12, 67e12, 989e12  # H100 SXM (80GB HBM3)
+
+
+#: Flash kernel vs its plain version on the same card inputs: f32 at the
+#: JAX kernel test's 2e-3 (scalar FMAs summed in another order), bf16 at
+#: its 2e-2 (bf16 probabilities in P·V, bf16 output rounding).
+FLASH_TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
+             "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+#: The reference's flash test matrix (tests/test_kernels.py), at D 128:
+#: (B, Hq, Hkv, Sq, Sk, causal, window).
+FLASH_MATRIX = {
+    "mha": (1, 2, 2, 128, 128, True, 0),
+    "mqa": (2, 4, 1, 128, 128, True, 0),
+    "gqa_prefix": (1, 4, 2, 64, 256, True, 0),
+    "bidirectional": (1, 2, 2, 128, 128, False, 0),
+    "window": (1, 2, 2, 256, 256, True, 64),
+}
+#: The Qwen3-8B prefill: prompts x tokens, and its attention launch shape.
+PREFILL = (4, 2048)
+#: Full-width bf16 prefill through the kernel against the same model with
+#: plain attention: both round each layer's attention output to bf16 but
+#: at other places inside, and 36 layers carry the difference to the
+#: logits; held as a relative L2 error of the next-token logits.
+PREFILL_REL_L2 = 5e-2
+#: Decode logits against forward logits (tests/test_archs.py).
+DECODE_TOL = dict(rtol=5e-2, atol=5e-2)
+
+
+def lm_serving(cfg) -> dict:
+    """Phase 6: the flash kernel against its plain version, the prefill
+    and the engine of ``cfg`` at full width, and the f32 greedy check.
+    Returns the numbers phase 5's flash row needs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    phase("phase 6: LM serving")
+    dev = "cuda"
+    out = {"errs": []}
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def qkv(b, hq, hkv, sq, sk, d, dtype):
+        mk = lambda h, s: torch.randn(  # noqa: E731
+            (b, h, s, d), generator=g, device=dev).to(dtype)
+        return mk(hq, sq), mk(hkv, sk), mk(hkv, sk)
+
+    # 6a. the kernel against its plain version
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        for case, (b, hq, hkv, sq, sk, causal, window) in FLASH_MATRIX.items():
+            q, k, v = qkv(b, hq, hkv, sq, sk, 128, dtype)
+            kw = dict(causal=causal, window=window)
+            got = flash_attention(q, k, v, **kw)
+            want = flash_attention_plain(q, k, v, **kw)
+            out["errs"].append(check_close(
+                f"flash {case} {dname}", got.float(), want.float(),
+                FLASH_TOL[dname]))
+        q, k, v = qkv(1, 2, 2, 128, 256, 128, dtype)
+        a = flash_attention(q, k, v, block_q=64, block_k=64)
+        b = flash_attention(q, k, v, block_q=128, block_k=128)
+        check_equal(f"flash {dname} blocks 64x64 == 128x128", a, b)
+        out["errs"].append(check_close(
+            f"flash {dname} blocks 64x64 vs plain", a.float(),
+            flash_attention_plain(q, k, v).float(), FLASH_TOL[dname]))
+    b, s = PREFILL
+    q, k, v = qkv(b, cfg.n_heads, cfg.n_kv_heads, s, s, cfg.head_dim,
+                  torch.bfloat16)
+    out["errs"].append(check_close(
+        f"flash prefill shape q {tuple(q.shape)} kv {tuple(k.shape)} bf16",
+        flash_attention(q, k, v).float(),
+        flash_attention_plain(q, k, v).float(), FLASH_TOL["bfloat16"]))
+    out["qkv"] = (q, k, v)
+
+    # 6b. the prefill step at full width, bf16
+    torch.cuda.reset_peak_memory_stats()
+    bundle = registry.build(cfg, device=dev)
+    plain = registry.build(cfg, device=dev, use_kernel=False)
+    model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    prefill = bundle.make_prefill_step()
+    tok_gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(1, cfg.vocab, PREFILL, generator=tok_gen,
+                           device=dev)
+    prefill(model, {"tokens": tokens[:1, :128]})  # warm-up
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    nxt = prefill(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["launches"] = flash_attention.launches
+    phase(f"  launches on the LM prefill path: "
+          f"{{'flash_attention': {out['launches']}}}")
+    if out["launches"] != cfg.n_layers:
+        fail(f"flash_attention launched {out['launches']} times in the "
+             f"prefill, expected {cfg.n_layers}")
+    if nxt.shape != (b, cfg.vocab) or not torch.isfinite(nxt).all():
+        fail(f"prefill logits: shape {tuple(nxt.shape)} or non-finite")
+    want = plain.make_prefill_step()(model, {"tokens": tokens})
+    rel = float((nxt.float() - want.float()).norm() / want.float().norm())
+    agree = int((nxt.argmax(-1) == want.argmax(-1)).sum())
+    phase(f"  {cfg.name} prefill {b}x{s}: {wall * 1e3:.1f} ms, "
+          f"{b * s / wall:.0f} tokens/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; next-token "
+          f"logits vs plain attention: rel L2 {rel:.3e} (<= "
+          f"{PREFILL_REL_L2}), max abs err {max_err(nxt, want):.3e}, "
+          f"argmax agrees on {agree}/{b}")
+    if not rel <= PREFILL_REL_L2:
+        fail(f"prefill logits rel L2 {rel} vs plain attention")
+    del want
+
+    # 6c. the engine at full width, bf16
+    rng = np.random.default_rng(0)
+    eng = ServeEngine(bundle, model, max_batch=4, max_seq=256)
+    for rid in range(8):
+        prompt = rng.integers(1, cfg.vocab, rng.integers(4, 17)).tolist()
+        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=16))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if sorted(c.rid for c in done) != list(range(8)) or not all(
+            len(c.tokens) == 16 and all(0 <= t < cfg.vocab for t in c.tokens)
+            for c in done):
+        fail(f"engine completions malformed: {[(c.rid, c.tokens) for c in done]}")
+    phase(f"  engine: 8 requests x 16 tokens on 4 slots in "
+          f"{wall * 1e3:.1f} ms, {8 * 16 / wall:.1f} decode tokens/s, "
+          f"{eng.decode_calls} decode steps ({eng.decode_calls / wall:.1f} "
+          "steps/s)")
+    # Ten full-batch steps alone: the host's time to enqueue them against
+    # the time until the card is done (equal when the host bounds the
+    # step), beside the step's bound, reading every weight once.
+    tok = torch.ones((4, 1), dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(10):
+        bundle.decode(model, tok, eng.cache, 200 + i)
+    enqueue = (time.perf_counter() - t0) / 10
+    torch.cuda.synchronize()
+    step = (time.perf_counter() - t0) / 10
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    phase(f"  one decode step (4 slots, cache 256): {step * 1e3:.2f} ms, "
+          f"host enqueue {enqueue * 1e3:.2f} ms, weight-read bound "
+          f"{weights / card_peaks(torch.cuda.get_device_name(0))[0] * 1e3:.2f}"
+          " ms")
+    del eng, model, bundle, plain
+    torch.cuda.empty_cache()
+
+    # 6d. greedy consistency at full width, 4 layers, f32
+    f32 = dataclasses.replace(cfg, n_layers=4, dtype="float32")
+    bundle = registry.build(f32, device=dev)
+    model = bundle.init(torch.Generator(device=dev).manual_seed(2))
+    prompts = [rng.integers(1, cfg.vocab, 6).tolist() for _ in range(2)]
+    eng = ServeEngine(bundle, model, max_batch=2, max_seq=64)
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=list(p), max_new_tokens=8))
+    done = {c.rid: c.tokens for c in eng.run_until_drained()}
+    for rid, p in enumerate(prompts):
+        seq = list(p)
+        for t in done[rid]:
+            logits = bundle.forward(model, {"tokens": torch.tensor(
+                [seq], device=dev)})
+            if t != int(logits[0, -1].argmax()):
+                fail(f"f32 engine request {rid}: token {t} != forward "
+                     f"argmax after {seq}")
+            seq.append(t)
+    phase(f"  f32 4-layer engine, 2 slots at one position: {done} == "
+          "argmax of the kernel-run forward")
+    toks = torch.tensor([prompts[0] + done[0], prompts[1] + done[1]],
+                        device=dev)
+    n = toks.shape[1]
+    full = bundle.forward(model, {"tokens": toks})
+    cache = bundle.cache_init(2, n)
+    steps = []
+    for t in range(n):
+        lg, cache = bundle.decode(model, toks[:, t:t + 1], cache, t)
+        steps.append(lg[:, 0])
+    check_close(f"f32 decode logits vs forward logits over {n} positions",
+                torch.stack(steps, dim=1), full, DECODE_TOL)
+    del model, bundle, cache, full
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> None:
@@ -194,10 +394,11 @@ def main() -> None:
         "spd_Diff2D": dprog.cuda_source(),
         "spd_PEx1": lprog.cuda_source(),
         "lbm_stream": build.lbm_source(),
+        "flash_attention": build.flash_source(),
     })
-    phase(f"  built 3 kernel libraries in {build_s:.2f} s (nvcc in "
+    phase(f"  built 4 kernel libraries in {build_s:.2f} s (nvcc in "
           "parallel)")
-    hbm, fp32 = card_peaks(kind)
+    hbm, fp32, bf16_peak = card_peaks(kind)
 
     # ---- 2. kernels against their plain versions at 512x1024 ----------
     phase("phase 2: kernels vs plain versions, 512x1024")
@@ -481,14 +682,19 @@ def main() -> None:
     phase(f"  diffusion sine 32x128, 40 steps: ratio {ratio:.7f} vs exact "
           f"{want:.7f} (rel {abs(ratio - want) / want:.2e} <= 1e-4)")
 
+    # ---- 6. LM serving (before phase 5, which times its kernel) ------
+    from repro_torch.configs import get_arch
+
+    lm = lm_serving(get_arch("qwen3-8b"))
+
     # ---- 5. timing at the main-path shapes ----------------------------
     phase("phase 5: timing (CUDA events) and kernel vs plain at the "
           "main-path shapes")
     kernels = []
 
     def record(name, source, replaces, n, ms, plain_ms, nbytes, ops,
-               err, library_ms=None):
-        t_bytes, t_ops = nbytes / hbm * 1e3, ops / fp32 * 1e3
+               err, library_ms=None, peak=fp32):
+        t_bytes, t_ops = nbytes / hbm * 1e3, ops / peak * 1e3
         bound = max(t_bytes, t_ops)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -649,6 +855,28 @@ def main() -> None:
            launches["lbm_multistep"], ms, plain_ms,
            19 * 4096 * 4096 * 4, 131 * 4 * 4096 * 4096,
            max(errs["hand"] + [err]))
+
+    # Flash attention at the Qwen3-8B prefill's launch shape (bf16, causal).
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    q, k, v = lm["qkv"]
+    ms, got = cuda_ms(lambda: flash_attention(q, k, v))
+    plain_ms, want = cuda_ms(lambda: flash_attention_plain(q, k, v), 2)
+    err = check_close("flash prefill shape vs plain", got.float(),
+                      want.float(), FLASH_TOL["bfloat16"])
+    lib_ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    b_, hq_, s_, d_ = q.shape
+    pairs = s_ * (s_ + 1) // 2  # causal with sq == sk
+    record("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+           "src/repro/kernels/flash_attention/flash_attention.py:106",
+           lm["launches"], ms, plain_ms,
+           2 * (2 * q.numel() + k.numel() + v.numel()),
+           4 * b_ * hq_ * d_ * pairs, max(lm["errs"] + [err]), lib_ms,
+           peak=bf16_peak)
 
     phase(f"  mesh runs: {json.dumps(mesh)}")
     phase(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,0 +1,54 @@
+"""Assigned-architecture configs (exact public numbers): copies of the JAX
+package's ``configs/`` with a torch ``param_dtype`` (``base.py``)."""
+
+from .base import ArchConfig, MoEConfig, SSMConfig, SHAPES, ShapeConfig, shape_applicable
+from . import (
+    granite_34b,
+    kimi_k2_1t_a32b,
+    llava_next_34b,
+    mixtral_8x7b,
+    nemotron_4_15b,
+    qwen2_5_32b,
+    qwen3_8b,
+    whisper_medium,
+    xlstm_125m,
+    zamba2_7b,
+)
+
+ARCHS: dict[str, ArchConfig] = {
+    m.CONFIG.name: m.CONFIG
+    for m in (
+        granite_34b,
+        nemotron_4_15b,
+        qwen2_5_32b,
+        qwen3_8b,
+        zamba2_7b,
+        whisper_medium,
+        xlstm_125m,
+        mixtral_8x7b,
+        kimi_k2_1t_a32b,
+        llava_next_34b,
+    )
+}
+
+
+def get_arch(name: str) -> ArchConfig:
+    key = name.replace("_", "-")
+    if key in ARCHS:
+        return ARCHS[key]
+    for k in ARCHS:
+        if k.replace(".", "-").replace("_", "-") == key:
+            return ARCHS[k]
+    raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
+
+
+__all__ = [
+    "ARCHS",
+    "ArchConfig",
+    "MoEConfig",
+    "SHAPES",
+    "SSMConfig",
+    "ShapeConfig",
+    "get_arch",
+    "shape_applicable",
+]

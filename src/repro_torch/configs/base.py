@@ -1,0 +1,194 @@
+"""Architecture config schema + the assigned input-shape suite.
+
+The port of the JAX package's ``configs/base.py``: the same dataclasses and
+analytic parameter counts, with ``param_dtype`` a ``torch.dtype``. The
+hybrid/SSM parameter count walks a real parameter tree there; those
+families are not ported yet (ROADMAP Queue 1, item 13), so it raises here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+
+import torch
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int
+    n_shared: int = 0  # shared-expert multiplier (kimi-style)
+    capacity_factor: float = 1.25
+    moe_start_layer: int = 0  # dense layers before the MoE stack
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    state: int = 64
+    head_dim: int = 64
+    expand: int = 2
+    conv: int = 4
+    chunk: int = 128
+    n_groups: int = 1
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str  # dense | moe | hybrid | ssm | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+    activation: str = "swiglu"  # swiglu | squared_relu | gelu
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    use_rope: bool = True
+    rope_theta: float = 10_000.0
+    tie_embeddings: bool = False
+    sliding_window: int = 0
+    moe: MoEConfig | None = None
+    ssm: SSMConfig | None = None
+    attn_period: int = 0  # hybrid: shared attn block every k SSM layers
+    block_pattern: tuple = ()  # ssm family: 'mlstm' / 'slstm' per layer
+    enc_dec: bool = False  # audio: encoder-decoder
+    n_frontend_tokens: int = 0  # vlm: stubbed patch embeddings
+    dtype: str = "bfloat16"
+    opt_state_dtype: str = "float32"
+    # long_500k policy (DESIGN.md §Shape-policy): sub-quadratic decode only
+    supports_long_context: bool = False
+    notes: str = ""
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def param_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    # ---- analytic parameter counts (drive the planner + roofline) --------
+    def attn_params(self) -> int:
+        hd = self.head_dim
+        p = self.d_model * hd * (self.n_heads * 2 + self.n_kv_heads * 2)
+        if self.qkv_bias:
+            p += hd * (self.n_heads + 2 * self.n_kv_heads)
+        return p
+
+    def mlp_params(self, d_ff: int | None = None) -> int:
+        f = d_ff if d_ff is not None else self.d_ff
+        mult = 3 if self.activation == "swiglu" else 2
+        return mult * self.d_model * f
+
+    def layer_params(self, moe_layer: bool | None = None) -> int:
+        moe_layer = (self.moe is not None) if moe_layer is None else moe_layer
+        p = self.attn_params() + 2 * self.d_model  # norms
+        if moe_layer and self.moe:
+            p += self.moe.n_experts * 3 * self.d_model * self.moe.d_ff
+            p += self.d_model * self.moe.n_experts  # router
+            if self.moe.n_shared:
+                p += self.mlp_params(self.moe.d_ff * self.moe.n_shared)
+        else:
+            p += self.mlp_params()
+        return p
+
+    def num_params(self) -> float:
+        emb = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
+        if self.family in ("hybrid", "ssm"):
+            raise NotImplementedError(
+                f"num_params of the {self.family!r} family counts its real "
+                "parameter tree, and the hybrid/SSM models are not ported "
+                "yet (ROADMAP Queue 1, item 13)"
+            )
+        if self.enc_dec:
+            enc = self.attn_params() + self.mlp_params() + 2 * self.d_model
+            dec = 2 * self.attn_params() + self.mlp_params() + 3 * self.d_model
+            return float(self.n_layers * (enc + dec) + emb)
+        if self.moe:
+            n_dense = self.moe.moe_start_layer
+            return float(
+                n_dense * self.layer_params(moe_layer=False)
+                + (self.n_layers - n_dense) * self.layer_params(moe_layer=True)
+                + emb
+            )
+        return float(self.n_layers * self.layer_params() + emb)
+
+    def active_params(self) -> float:
+        """Per-token active parameters (MoE activates top_k of n_experts)."""
+        if not self.moe:
+            return self.num_params()
+        active_layer = (
+            self.attn_params()
+            + 2 * self.d_model
+            + self.moe.top_k * 3 * self.d_model * self.moe.d_ff
+            + (self.mlp_params(self.moe.d_ff * self.moe.n_shared)
+               if self.moe.n_shared else 0)
+        )
+        emb = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
+        return float(self.n_layers * active_layer + emb)
+
+    # ---- reduced config for CPU smoke tests -------------------------------
+    def reduced(self) -> "ArchConfig":
+        changes: dict = dict(
+            n_layers=min(self.n_layers, 2 if not self.attn_period else 4),
+            d_model=128,
+            n_heads=4,
+            n_kv_heads=min(self.n_kv_heads, 2) or 1,
+            d_ff=256,
+            vocab=512,
+            head_dim=32,
+            sliding_window=min(self.sliding_window, 16) if self.sliding_window
+            else 0,
+            n_frontend_tokens=8 if self.n_frontend_tokens else 0,
+            dtype="float32",
+        )
+        if self.moe:
+            changes["moe"] = dataclasses.replace(
+                self.moe, n_experts=4, top_k=2, d_ff=128,
+                n_shared=min(self.moe.n_shared, 1),
+                moe_start_layer=min(self.moe.moe_start_layer, 1),
+                # ample capacity: smoke tests assert prefill==decode, so no
+                # token may drop on either path
+                capacity_factor=8.0,
+            )
+        if self.ssm:
+            changes["ssm"] = dataclasses.replace(
+                self.ssm, state=16, head_dim=16, chunk=16
+            )
+        if self.attn_period:
+            changes["attn_period"] = 2
+        if self.block_pattern:
+            changes["block_pattern"] = tuple(self.block_pattern[:2]) or (
+                "mlstm", "slstm",
+            )
+        if self.n_kv_heads == self.n_heads:  # keep MHA archs MHA
+            changes["n_kv_heads"] = changes["n_heads"]
+        return dataclasses.replace(self, **changes)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """DESIGN.md shape policy: which (arch x shape) cells run."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, "full-attention arch: 500k dense-KV decode skipped"
+    return True, ""

@@ -1,0 +1,19 @@
+"""qwen3-8b [dense]: 36L d_model=4096 32H (GQA kv=8) d_ff=12288
+vocab=151936 — qk-norm, SwiGLU, head_dim=128 (hf:Qwen/Qwen3-8B)."""
+
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen3-8b",
+    family="dense",
+    n_layers=36,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=12288,
+    vocab=151936,
+    head_dim=128,
+    activation="swiglu",
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+)

@@ -1,9 +1,12 @@
-"""What crosses between the JAX package and the port: data and structure.
+"""What crosses between the JAX package and the port: data, structure
+and weights.
 
-The system has no weights. Its inputs are SPD text, Append_Reg values and
-initial states; :func:`from_numpy` moves a state onto a device, and
-:func:`core_structure` renders a parsed ``Core`` as plain Python so the
-two packages' parsers can be compared without importing each other.
+The stream system has no weights. Its inputs are SPD text, Append_Reg
+values and initial states; :func:`from_numpy` moves a state onto a device,
+and :func:`core_structure` renders a parsed ``Core`` as plain Python so
+the two packages' parsers can be compared without importing each other.
+The LM substrate's weights cross as numpy arrays: :func:`params_from_jax`
+loads a JAX parameter tree into the port's ``Transformer``.
 """
 
 from __future__ import annotations
@@ -98,3 +101,42 @@ def core_structure(core) -> tuple:
         ),
         tuple((tuple(d), tuple(s)) for d, s in core.drcts),
     )
+
+
+def params_from_jax(tree, cfg, device):
+    """The port's ``Transformer`` of ``cfg`` on ``device`` holding the
+    weights of a JAX parameter tree.
+
+    ``tree`` is the JAX package's ``init_params`` tree with every leaf a
+    numpy array: ``embed``, ``ln_f``, ``lm_head`` (unless tied) and
+    ``layers``, whose leaves carry the stacked ``L`` axis first. Matrices
+    are ``(d_in, d_out)`` in both packages, so nothing is transposed.
+    """
+    from repro_torch.models.transformer import Transformer
+
+    dev = resolve_device(device)
+    model = Transformer(cfg, device=dev)
+    if "moe_layers" in tree or "layers" not in tree:
+        raise NotImplementedError("only the dense decoder-only tree "
+                                  "(``layers``) is ported")
+
+    def put(param, value):
+        value = np.asarray(value)
+        if tuple(value.shape) != tuple(param.shape):
+            raise ValueError(f"shape {value.shape} != {tuple(param.shape)}")
+        with torch.no_grad():
+            param.copy_(torch.from_numpy(np.array(value, np.float32)))
+
+    put(model.embed, tree["embed"])
+    put(model.ln_f, tree["ln_f"])
+    if not cfg.tie_embeddings:
+        put(model.lm_head, tree["lm_head"])
+    stacked = tree["layers"]
+    for i, layer in enumerate(model.layers):
+        put(layer.ln1, stacked["ln1"][i])
+        put(layer.ln2, stacked["ln2"][i])
+        for name, value in stacked["attn"].items():
+            put(getattr(layer.attn, name), value[i])
+        for name, value in stacked["mlp"].items():
+            put(getattr(layer.mlp, name), value[i])
+    return model

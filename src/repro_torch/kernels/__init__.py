@@ -3,7 +3,9 @@
 * ``spd_stream`` — the generated temporal-blocking stream kernel that
   ``repro_torch.core.codegen`` prints from any compiled SPD core, in a
   declarative and a streamed (persistent, prefetching) launch;
-* ``lbm_stream`` — the hand-written fused m-step D2Q9 LBM kernel.
+* ``lbm_stream`` — the hand-written fused m-step D2Q9 LBM kernel;
+* ``flash_attention`` — the hand-written blocked online-softmax attention
+  kernel that the LM prefill runs in every layer.
 
 Each module keeps its kernel's plain torch version beside the wrapper and
 counts launches on the wrapper (``fn.launches``); ``build`` compiles the

@@ -11,7 +11,9 @@ process builds each kernel once; nothing is compiled at import time.
 Flags: ``sm_90a``, ``-O3`` and ``-fmad=false`` — no multiply-add is
 contracted, so a kernel's arithmetic is op for op that of its plain torch
 version — and no ``--use_fast_math``, which would change ``/``, ``sqrt``
-and ``exp``.
+and ``exp``. The flash-attention library is held to its plain version
+under a tolerance, not bit for bit, and is built without ``-fmad=false``
+(:data:`FLASH_NVCC_FLAGS`).
 """
 
 from __future__ import annotations
@@ -31,7 +33,14 @@ NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+FLASH_NVCC_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
+
 _LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def flags_for(name: str) -> tuple:
+    """The ``nvcc`` flags of the library ``name``."""
+    return FLASH_NVCC_FLAGS if name == "flash_attention" else NVCC_FLAGS
 
 
 def build_dir() -> Path:
@@ -57,7 +66,7 @@ def _headers() -> str:
 
 def _paths(name: str, source: str) -> tuple[Path, Path]:
     key = hashlib.sha256(
-        (source + _headers() + " ".join(NVCC_FLAGS)).encode()
+        (source + _headers() + " ".join(flags_for(name))).encode()
     ).hexdigest()[:16]
     d = build_dir()
     return d / f"{name}-{key}.cu", d / f"{name}-{key}.so"
@@ -71,7 +80,8 @@ def _start(name: str, source: str):
     cu.parent.mkdir(parents=True, exist_ok=True)
     cu.write_text(source)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(cu)]
+    cmd = [nvcc(), *flags_for(name), "-I", str(CSRC), "-o", str(tmp),
+           str(cu)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return so, (proc, tmp, cmd)
@@ -115,6 +125,9 @@ def check(rc: int, what: str) -> None:
     if rc == -1:
         raise RuntimeError(f"{what}: shared memory passed is below the "
                            "kernel's own pricing of the tile")
+    if rc == -2:
+        raise RuntimeError(f"{what}: the library has no instantiation for "
+                           "this head dim and dtype")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
@@ -168,4 +181,26 @@ def load_lbm_library() -> ctypes.CDLL:
     lib.lbm_multistep.restype = _I
     lib.lbm_smem_bytes.argtypes = [_I, _I, _I]
     lib.lbm_smem_bytes.restype = _LL
+    return lib
+
+
+class FlashStrides(ctypes.Structure):
+    """``struct FlashStrides`` of ``csrc/flash_attention.cu``: the batch,
+    head and sequence strides (elements) of q, k, v and the output."""
+
+    _fields_ = [("s", ctypes.c_longlong * 12)]
+
+
+def flash_source() -> str:
+    return (CSRC / "flash_attention.cu").read_text()
+
+
+def load_flash_library() -> ctypes.CDLL:
+    """Build and bind the hand-written flash-attention kernel
+    (``csrc/flash_attention.cu``)."""
+    lib = load("flash_attention", flash_source())
+    lib.flash_attention_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                        _I, _I, FlashStrides,
+                                        ctypes.c_float, _I, _I, _P]
+    lib.flash_attention_fwd.restype = _I
     return lib

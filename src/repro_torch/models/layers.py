@@ -1,0 +1,251 @@
+"""Shared neural layers, the dense subset (the port of the JAX package's
+``models/layers.py``).
+
+Conventions:
+* parameters live in ``nn.Module``s (:class:`Attention`, :class:`MLP`) as
+  ``(d_in, d_out)`` matrices applied as ``x @ w``, the JAX package's layout,
+  so carried-across weights need no transpose;
+* norms, rope and softmax run in f32 and cast back to the input dtype;
+* the functions take the module whose weights they apply, as the JAX ones
+  take a parameter dict.
+
+The reference's sharding hints (``parallel.hints.constrain``) and remat
+names (``checkpoint_name``) are no-ops on one unmeshed card and are
+dropped. MoE waits for a later slice (ROADMAP Queue 1, item 13).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels.flash_attention.ops import attention as _attention
+from repro_torch.kernels.flash_attention.ref import NEG_INF
+
+# --------------------------------------------------------------------------
+# Initializers
+# --------------------------------------------------------------------------
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+@torch.no_grad()
+def normal_(w: torch.Tensor, std: float, generator: torch.Generator):
+    """Fill ``w`` with N(0, std²), drawn in f32 on the generator's device
+    (``dense_init`` / ``embed_init`` of the reference)."""
+    x = torch.randn(w.shape, generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    w.copy_(x.mul_(std))
+
+
+# --------------------------------------------------------------------------
+# Norms
+# --------------------------------------------------------------------------
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * scale.float()
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: (B, H, S, D); positions: (B, S) or (S,).
+
+    Rotates interleaved pairs ``(x[..., 0::2], x[..., 1::2])`` and re-stacks
+    them pair by pair, as the reference does (not the ``rotate_half``
+    split-halves convention)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)  # (D/2,)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[:, None, :, None].float() * freqs  # (B,1,S,D/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    xf = x.float()
+    x1, x2 = xf[..., 0::2], xf[..., 1::2]
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Attention
+# --------------------------------------------------------------------------
+
+
+class Attention(nn.Module):
+    """The projections of one attention block (``attn_init``)."""
+
+    def __init__(self, cfg, *, device=None):
+        super().__init__()
+        hd, dt = cfg.head_dim, cfg.param_dtype
+        self.wq = _param((cfg.d_model, cfg.n_heads * hd), dt, device)
+        self.wk = _param((cfg.d_model, cfg.n_kv_heads * hd), dt, device)
+        self.wv = _param((cfg.d_model, cfg.n_kv_heads * hd), dt, device)
+        self.wo = _param((cfg.n_heads * hd, cfg.d_model), dt, device)
+        if cfg.qkv_bias:
+            self.bq = _param((cfg.n_heads * hd,), dt, device)
+            self.bk = _param((cfg.n_kv_heads * hd,), dt, device)
+            self.bv = _param((cfg.n_kv_heads * hd,), dt, device)
+        if cfg.qk_norm:
+            self.q_norm = _param((hd,), dt, device)
+            self.k_norm = _param((hd,), dt, device)
+
+    @torch.no_grad()
+    def init_weights(self, cfg, generator: torch.Generator) -> None:
+        for w in (self.wq, self.wk, self.wv):
+            normal_(w, 1.0 / math.sqrt(cfg.d_model), generator)
+        normal_(self.wo, 1.0 / math.sqrt(cfg.n_heads * cfg.head_dim),
+                generator)
+        for name in ("bq", "bk", "bv"):
+            if hasattr(self, name):
+                getattr(self, name).zero_()
+        for name in ("q_norm", "k_norm"):
+            if hasattr(self, name):
+                getattr(self, name).fill_(1.0)
+
+
+def _split_heads(x, n_heads: int):
+    b, s, _ = x.shape
+    return x.view(b, s, n_heads, -1).transpose(1, 2)  # (B,H,S,D)
+
+
+def _merge_heads(x):
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def attn_qkv(p: Attention, x, cfg, positions):
+    """Projections, head split, qk-norm (after the split, before rope),
+    rope. Returns (B, H, S, D) q, k, v."""
+    q = x @ p.wq
+    k = x @ p.wk
+    v = x @ p.wv
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = _split_heads(q, cfg.n_heads)
+    k = _split_heads(k, cfg.n_kv_heads)
+    v = _split_heads(v, cfg.n_kv_heads)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm)
+        k = rms_norm(k, p.k_norm)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attention_block(p: Attention, x, cfg, positions, *, causal=True,
+                    kv_override=None, use_kernel: bool | None = None):
+    """Full-sequence attention (train/prefill) through the dispatcher:
+    the flash kernel on a CUDA tensor, the chunked version on the CPU
+    (``use_kernel`` overrides). kv_override supplies cross-attention K/V
+    (already head-split)."""
+    q, k, v = attn_qkv(p, x, cfg, positions)
+    if kv_override is not None:
+        k, v = kv_override
+    o = _attention(q, k, v, causal=causal, window=cfg.sliding_window,
+                   use_kernel=use_kernel)
+    return _merge_heads(o) @ p.wo
+
+
+def decode_attention(p: Attention, x, cfg, cache_k, cache_v, pos: int,
+                     rows=None):
+    """Single-token decode against a (B, Hkv, S, D) cache; pos: index of
+    the new token. Writes the new K/V at ``pos`` in place — into every
+    batch row, or only into ``rows`` (an int64 index tensor on the cache's
+    device) when given — and returns ``(out, cache_k, cache_v)``. Plain
+    torch, as the reference computes it outside any kernel."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    q, k_new, v_new = attn_qkv(p, x, cfg, positions)
+    if rows is None:
+        cache_k[:, :, pos] = k_new[:, :, 0]
+        cache_v[:, :, pos] = v_new[:, :, 0]
+    else:
+        cache_k[rows, :, pos] = k_new[rows, :, 0]
+        cache_v[rows, :, pos] = v_new[rows, :, 0]
+    s = cache_k.shape[2]
+    group = cfg.n_heads // cfg.n_kv_heads
+    kk = cache_k.repeat_interleave(group, dim=1) if group > 1 else cache_k
+    vv = cache_v.repeat_interleave(group, dim=1) if group > 1 else cache_v
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) * (
+        cfg.head_dim ** -0.5)
+    idx = torch.arange(s, device=x.device)
+    valid = idx <= pos
+    if cfg.sliding_window > 0:
+        valid &= idx > pos - cfg.sliding_window
+    logits = torch.where(valid, logits, NEG_INF)
+    pr = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", pr, vv.float()).to(x.dtype)
+    return _merge_heads(o) @ p.wo, cache_k, cache_v
+
+
+# --------------------------------------------------------------------------
+# MLPs
+# --------------------------------------------------------------------------
+
+
+class MLP(nn.Module):
+    """The feed-forward block (``mlp_init``): gate/up/down for swiglu,
+    up/down otherwise."""
+
+    def __init__(self, cfg, d_ff: int | None = None, *, device=None):
+        super().__init__()
+        d_ff = d_ff or cfg.d_ff
+        dt = cfg.param_dtype
+        if cfg.activation == "swiglu":
+            self.w_gate = _param((cfg.d_model, d_ff), dt, device)
+        self.w_up = _param((cfg.d_model, d_ff), dt, device)
+        self.w_down = _param((d_ff, cfg.d_model), dt, device)
+
+    @torch.no_grad()
+    def init_weights(self, cfg, generator: torch.Generator) -> None:
+        if hasattr(self, "w_gate"):
+            normal_(self.w_gate, 1.0 / math.sqrt(cfg.d_model), generator)
+        normal_(self.w_up, 1.0 / math.sqrt(cfg.d_model), generator)
+        normal_(self.w_down, 1.0 / math.sqrt(self.w_down.shape[0]),
+                generator)
+
+
+def mlp_apply(p: MLP, x, cfg):
+    if cfg.activation == "swiglu":
+        return (F.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+    h = x @ p.w_up
+    if cfg.activation == "squared_relu":
+        h = torch.square(F.relu(h))
+    else:  # gelu, tanh-approximated as jax.nn.gelu's default
+        h = F.gelu(h, approximate="tanh")
+    return h @ p.w_down
+
+
+# --------------------------------------------------------------------------
+# Losses
+# --------------------------------------------------------------------------
+
+
+def cross_entropy(logits, labels, ignore_index: int = -100):
+    """logits: (..., V) f32/bf16; labels int. Mean over non-ignored."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.clamp(min=0)[..., None])[..., 0]
+    nll = lse - ll
+    mask = (labels != ignore_index).float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

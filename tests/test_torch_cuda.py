@@ -172,3 +172,108 @@ def test_mesh_over_distinct_cards_equals_single(card):
         out = sk.run_blocked(state, regs, steps=8, m=4, block_h=4)
         assert out.device == torch.device("cuda", 0)
         assert torch.equal(out, single)
+
+
+# ------------------------- flash attention, LM serving -------------------
+
+#: The kernel against its plain version on the same CUDA inputs: f32 at
+#: the JAX kernel test's 2e-3 (scalar FMAs, another summation order), bf16
+#: at its 2e-2 (bf16 probabilities in P·V, bf16 output rounding).
+FLASH_TOL = {torch.float32: dict(rtol=2e-3, atol=2e-3),
+             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+FLASH_CASES = {
+    "mha": (1, 2, 2, 128, 128, True, 0),
+    "mqa": (2, 4, 1, 128, 128, True, 0),
+    "gqa_prefix": (1, 4, 2, 64, 256, True, 0),
+    "bidirectional": (1, 2, 2, 128, 128, False, 0),
+    "window": (1, 2, 2, 256, 256, True, 64),
+    "ragged": (1, 4, 2, 100, 100, True, 0),
+}
+
+
+def _flash_inputs(case, d, dtype, seed=0):
+    b, hq, hkv, sq, sk, _, _ = FLASH_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda h, s: torch.randn((b, h, s, d), generator=g,  # noqa: E731
+                                  device="cuda").to(dtype)
+    return mk(hq, sq), mk(hkv, sk), mk(hkv, sk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernel_equals_plain(card, case, dtype):
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    _, _, _, _, _, causal, window = FLASH_CASES[case]
+    q, k, v = _flash_inputs(case, 128, dtype)
+    n = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_flash_kernel_head_dims_and_strided_views(card, d):
+    """Smaller head dims, and q/k/v as the transposed views the model's
+    head split gives, against the plain version."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((2, 96, 8, d), generator=g, device="cuda").to(dtype)
+        kv = torch.randn((2, 96, 4, d), generator=g, device="cuda").to(dtype)
+        q, k, v = x.transpose(1, 2), kv.transpose(1, 2), kv.transpose(1, 2)
+        got = flash_attention(q, k, v)
+        want = flash_attention_plain(q, k, v)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **FLASH_TOL[dtype])
+
+
+def test_lm_prefill_and_engine_on_the_card(card):
+    """The reduced Qwen3-8B config in f32 on the card: the prefill step
+    through the kernel equals the plain-attention model, and the engine's
+    greedy tokens at max_batch 2 equal the argmax of the forward."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+    )
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_arch("qwen3-8b").reduced(), n_layers=2,
+                              head_dim=64)
+    bundle = registry.build(cfg, device="cuda")
+    plain = registry.build(cfg, device="cuda", use_kernel=False)
+    model = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 64), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(1))
+    n = flash_attention.launches
+    got = bundle.make_prefill_step()(model, {"tokens": tokens})
+    assert flash_attention.launches == n + cfg.n_layers
+    want = plain.make_prefill_step()(model, {"tokens": tokens})
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+    prompts = [[5, 17, 31], [7, 2, 44]]
+    eng = ServeEngine(bundle, model, max_batch=2, max_seq=32)
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=list(p), max_new_tokens=5))
+    done = {c.rid: c.tokens for c in eng.run_until_drained()}
+    for rid, p in enumerate(prompts):
+        seq = list(p)
+        for t in done[rid]:
+            logits = bundle.forward(model, {"tokens": torch.tensor(
+                [seq], device="cuda")})
+            assert t == int(logits[0, -1].argmax())
+            seq.append(t)

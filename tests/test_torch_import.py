@@ -30,12 +30,23 @@ import repro_torch.kernels.build
 import repro_torch.kernels.spd_stream
 import repro_torch.kernels.lbm_stream.ops
 import repro_torch.core.distribute
+import repro_torch.models.registry
+import repro_torch.serve.engine
+import repro_torch.kernels.flash_attention.ops
+import repro_torch.launch.serve
 from repro_torch.apps import diffusion
 sim = diffusion.DiffusionSimulation(16, 32, device="cpu")
 u0, _ = diffusion.sine_init(16, 32, device="cpu")
 assert sim.run(u0, 4, m=2, block_h=8).shape == (16, 32)
 assert sim.run(u0, 4, m=2, block_h=4, d=2).equal(sim.run(u0, 4, m=2,
                                                          block_h=4))
+import torch
+from repro_torch.configs import get_arch
+from repro_torch.models import registry
+bundle = registry.build(get_arch("qwen3-8b").reduced(), device="cpu")
+model = bundle.init(torch.Generator().manual_seed(0))
+nxt = bundle.make_prefill_step()(model, {"tokens": torch.tensor([[1, 2, 3]])})
+assert nxt.shape == (1, 512) and bool(torch.isfinite(nxt).all())
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 assert not bad, bad
 print("ok")
