@@ -6,7 +6,9 @@ CUDA card and ``nvcc``; it imports nothing of JAX or of the ``repro``
 package. Phases, each printed as it ends; any failure exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and
-   CUDA versions, and the parallel ``nvcc`` build of every kernel;
+   CUDA versions, the parallel ``nvcc`` build of every kernel, and the
+   flash library's ptxas registers and spills and SASS census (wgmma,
+   TMA and mbarrier instructions);
 2. each kernel against its plain torch version on the card at 512×1024,
    plus the bitwise invariances (streamed == declarative, double_buffer on
    == off, two tilings agree), the generated uLBM PE against the
@@ -41,7 +43,9 @@ package. Phases, each printed as it ends; any failure exits non-zero:
 5. at the main-path shapes, each kernel held to its plain version again
    and timed (CUDA events) against its bound, its plain version and, for
    diffusion and flash attention, one PyTorch call (``library_ms``); the
-   halo kernels at one shard of the phase-3b runs.
+   halo kernels at one shard of the phase-3b runs; flash attention on
+   contiguous q/k/v and on the prefill's head-split views, with TFLOP/s
+   and the share of its bound.
 
 The last two lines are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -163,6 +167,54 @@ PREFILL = (4, 2048)
 PREFILL_REL_L2 = 5e-2
 #: Decode logits against forward logits (tests/test_archs.py).
 DECODE_TOL = dict(rtol=5e-2, atol=5e-2)
+
+
+def flash_census(build) -> None:
+    """Phase 1's view of the compiled flash library: ptxas's registers and
+    spill bytes for each bf16 kernel, and the SASS counts of the Hopper
+    instructions (HGMMA: wgmma, UTMALDG: TMA loads, SYNCS: mbarriers).
+    Fails when the Hopper kernels spill or lack wgmma or TMA."""
+    import re
+    import shutil
+
+    so = build.library_path("flash_attention", build.flash_source())
+    kernels, name = {}, None
+    for line in so.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            kernels.setdefault(name, {})["spill"] = int(m.group(1)) + int(
+                m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            kernels.setdefault(name, {})["regs"] = int(m.group(1))
+    hopper = 0
+    for name, info in sorted(kernels.items()):
+        m = re.search(r"(hopper|simple)12(flash|probe)_kernelI.*?Li(\d+)E",
+                      name)
+        if not m or (m.group(1) == "simple" and "bfloat16" not in name):
+            continue
+        label = f"{m.group(1)}::{m.group(2)}_kernel<bf16, D {m.group(3)}>"
+        phase(f"  ptxas {label}: {info.get('regs')} registers, "
+              f"{info.get('spill')} spill bytes")
+        if m.group(1) == "hopper" and m.group(2) == "flash":
+            hopper += 1
+            if info.get("spill") != 0:
+                fail(f"{label} spills {info.get('spill')} bytes")
+    if hopper != 2:
+        fail(f"ptxas log lists {hopper} Hopper flash kernels, expected 2")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, timeout=120).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass))
+              for op in ("HGMMA", "UTMALDG", "SYNCS")}
+    phase(f"  flash library SASS census: {counts}")
+    if not counts["HGMMA"] or not counts["UTMALDG"]:
+        fail(f"flash library lacks wgmma or TMA instructions: {counts}")
 
 
 def lm_serving(cfg) -> dict:
@@ -398,6 +450,7 @@ def main() -> None:
     })
     phase(f"  built 4 kernel libraries in {build_s:.2f} s (nvcc in "
           "parallel)")
+    flash_census(build)
     hbm, fp32, bf16_peak = card_peaks(kind)
 
     # ---- 2. kernels against their plain versions at 512x1024 ----------
@@ -862,21 +915,34 @@ def main() -> None:
         flash_attention_plain,
     )
 
+    # Two layouts: contiguous (B, H, S, D), and the head-split views of
+    # (B, S, H, D) buffers that the prefill passes (read in place).
     q, k, v = lm["qkv"]
-    ms, got = cuda_ms(lambda: flash_attention(q, k, v))
-    plain_ms, want = cuda_ms(lambda: flash_attention_plain(q, k, v), 2)
-    err = check_close("flash prefill shape vs plain", got.float(),
-                      want.float(), FLASH_TOL["bfloat16"])
-    lib_ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
     b_, hq_, s_, d_ = q.shape
-    pairs = s_ * (s_ + 1) // 2  # causal with sq == sk
+    ops = 4 * b_ * hq_ * d_ * (s_ * (s_ + 1) // 2)  # causal, sq == sk
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    bound_ms = max(ops / bf16_peak, nbytes / hbm) * 1e3
+    plain_ms, want = cuda_ms(lambda: flash_attention_plain(q, k, v), 2)
+    views = tuple(x.transpose(1, 2).contiguous().transpose(1, 2)
+                  for x in (q, k, v))
+    flash_errs = []
+    for layout, (qq, kk, vv) in (("contiguous", (q, k, v)),
+                                 ("head-split views", views)):
+        ms, got = cuda_ms(lambda: flash_attention(qq, kk, vv), 20)
+        flash_errs.append(check_close(
+            f"flash prefill shape, {layout}, vs plain", got.float(),
+            want.float(), FLASH_TOL["bfloat16"]))
+        lib_ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qq, kk, vv, is_causal=True, enable_gqa=True), 20)
+        phase(f"  flash {layout}: {ms:.4f} ms, {ops / ms / 1e9:.1f} "
+              f"TFLOP/s, {bound_ms / ms:.1%} of the bound "
+              f"({bound_ms:.4f} ms); SDPA {lib_ms:.4f} ms "
+              f"({ops / lib_ms / 1e9:.1f} TFLOP/s)")
+    # The row holds the layout of the main path: the head-split views.
     record("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
            "src/repro/kernels/flash_attention/flash_attention.py:106",
-           lm["launches"], ms, plain_ms,
-           2 * (2 * q.numel() + k.numel() + v.numel()),
-           4 * b_ * hq_ * d_ * pairs, max(lm["errs"] + [err]), lib_ms,
-           peak=bf16_peak)
+           lm["launches"], ms, plain_ms, nbytes, ops,
+           max(lm["errs"] + flash_errs), lib_ms, peak=bf16_peak)
 
     phase(f"  mesh runs: {json.dumps(mesh)}")
     phase(f"total {time.perf_counter() - t_start:.1f} s")

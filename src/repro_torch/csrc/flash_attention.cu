@@ -1,30 +1,52 @@
 // Blocked online-softmax attention for sm_90a (docs/port.md §lm).
 //
 // Replaces the JAX package's kernels/flash_attention/flash_attention.py:
-// flash_attention (pl.pallas_call with the body _kernel). One thread block
-// owns BQ = 64 query rows of one (batch, q head) and sweeps the key tiles
-// that the causal diagonal and the sliding window leave reachable, keeping
-// the running max m, the denominator l and the accumulator in f32. The
-// TPU's sequential k grid axis becomes this loop; its VMEM scratch becomes
-// shared memory. GQA: q head h reads kv head h / (Hq / Hkv).
+// flash_attention (pl.pallas_call with the body _kernel): causal diagonal
+// anchored at the end of the KV (q_off = Sk - Sq + q0), sliding window,
+// GQA (q head h reads kv head h / (Hq / Hkv)), wholly masked key tiles
+// skipped, f32 running max, denominator and accumulator. The TPU's
+// sequential k grid axis becomes a loop inside the block.
 //
-// Each of the 4 warps owns 16 query rows from the score tile to the output,
-// so only the K/V tile loads need a block-wide barrier. bf16 inputs run both
-// products on the tensor cores through WMMA (16x16x16 bf16 fragments, f32
-// accumulate); the probabilities are rounded to bf16 for P·V, their sum l
-// is taken in f32. f32 inputs run both products as scalar f32 FMAs (the
-// tests' path, kept exact to the reference's arithmetic up to summation
-// order). Masked scores are -1e30 as in the reference; scores of keys past
-// Sk (a ragged last tile) are -inf so they add exactly 0.
+// Bound on the card at the Qwen3-8B prefill launch (B 4, Hq 32, Hkv 8,
+// S 2048, D 128, bf16, causal): operations. The two products are 137.5
+// GFLOP; q, k, v and o are 168 MB moved once (q 67.1, k 16.8, v 16.8, o
+// 67.1), about 820 flops per byte, above the card's ridge of ~295.
 //
-// Bound on the card at the Qwen3-8B prefill shape (B 4, Hq 32, Hkv 8, S
-// 2048, D 128, causal, bf16): operations, ~137 GFLOP of matrix products
-// against ~84 MB moved. The design is the simple one (synchronous tile
-// loads, WMMA, the accumulator in shared memory); wgmma, TMA and warp
-// specialisation are for the kernel's redesign.
+// bf16 at D 64 and D 128 (the model's path) runs hopper::flash_kernel, a
+// warp-specialised block of three warpgroups per 128 query rows:
+//   - a producer warpgroup, whose one elected thread issues TMA loads of
+//     the Q tile once and of each reachable 128-key K/V tile into a ring
+//     of two stages, each stage with a "full" mbarrier (transaction bytes)
+//     and an "empty" one (the consumers' arrivals); it gives its registers
+//     away with setmaxnreg.dec;
+//   - two consumer warpgroups of 64 query rows each, stepping through a
+//     tile 64 keys at a time: S = Q K^T by wgmma (both operands in
+//     128-byte-swizzled shared memory, K-major), the online softmax on the
+//     accumulator fragment in registers (exp2 with scale * log2 e folded
+//     in, row max and sum over the quad), P rounded to bf16 in registers
+//     and O += P V by wgmma with A from registers and V (MN-major) from
+//     shared memory. O stays in registers across the key loop; the
+//     epilogue stores it through the group's rows of the Q tile.
+// ptxas allocates every role within the launch's 168 registers a thread
+// (3 warps on each SM sub-partition), setmaxnreg.inc notwithstanding: a
+// 128-key score fragment beside O (64 + 64 floats) made it serialise the
+// wgmma chains, a 64-key one (32 + 64) does not. Causal launches take the
+// query tiles heaviest first; the mask runs only on steps that cross the
+// diagonal, the window's edge or Sk.
+//
+// f32 (the tests' exact path) and bf16 at D 32 run simple::flash_kernel:
+// 4 warps, 64-row tiles loaded synchronously, f32 scalar FMAs or (bf16)
+// WMMA 16x16x16 fragments, the accumulator in shared memory.
+//
+// Masked scores are -1e30 as in the reference and the running max starts
+// there, so a row whose first reachable tile is wholly masked adds exp(0)
+// terms that a later unmasked key wipes out (alpha = 0); scores of keys
+// past Sk (a ragged last tile, zero-filled by TMA) are -inf and add 0.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <mma.h>
 #include <stdint.h>
 
@@ -37,6 +59,9 @@ struct FlashStrides {
 namespace {
 
 using bf16 = __nv_bfloat16;
+constexpr float NEG = -1e30f;  // the reference's mask value
+
+namespace simple {
 
 constexpr int BQ = 64;               // query rows per block
 constexpr int BK = 64;               // keys per tile
@@ -44,7 +69,6 @@ constexpr int WARPS = 4;             // each warp owns 16 query rows
 constexpr int THREADS = WARPS * 32;
 constexpr int LDS = BK + 4;          // f32 score row stride
 constexpr int LDP = BK + 8;          // bf16 probability row stride
-constexpr float NEG = -1e30f;        // the reference's mask value
 static_assert(BQ == BK, "load_rows stages BQ rows for Q, K and V alike");
 
 template <typename T> struct Pad;
@@ -284,10 +308,633 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+}  // namespace simple
+
+namespace hopper {
+
+constexpr int BQ = 128;        // query rows per block: 64 per consumer
+constexpr int BK = 128;        // keys per tile
+constexpr int BN = 64;         // keys per softmax step (two to a tile)
+constexpr int STAGES = 2;      // K/V ring depth
+constexpr int BOX = 64;        // bf16 per 128-byte swizzled row (TMA box)
+constexpr int THREADS = 384;   // consumer warpgroups 0, 1; producer 2
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+static_assert(PRODUCER_REGS * 128 + 2 * CONSUMER_REGS * 128 <= 65536,
+              "setmaxnreg split exceeds the SM's register file");
+
+// Shared memory: Q, the K ring, the V ring, then the barriers. A tile of R
+// rows is D / 64 boxes of R x 128 bytes, each 1024-byte aligned, as the
+// TMA's 128-byte swizzle and the wgmma descriptors expect.
+template <int D> struct Smem {
+  static constexpr int q = 0;
+  static constexpr int k = q + BQ * D * 2;
+  static constexpr int v = k + STAGES * BK * D * 2;
+  static constexpr int bar = v + STAGES * BK * D * 2;
+  static constexpr int bytes = bar + 8 * (2 * STAGES + 1);
+  static constexpr int alloc = bytes + 1024;  // slack to align the base
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Shared memory is addressed by 32-bit shared-window addresses throughout
+// (one register, where a generic pointer takes two).
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t n) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete. A wait that cannot
+// end (a fault in the ring's bookkeeping) traps after ~2^28 polls, so the
+// launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t addr, int parity) {
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (polls == (1u << 28)) __trap();
+  }
+}
+
+// One 4-D TMA load (coordinates innermost first: d, s, head, batch).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
+         static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 | 1ull << 62;
+}
+// K-major operand (rows of 128 bytes, 8-row groups 1024 bytes apart; the
+// leading offset is unused): Q and K in Q K^T.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return smem_desc(addr, 16, 1024);
+}
+// MN-major operand of R rows (keys) x D (N): 64-wide N blocks are the
+// tile's boxes, R * 128 bytes apart; 8-key groups 1024 bytes apart. V in
+// P V, with the instruction's transpose bit for B.
+template <int R>
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
+  return smem_desc(addr, R * 128, 1024);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous product that owns it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// D = A B (+ D): m64nNk16, f32 accumulate. _ss: A and B from shared memory
+// (both K-major); _rs: A from registers (the k16 fragment), B MN-major.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A row's reduction over the 4 threads (a quad) that hold it.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The shared address of dynamic shared memory, rounded up to 1024 bytes.
+__device__ __forceinline__ uint32_t smem_base(const void* raw) {
+  return (smem_u32(raw) + 1023) & ~1023u;
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t x) {
+  asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(x) : "memory");
+}
+
+__device__ __forceinline__ uint4 ld_shared16(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr) : "memory");
+  return v;
+}
+
+// One 16-key slice of O += P V: m64nDk16.
+template <int D>
+__device__ __forceinline__ void pv_product(float (&acc)[D / 2],
+                                           const uint32_t (&pa)[4],
+                                           uint64_t db) {
+  if constexpr (D == 128) wgmma_rs_n128(acc, pa, db);
+  else wgmma_rs_n64(acc, pa, db);
+}
+
+// S = Q K^T over D for one warpgroup's 64 rows of q (R rows a box) and
+// BN keys from row k of a K tile (BK rows a box): D / 16 k-slices of 32
+// bytes, 4 to a 128-byte box. Issued and committed, not waited for.
+template <int D, int R, int N = BN>
+__device__ __forceinline__ void qk_product(float (&sc)[N / 2], uint32_t q,
+                                           uint32_t k) {
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int box = kk / 4, off = (kk % 4) * 32;
+    const uint64_t da = kmajor_desc(q + box * R * 128 + off);
+    const uint64_t db = kmajor_desc(k + box * BK * 128 + off);
+    if constexpr (N == 128) wgmma_ss_n128(sc, da, db, kk > 0);
+    else wgmma_ss_n64(sc, da, db, kk > 0);
+  }
+  wg_commit();
+}
+
+// Wait for the products in flight; sc is then safe to read.
+template <int N>
+__device__ __forceinline__ void retire(float (&sc)[N]) {
+  wg_wait0();
+  fence_regs(sc);
+}
+
+// P (the score fragment, rounded to bf16) as the k16 A fragments of P V:
+// k-slice j packs the accumulator's n8 groups 2j and 2j + 1, no shuffle.
+__device__ __forceinline__ void pack_p(const float (&sc)[BN / 2],
+                                       uint32_t (&pa)[BN / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < BN / 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      pa[j][e] = pack_bf16(sc[8 * j + 2 * e], sc[8 * j + 2 * e + 1]);
+}
+
+// The A fragments stay live (their registers unused) until the products
+// that read them have retired.
+template <int D>
+__device__ __forceinline__ void pv_tile(float (&acc)[D / 2],
+                                        uint32_t (&pa)[BN / 16][4],
+                                        uint32_t v) {
+  fence_regs(acc);
+  wg_fence();
+#pragma unroll
+  for (int j = 0; j < BN / 16; ++j)  // 16 keys of 128 bytes a slice
+    pv_product<D>(acc, pa[j], mnmajor_desc<BK>(v + j * 16 * 128));
+  wg_commit();
+  wg_wait0();
+  fence_regs(acc);
+#pragma unroll
+  for (int j = 0; j < BN / 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pa[j][e])::"memory");
+}
+
+// The block's query tile and its reachable key tiles: the causal diagonal
+// of the last row, and the window's left edge of the first (the
+// reference's block skipping). Causal launches run the heaviest first.
+struct Tile {
+  int h, b, kvh, q0, qrows, qoff, kt_lo, kt_hi;
+};
+
+__device__ __forceinline__ Tile tile_of(int group, int sq, int sk,
+                                        int causal, int window) {
+  Tile t;
+  const int ntq = (sq + BQ - 1) / BQ;
+  const int qt = causal ? ntq - 1 - static_cast<int>(blockIdx.z)
+                        : static_cast<int>(blockIdx.z);
+  t.h = blockIdx.x;
+  t.b = blockIdx.y;
+  t.kvh = t.h / group;
+  t.q0 = qt * BQ;
+  t.qrows = min(BQ, sq - t.q0);
+  t.qoff = sk - sq + t.q0;  // absolute position of the tile's row 0
+  t.kt_lo = 0;
+  t.kt_hi = (sk + BK - 1) / BK - 1;
+  if (causal) {
+    const int last = t.qoff + t.qrows - 1;
+    t.kt_hi = last < 0 ? -1 : min(t.kt_hi, last / BK);
+  }
+  if (window > 0) {
+    const int first = t.qoff - window + 1;
+    t.kt_lo = first > 0 ? first / BK : 0;
+  }
+  return t;
+}
+
+// Shared addresses of the block's buffers and barriers.
+template <int D> struct Buffers {
+  uint32_t base;
+  __device__ explicit Buffers(const void* raw) : base(smem_base(raw)) {}
+  __device__ uint32_t q() const { return base + Smem<D>::q; }
+  __device__ uint32_t k(int s) const {
+    return base + Smem<D>::k + s * BK * D * 2;
+  }
+  __device__ uint32_t v(int s) const {
+    return base + Smem<D>::v + s * BK * D * 2;
+  }
+  __device__ uint32_t full(int s) const { return base + Smem<D>::bar + 8 * s; }
+  __device__ uint32_t empty(int s) const {
+    return base + Smem<D>::bar + 8 * (STAGES + s);
+  }
+  __device__ uint32_t qbar() const { return base + Smem<D>::bar + 16 * STAGES; }
+};
+
+// One elected thread issues every load: Q once, then K and V of each
+// reachable tile into the ring once the consumers have freed the stage.
+template <int D>
+__device__ __forceinline__ void produce(const Buffers<D>& sm, const Tile& t,
+                                        const CUtensorMap* tq,
+                                        const CUtensorMap* tk,
+                                        const CUtensorMap* tv) {
+  constexpr int NB = D / BOX;  // boxes in a row of a tile
+  mbar_expect_tx(sm.qbar(), BQ * D * 2);
+  for (int nb = 0; nb < NB; ++nb)
+    tma_load(sm.q() + nb * BQ * 128, tq, sm.qbar(), nb * BOX, t.q0, t.h, t.b);
+  for (int kt = t.kt_lo, n = 0; kt <= t.kt_hi; ++kt, ++n) {
+    const int s = n % STAGES;
+    // The first round passes at once: parity 1 of a fresh barrier.
+    mbar_wait(sm.empty(s), ((n / STAGES) & 1) ^ 1);
+    mbar_expect_tx(sm.full(s), 2 * BK * D * 2);
+    for (int nb = 0; nb < NB; ++nb) {
+      tma_load(sm.k(s) + nb * BK * 128, tk, sm.full(s), nb * BOX, kt * BK,
+               t.kvh, t.b);
+      tma_load(sm.v(s) + nb * BK * 128, tv, sm.full(s), nb * BOX, kt * BK,
+               t.kvh, t.b);
+    }
+  }
+}
+
+// Consumer warpgroup wg owns block rows [64 wg, 64 wg + 64). Accumulator
+// fragment of m64nN (thread t of the warpgroup, element i): row
+// 16 (t / 32) + (t % 32) / 4 + (i & 2 ? 8 : 0), column
+// 8 (i / 4) + 2 (t % 4) + (i & 1).
+template <int D>
+__device__ __forceinline__ void consume(const Buffers<D>& sm, const Tile& t,
+                                        int wg, bf16* __restrict__ o, int sk,
+                                        const FlashStrides& st, float scale2,
+                                        int causal, int window) {
+  constexpr int ON = D / 2;  // O floats a consumer thread holds
+  const int tid = threadIdx.x % 128, lane = tid % 32;
+  const int rl = (tid / 32) * 16 + lane / 4;  // first of the thread's rows
+  const int cq = 2 * (lane % 4);
+  const int qlo = t.qoff + wg * 64;           // position of the group's row 0
+  const int qp = qlo + rl;                    // positions qp and qp + 8
+  const uint32_t q_wg = sm.q() + wg * 64 * 128;
+  float acc[ON];
+#pragma unroll
+  for (int i = 0; i < ON; ++i) acc[i] = 0.0f;
+  float m0 = NEG, m1 = NEG, l0 = 0.0f, l1 = 0.0f;  // l: this thread's part
+  mbar_wait(sm.qbar(), 0);
+
+  for (int kt = t.kt_lo, n = 0; kt <= t.kt_hi; ++kt, ++n) {
+    const int s = n % STAGES;
+    mbar_wait(sm.full(s), (n / STAGES) & 1);
+#pragma unroll
+    for (int step = 0; step < BK / BN; ++step) {
+      float sc[BN / 2];
+      qk_product<D, BQ>(sc, q_wg, sm.k(s) + step * BN * 128);
+      retire(sc);
+
+      // Scale into the log2 domain; mask only a step that crosses the
+      // diagonal, the window's edge or Sk for some row of this group.
+      const int k0 = kt * BK + step * BN;
+      const bool edge = k0 + BN > sk || (causal && k0 + BN - 1 > qlo) ||
+                        (window > 0 && qlo + 63 - k0 >= window);
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          const int kpos = k0 + 8 * (i / 4) + cq + (i & 1);
+          const int qpos = qp + (i & 2 ? 8 : 0);
+          const bool keep = (!causal || qpos >= kpos) &&
+                            (window <= 0 || qpos - kpos < window);
+          sc[i] = kpos >= sk ? -INFINITY : (keep ? sc[i] * scale2 : NEG);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) sc[i] *= scale2;
+      }
+
+      // Online softmax on the fragment: each thread holds 2 rows.
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        if (i & 2) mx1 = fmaxf(mx1, sc[i]);
+        else mx0 = fmaxf(mx0, sc[i]);
+      }
+      const float mn0 = fmaxf(m0, quad_max(mx0));
+      const float mn1 = fmaxf(m1, quad_max(mx1));
+      const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        if (i & 2) s1 += sc[i] = exp2f(sc[i] - mn1);
+        else s0 += sc[i] = exp2f(sc[i] - mn0);
+      }
+      l0 = l0 * a0 + s0;
+      l1 = l1 * a1 + s1;
+#pragma unroll
+      for (int i = 0; i < ON; ++i) acc[i] *= i & 2 ? a1 : a0;
+
+      uint32_t pa[BN / 16][4];
+      pack_p(sc, pa);
+      pv_tile<D>(acc, pa, sm.v(s) + step * BN * 128);
+    }
+    mbar_arrive(sm.empty(s));
+  }
+
+  // Epilogue: normalise, round to bf16 and stage this group's rows in its
+  // own rows of the Q tile (same 128-byte swizzle), then 16-byte stores.
+  const float i0 = 1.0f / fmaxf(quad_sum(l0), 1e-30f);
+  const float i1 = 1.0f / fmaxf(quad_sum(l1), 1e-30f);
+  const uint32_t qb = sm.q();
+  const int r0 = wg * 64 + rl;  // block row; r0 + 8 has the same r0 % 8
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const uint32_t p = qb + (j / 8) * BQ * 128 +
+                       (((j % 8) ^ (r0 % 8)) * 16) + cq * 2;
+    st_shared(p + r0 * 128, pack_bf16(acc[4 * j] * i0, acc[4 * j + 1] * i0));
+    st_shared(p + (r0 + 8) * 128,
+              pack_bf16(acc[4 * j + 2] * i1, acc[4 * j + 3] * i1));
+  }
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+  bf16* ob = o + t.b * st.o[0] + t.h * st.o[1];
+  constexpr int CH = D / 8;  // 16-byte chunks in a row
+  for (int idx = tid; idx < 64 * CH; idx += 128) {
+    const int row = wg * 64 + idx / CH, c = idx % CH;
+    if (row >= t.qrows) break;
+    const uint4 val = ld_shared16(qb + (c / 8) * BQ * 128 + row * 128 +
+                                  ((c % 8) ^ (row % 8)) * 16);
+    *reinterpret_cast<uint4*>(ob + (long long)(t.q0 + row) * st.o[2] +
+                              c * 8) = val;
+  }
+}
+
+// Warpgroups 0 and 1 consume, warpgroup 2 produces; each role sets its
+// register budget first and the two paths never rejoin.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_kernel(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+             int group, int sq, int sk, FlashStrides st, float scale2,
+             int causal, int window) {
+  extern __shared__ unsigned char smem_raw[];
+  // Broadcast so the compiler sees the role as uniform in each warp.
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) {
+    const Buffers<D> sm(smem_raw);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(sm.full(s), 1);
+      mbar_init(sm.empty(s), 2 * 128);  // every consumer thread arrives
+    }
+    mbar_init(sm.qbar(), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == 256)
+      produce<D>(Buffers<D>(smem_raw), tile_of(group, sq, sk, causal, window),
+                 &tq, &tk, &tv);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(CONSUMER_REGS));
+    consume<D>(Buffers<D>(smem_raw), tile_of(group, sq, sk, causal, window),
+               wg, o, sk, st, scale2, causal, window);
+  }
+}
+
+// The two products alone on one tile, for the descriptor test: s = a k^T
+// (a 64 x D, k 128 x D), o = bf16(s) v (v 128 x D); f32, row-major.
+template <int D>
+__global__ void __launch_bounds__(128)
+probe_kernel(const __grid_constant__ CUtensorMap ta,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, float* s_out,
+             float* o_out) {
+  constexpr int NB = D / BOX;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sA = smem_base(smem_raw);
+  const uint32_t sK = sA + 64 * D * 2, sV = sK + BK * D * 2;
+  const uint32_t bar = sV + BK * D * 2;
+  const int t = threadIdx.x, lane = t % 32;
+  if (t == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (t == 0) {
+    mbar_expect_tx(bar, (64 + 2 * BK) * D * 2);
+    for (int nb = 0; nb < NB; ++nb) {
+      tma_load(sA + nb * 64 * 128, &ta, bar, nb * BOX, 0, 0, 0);
+      tma_load(sK + nb * BK * 128, &tk, bar, nb * BOX, 0, 0, 0);
+      tma_load(sV + nb * BK * 128, &tv, bar, nb * BOX, 0, 0, 0);
+    }
+  }
+  mbar_wait(bar, 0);
+  const int row = (t / 32) * 16 + lane / 4, cq = 2 * (lane % 4);
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  for (int step = 0; step < BK / BN; ++step) {
+    float sc[BN / 2];
+    qk_product<D, 64>(sc, sA, sK + step * BN * 128);
+    retire(sc);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i)
+      s_out[(row + (i & 2 ? 8 : 0)) * BK + step * BN + 8 * (i / 4) + cq +
+            (i & 1)] = sc[i];
+    uint32_t pa[BN / 16][4];
+    pack_p(sc, pa);
+    pv_tile<D>(acc, pa, sV + step * BN * 128);
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i)
+    o_out[(row + (i & 2 ? 8 : 0)) * D + 8 * (i / 4) + cq + (i & 1)] = acc[i];
+}
+
+}  // namespace hopper
+
+// ----------------------------------------------------------------- host
+
+// cuTensorMapEncodeTiled from the driver library the process has loaded
+// (no link against libcuda).
+using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+
+EncodeFn encode_fn() {
+  static EncodeFn fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeFn>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map over (D, S, H, B) of a bf16 tensor with the element strides
+// st = (batch, head, seq), read in boxes of 64 x rows with the 128-byte
+// swizzle. Needs a 16-byte-aligned base and 16-byte-multiple strides.
+bool make_map(CUtensorMap* map, const void* p, int d, int s, int h, int b,
+              const long long* st, int rows) {
+  EncodeFn fn = encode_fn();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(s), cuuint64_t(h),
+                              cuuint64_t(b)};
+  const cuuint64_t strides[3] = {cuuint64_t(st[2]) * 2,
+                                 cuuint64_t(st[1]) * 2,
+                                 cuuint64_t(st[0]) * 2};
+  const cuuint32_t box[4] = {cuuint32_t(hopper::BOX), cuuint32_t(rows), 1,
+                             1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int hq, int hkv, int sq, int sk, FlashStrides st, float scale,
-           int causal, int window, cudaStream_t stream) {
+int launch_simple(const void* q, const void* k, const void* v, void* o,
+                  int b, int hq, int hkv, int sq, int sk, FlashStrides st,
+                  float scale, int causal, int window, cudaStream_t stream) {
+  using namespace simple;
   const size_t bytes = Layout<T, D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -301,25 +948,81 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_hopper(const void* q, const void* k, const void* v, void* o,
+                  int b, int hq, int hkv, int sq, int sk, FlashStrides st,
+                  float scale, int causal, int window, cudaStream_t stream) {
+  using namespace hopper;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, D, sq, hq, b, st.q, BQ) ||
+      !make_map(&tk, k, D, sk, hkv, b, st.k, BK) ||
+      !make_map(&tv, v, D, sk, hkv, b, st.v, BK))
+    return -3;
+  constexpr int bytes = Smem<D>::alloc;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(hq, b, (sq + BQ - 1) / BQ);
+  flash_kernel<D><<<grid, THREADS, bytes, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), hq / hkv, sq, sk, st,
+      scale * 1.4426950408889634f, causal, window);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_probe(const void* a, const void* k, const void* v, float* s,
+                 float* o, cudaStream_t stream) {
+  using namespace hopper;
+  const long long sa[3] = {64LL * D, 64LL * D, D};
+  const long long sb[3] = {(long long)BK * D, (long long)BK * D, D};
+  CUtensorMap ta, tk, tv;
+  if (!make_map(&ta, a, D, 64, 1, 1, sa, 64) ||
+      !make_map(&tk, k, D, BK, 1, 1, sb, BK) ||
+      !make_map(&tv, v, D, BK, 1, 1, sb, BK))
+    return -3;
+  constexpr int bytes = (64 + 2 * BK) * D * 2 + 8 + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      probe_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  probe_kernel<D><<<1, 128, bytes, stream>>>(ta, tk, tv, s, o);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. Returns cudaGetLastError(), or -2 for a
-// head dim or dtype this file does not instantiate.
+// dtype: 0 float32, 1 bfloat16. Returns cudaGetLastError(), -2 for a head
+// dim or dtype this file does not instantiate, -3 for a TMA descriptor
+// the driver refuses. bf16 at D 64 and 128 runs the Hopper kernel; f32
+// and bf16 at D 32 the simple one.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int dtype, int b,
                                    int hq, int hkv, int sq, int sk, int d,
                                    FlashStrides st, float scale, int causal,
                                    int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_CASE(T, DD)                                                 \
-  if (d == DD)                                                            \
-    return launch<T, DD>(q, k, v, o, b, hq, hkv, sq, sk, st, scale, causal, \
-                         window, s);
+#define FLASH_CASE(LAUNCH, DD)                                              \
+  if (d == DD)                                                              \
+    return LAUNCH(q, k, v, o, b, hq, hkv, sq, sk, st, scale, causal, window, \
+                  s);
   if (dtype == 0) {
-    FLASH_CASE(float, 32) FLASH_CASE(float, 64) FLASH_CASE(float, 128)
+    FLASH_CASE((launch_simple<float, 32>), 32)
+    FLASH_CASE((launch_simple<float, 64>), 64)
+    FLASH_CASE((launch_simple<float, 128>), 128)
   } else if (dtype == 1) {
-    FLASH_CASE(bf16, 32) FLASH_CASE(bf16, 64) FLASH_CASE(bf16, 128)
+    FLASH_CASE((launch_simple<bf16, 32>), 32)
+    FLASH_CASE(launch_hopper<64>, 64)
+    FLASH_CASE(launch_hopper<128>, 128)
   }
 #undef FLASH_CASE
+  return -2;
+}
+
+// Test entry: the Hopper kernel's two products on one tile (a 64 x d,
+// k and v 128 x d, contiguous bf16; s 64 x 128 and o 64 x d, f32).
+extern "C" int flash_wgmma_probe(const void* a, const void* k, const void* v,
+                                 float* s, float* o, int d, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 64) return launch_probe<64>(a, k, v, s, o, st);
+  if (d == 128) return launch_probe<128>(a, k, v, s, o, st);
   return -2;
 }

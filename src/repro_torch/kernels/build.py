@@ -2,8 +2,9 @@
 
 Every kernel is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes``: pointers and the CUDA stream travel
-as ``c_void_p``, each entry point returns ``cudaGetLastError()`` (or -1
-for an under-priced shared-memory size) and :func:`check` raises on
+as ``c_void_p``, each entry point returns ``cudaGetLastError()`` (or a
+negative code of its own: an under-priced shared-memory size, a missing
+instantiation, a refused TMA descriptor) and :func:`check` raises on
 anything but 0. Libraries are cached under ``build/repro_torch/`` by a
 hash of their source, the headers they include and the flags, so a
 process builds each kernel once; nothing is compiled at import time.
@@ -19,6 +20,7 @@ under a tolerance, not bit for bit, and is built without ``-fmad=false``
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -40,7 +42,7 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 
 def flags_for(name: str) -> tuple:
     """The ``nvcc`` flags of the library ``name``."""
-    return FLASH_NVCC_FLAGS if name == "flash_attention" else NVCC_FLAGS
+    return FLASH_NVCC_FLAGS if name.startswith("flash") else NVCC_FLAGS
 
 
 def build_dir() -> Path:
@@ -70,6 +72,12 @@ def _paths(name: str, source: str) -> tuple[Path, Path]:
     ).hexdigest()[:16]
     d = build_dir()
     return d / f"{name}-{key}.cu", d / f"{name}-{key}.so"
+
+
+def library_path(name: str, source: str) -> Path:
+    """Where the library of ``source`` is built; its ``nvcc`` output
+    (``-Xptxas -v`` included) is beside it with the suffix ``.log``."""
+    return _paths(name, source)[1]
 
 
 def _start(name: str, source: str):
@@ -128,6 +136,10 @@ def check(rc: int, what: str) -> None:
     if rc == -2:
         raise RuntimeError(f"{what}: the library has no instantiation for "
                            "this head dim and dtype")
+    if rc == -3:
+        raise RuntimeError(f"{what}: no TMA descriptor (the driver refused "
+                           "the base or a stride, or has no "
+                           "cuTensorMapEncodeTiled)")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
@@ -191,16 +203,24 @@ class FlashStrides(ctypes.Structure):
     _fields_ = [("s", ctypes.c_longlong * 12)]
 
 
+#: ``flash_attention_fwd(q, k, v, o, dtype, b, hq, hkv, sq, sk, d, strides,
+#: scale, causal, window, stream)``.
+FLASH_FWD_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      FlashStrides, ctypes.c_float, _I, _I, _P]
+
+
 def flash_source() -> str:
     return (CSRC / "flash_attention.cu").read_text()
 
 
+@functools.cache
 def load_flash_library() -> ctypes.CDLL:
     """Build and bind the hand-written flash-attention kernel
-    (``csrc/flash_attention.cu``)."""
+    (``csrc/flash_attention.cu``), once per process: a launch then costs
+    no hash of the source on the host."""
     lib = load("flash_attention", flash_source())
-    lib.flash_attention_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                        _I, _I, FlashStrides,
-                                        ctypes.c_float, _I, _I, _P]
+    lib.flash_attention_fwd.argtypes = FLASH_FWD_ARGTYPES
     lib.flash_attention_fwd.restype = _I
+    lib.flash_wgmma_probe.argtypes = [_P, _P, _P, _P, _P, _I, _P]
+    lib.flash_wgmma_probe.restype = _I
     return lib

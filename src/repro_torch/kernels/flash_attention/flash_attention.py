@@ -3,19 +3,23 @@
 Replaces the JAX package's ``kernels/flash_attention/flash_attention.py:
 flash_attention`` (with ``_kernel``): blocked online-softmax attention with
 the causal diagonal anchored at the end of the KV, a sliding window, GQA
-and wholly masked key tiles skipped. One thread block owns 64 query rows of
-one (batch, q head) and loops over the reachable 64-key tiles with the
-running max, denominator and accumulator in f32 (docs/port.md §lm).
+and wholly masked key tiles skipped, the running max, denominator and
+accumulator in f32 (docs/port.md §lm).
 
-Bound on the card: at the Qwen3-8B prefill shape (bf16, D 128, S 2048) the
-launch does ~300 flops per byte it must move, so it is bound by the bf16
-tensor-core rate; the bf16 path runs both products through WMMA fragments.
-The f32 path (the CPU-sized tests) uses scalar FMAs.
+Bound on the card: operations. At the Qwen3-8B prefill launch (bf16, B 4,
+Hq 32, Hkv 8, S 2048, D 128, causal) the two products are 137.5 GFLOP
+against 168 MB that q, k, v and o move once, about 820 flops per byte,
+above the card's bf16 ridge of ~295. bf16 at D 64 and 128 therefore runs
+a warp-specialised kernel: TMA loads into a two-stage K/V ring, ``wgmma``
+for both products, the softmax and the accumulator in registers. f32 (the
+tests' exact path) and bf16 at D 32 run a simple kernel (scalar FMAs or
+WMMA fragments).
 
 ``block_q`` and ``block_k`` are the reference's API and validation only:
-the CUDA tile is the kernel's own, and the output does not depend on it.
-On a CPU tensor :func:`flash_attention` runs :func:`flash_attention_plain`;
-on a CUDA tensor it launches the kernel or raises.
+the CUDA tiles are the kernel's own, and the output does not depend on
+them. On a CPU tensor :func:`flash_attention` runs
+:func:`flash_attention_plain`; on a CUDA tensor it launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -42,12 +46,23 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def _strides(x: torch.Tensor) -> list[int]:
-    return [x.stride(0), x.stride(1), x.stride(2)]
+    """The (batch, head, seq) strides of ``x`` in elements. A dim of size
+    1 is never stepped along, so it gets the contiguous stride, whatever
+    torch keeps there."""
+    _, h, s, d = x.shape
+    dense = (h * s * d, s * d, d)
+    return [x.stride(i) if x.shape[i] > 1 else dense[i] for i in range(3)]
 
 
 def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
-    """``x`` itself when its rows can be read as 16-byte vectors (unit
-    last stride, aligned base and row strides), else a contiguous copy."""
+    """``x`` itself when the kernel can read it in place, else a
+    contiguous copy.
+
+    The kernel reads q, k and v through TMA descriptors over (D, S, H, B),
+    which need a 16-byte-aligned base, unit stride along D and the other
+    strides multiples of 16 bytes. The transposed views of the model's
+    head split meet that rule and are read in place.
+    """
     vec = 16 // x.element_size()
     if (x.stride(3) == 1 and x.data_ptr() % 16 == 0
             and all(s % vec == 0 for s in _strides(x))):

@@ -277,3 +277,136 @@ def test_lm_prefill_and_engine_on_the_card(card):
                 [seq], device="cuda")})
             assert t == int(logits[0, -1].argmax())
             seq.append(t)
+
+
+def test_flash_wgmma_descriptors(card):
+    """The Hopper kernel's two products alone on one tile, through its TMA
+    loads and wgmma descriptors: s = a k^T (both K-major) and o = bf16(s) v
+    (A from registers, V MN-major), against torch.matmul in f32. The
+    products of bf16 values are exact in f32; only the summation order
+    differs (rtol 1e-4, atol 1e-3 at magnitudes of ~10)."""
+    from repro_torch.kernels.build import check, load_flash_library
+
+    lib = load_flash_library()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for d in (64, 128):
+        a, k, v = (torch.randn((r, d), generator=g, device="cuda").to(
+            torch.bfloat16) for r in (64, 128, 128))
+        s = torch.empty((64, 128), device="cuda")
+        o = torch.empty((64, d), device="cuda")
+        check(lib.flash_wgmma_probe(
+            a.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(),
+            o.data_ptr(), d, torch.cuda.current_stream().cuda_stream),
+            "flash_wgmma_probe")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(s, a.float() @ k.float().T, rtol=1e-4,
+                                   atol=1e-3)
+        torch.testing.assert_close(o, s.bfloat16().float() @ v.float(),
+                                   rtol=1e-4, atol=1e-3)
+
+
+#: (B, Hq, Hkv, Sq, Sk, causal, window, block_q, block_k): a window that
+#: ends mid-tile with ragged tiles; a ragged 192-row query tile against a
+#: ragged 320-key KV (diagonal offset Sk - Sq = 128); and a diagonal
+#: offset of 133, off every tile edge.
+FLASH_EDGE_CASES = {
+    "window300": (1, 2, 2, 300, 300, True, 100, 100, 100),
+    "offset192x320": (1, 4, 2, 192, 320, True, 0, 64, 64),
+    "offset200x333": (1, 4, 2, 200, 333, True, 0, 100, 111),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FLASH_EDGE_CASES))
+def test_flash_kernel_tile_edges(card, case, dtype):
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    b, hq, hkv, sq, sk, causal, window, bq, bk = FLASH_EDGE_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q = torch.randn((b, hq, sq, 128), generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn((b, hkv, sk, 128), generator=g, device="cuda").to(
+        dtype) for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    got = flash_attention(q, k, v, block_q=bq, block_k=bk, **kw)
+    want = flash_attention_plain(q, k, v, block_k=bk, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("d", [32, 64])
+def test_flash_bf16_head_dims_on_split_views(card, d, window):
+    """bf16 at D 32 (the simple kernel) and D 64 (the Hopper kernel) on
+    the transposed views of the model's head split, over several ragged
+    tiles."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((2, 300, 8 * d), generator=g, device="cuda").bfloat16()
+    kx, vx = (torch.randn((2, 300, 2 * d), generator=g, device="cuda")
+              .bfloat16() for _ in range(2))
+    q = x.view(2, 300, 8, d).transpose(1, 2)
+    k = kx.view(2, 300, 2, d).transpose(1, 2)
+    v = vx.view(2, 300, 2, d).transpose(1, 2)
+    kw = dict(causal=True, window=window, block_q=100, block_k=100)
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **FLASH_TOL[torch.bfloat16])
+
+
+def test_flash_qwen3_launch_at_prefill_strides(card):
+    """The Qwen3-8B prefill launch (q 4x32x2048x128, kv 4x8x2048x128, bf16,
+    causal) on the head-split views the prefill passes, read in place."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        _kernel_operand,
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q = torch.randn((4, 2048, 32 * 128), generator=g, device="cuda")
+    kx, vx = (torch.randn((4, 2048, 8 * 128), generator=g, device="cuda")
+              for _ in range(2))
+    q = q.bfloat16().view(4, 2048, 32, 128).transpose(1, 2)
+    k = kx.bfloat16().view(4, 2048, 8, 128).transpose(1, 2)
+    v = vx.bfloat16().view(4, 2048, 8, 128).transpose(1, 2)
+    assert all(_kernel_operand(x) is x for x in (q, k, v))
+    got = flash_attention(q, k, v)
+    want = flash_attention_plain(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **FLASH_TOL[torch.bfloat16])
+
+
+def test_flash_launch_faults_raise(card):
+    """No fallback on the bf16 path: a head dim the library does not
+    instantiate and a TMA descriptor the driver refuses (a base off
+    16-byte alignment) raise from the C entry point."""
+    from repro_torch.kernels.build import (
+        FlashStrides,
+        check,
+        load_flash_library,
+    )
+
+    lib = load_flash_library()
+    x = torch.zeros((1, 1, 256, 128), dtype=torch.bfloat16, device="cuda")
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(ptr, d):
+        st = FlashStrides()
+        for i in range(4):
+            st.s[3 * i:3 * i + 3] = [256 * d, 256 * d, d]
+        return lib.flash_attention_fwd(ptr, ptr, ptr, out.data_ptr(), 1, 1,
+                                       1, 1, 128, 128, d, st, 0.1, 1, 0,
+                                       stream)
+
+    with pytest.raises(RuntimeError, match="no instantiation"):
+        check(call(x.data_ptr(), 96), "flash_attention")
+    with pytest.raises(RuntimeError, match="TMA descriptor"):
+        check(call(x.data_ptr() + 2, 128), "flash_attention")

@@ -120,3 +120,33 @@ def test_rejections_match_the_reference():
         flash_attention(q, k, v, block_q=64, block_k=64)
     with pytest.raises(TypeError, match="dtype"):
         flash_attention(q.double(), k.double(), v.double())
+
+
+def test_kernel_operand_reads_head_split_views_in_place():
+    """The host side of the kernel's TMA rule: the model's head-split view
+    (bf16, D 128) is taken in place with its own strides; a view whose
+    row stride is not a multiple of 16 bytes, or whose last stride is not
+    1, is copied contiguous; a dim of size 1 reports the contiguous
+    stride."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        _kernel_operand,
+        _strides,
+    )
+    from repro_torch.models.layers import _split_heads
+
+    x = torch.randn((2, 64, 4 * 128)).to(torch.bfloat16)
+    q = _split_heads(x, 4)
+    assert _kernel_operand(q) is q
+    assert _strides(q) == [64 * 4 * 128, 128, 4 * 128]
+
+    padded = torch.randn((2, 4, 64, 129)).to(torch.bfloat16)[..., :128]
+    assert padded.stride(2) * 2 % 16 != 0
+    got = _kernel_operand(padded)
+    assert got is not padded and got.is_contiguous()
+    assert torch.equal(got, padded)
+
+    col = torch.randn((2, 4, 128, 64)).to(torch.bfloat16).transpose(2, 3)
+    assert _kernel_operand(col).is_contiguous()
+
+    one = torch.randn((1, 64, 4 * 128)).to(torch.bfloat16)
+    assert _strides(_split_heads(one, 4)) == [4 * 64 * 128, 128, 4 * 128]
