@@ -6,9 +6,10 @@ CUDA card and ``nvcc``; it imports nothing of JAX or of the ``repro``
 package. Phases, each printed as it ends; any failure exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and
-   CUDA versions, the parallel ``nvcc`` build of every kernel, and the
+   CUDA versions, the parallel ``nvcc`` build of every kernel, the
    flash library's ptxas registers and spills and SASS census (wgmma,
-   TMA and mbarrier instructions);
+   TMA and mbarrier instructions), and the registers and spills of every
+   kernel of the two stream libraries (generated SPD, hand-written LBM);
 2. each kernel against its plain torch version on the card at 512×1024,
    plus the bitwise invariances (streamed == declarative, double_buffer on
    == off, two tilings agree), the generated uLBM PE against the
@@ -45,7 +46,9 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    diffusion and flash attention, one PyTorch call (``library_ms``); the
    halo kernels at one shard of the phase-3b runs; flash attention on
    contiguous q/k/v and on the prefill's head-split views, with TFLOP/s
-   and the share of its bound.
+   and the share of its bound; then the two stencil kernels' design
+   choices side by side (``kernels/lbm_stream/variants.py``,
+   ``kernels/spd_stream/variants.py``: three rounds after a warm-up).
 
 The last two lines are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -215,6 +218,21 @@ def flash_census(build) -> None:
     phase(f"  flash library SASS census: {counts}")
     if not counts["HGMMA"] or not counts["UTMALDG"]:
         fail(f"flash library lacks wgmma or TMA instructions: {counts}")
+
+
+def stream_census(build, sources: dict) -> None:
+    """Phase 1's view of the stream libraries: ptxas's registers and spill
+    bytes for every kernel; fails on a spill."""
+    for lib, src in sources.items():
+        log = build.library_path(lib, src).with_suffix(".log").read_text()
+        usage = build.ptxas_usage(log)
+        if not usage:
+            fail(f"ptxas log of {lib} lists no kernel")
+        for name, (regs, spill) in sorted(usage.items()):
+            phase(f"  ptxas {lib} {name}: {regs} registers, {spill} spill "
+                  "bytes")
+            if spill:
+                fail(f"{lib} {name} spills {spill} bytes")
 
 
 def lm_serving(cfg) -> dict:
@@ -400,6 +418,7 @@ def main() -> None:
     from repro_torch.kernels import build
     from repro_torch.core.legalize import launch_tile, tile_smem_bytes
     from repro_torch.kernels.lbm_stream.lbm_stream import (
+        LBM_CELLS,
         LBM_PLANES,
         lbm_multistep,
         lbm_multistep_plain,
@@ -442,15 +461,18 @@ def main() -> None:
     dprog = dsim.kernel.program
     lkern = lsim.stream_kernel()
     lprog = lkern.program
-    build_s = build.build_all({
+    stream_sources = {
         "spd_Diff2D": dprog.cuda_source(),
         "spd_PEx1": lprog.cuda_source(),
         "lbm_stream": build.lbm_source(),
-        "flash_attention": build.flash_source(),
+    }
+    build_s = build.build_all({
+        **stream_sources, "flash_attention": build.flash_source(),
     })
     phase(f"  built 4 kernel libraries in {build_s:.2f} s (nvcc in "
           "parallel)")
     flash_census(build)
+    stream_census(build, stream_sources)
     hbm, fp32, bf16_peak = card_peaks(kind)
 
     # ---- 2. kernels against their plain versions at 512x1024 ----------
@@ -532,14 +554,31 @@ def main() -> None:
         check_equal(f"uLBM PE {cname} (2, 2) mesh on cuda:0 x4 == single "
                     "device", sk.run_blocked(state, regs, steps=8, m=4,
                                              block_h=16), single)
-    lib = lprog.library()
-    for db in (True, False):
-        bw, db2 = lkern.tile(1024, 16, 4, double_buffer=db)
-        want = tile_smem_bytes(16, bw, 4, halo=1, halo_x=1,
-                               planes=lprog.planes(3 if db2 else 2))
-        got = lib.spd_smem_bytes(16, bw, 4, 3 if db2 else 2)
+    for prog, kern in ((lprog, lkern), (dprog, dsim.kernel)):
+        lib = prog.library()
+        for db in (True, False):
+            for streamed in (True, False):
+                bw, db2 = kern.tile(1024, 16, 4, double_buffer=db,
+                                    streamed=streamed)
+                want = tile_smem_bytes(16, bw, 4, halo=1, halo_x=1,
+                                       planes=prog.launch_planes(
+                                           streamed=streamed,
+                                           double_buffer=db2))
+                nbuf = (lib.spd_stream_buffers() if streamed else 2) + db2
+                got = lib.spd_smem_bytes(16, bw, 4, nbuf)
+                if got != want:
+                    fail(f"{prog.name} shared-memory pricing {want} B != "
+                         f"kernel's {got} B")
+    hlib = build.load_lbm_library()
+    for bh, bw, m in ((16, 64, 4), (20, 64, 4), (16, 64, 1)):
+        want = tile_smem_bytes(bh, bw, m, halo=1, halo_x=1,
+                               planes=LBM_PLANES)
+        got = hlib.lbm_smem_bytes(bh, bw, m)
         if got != want:
-            fail(f"shared-memory pricing {want} B != kernel's {got} B")
+            fail(f"LBM shared-memory pricing {want} B != kernel's {got} B")
+    if hlib.lbm_max_cells() != LBM_CELLS:
+        fail(f"LBM kernel owns {hlib.lbm_max_cells()} cells, the legalizer "
+             f"prices {LBM_CELLS}")
     phase("  legalizer's shared-memory pricing == kernel's allocation")
     del plain, a, a1, b, c, h, hp, state
     torch.cuda.empty_cache()
@@ -764,11 +803,12 @@ def main() -> None:
     # Diffusion 8192^2, m 4, block 32x128: the run's launch.
     st = big.state(dif.sine_init(8192, 8192)[0])
     buf = torch.empty_like(st)
-    bw = big.kernel.tile(8192, 32, 4)[0]
+    bw, db = big.kernel.tile(8192, 32, 4)
     ms, plain_ms, err = timed_pair(
         "diffusion 8192^2 m=4",
         lambda: spd_multistep_streamed(dprog, st, (0.2,), m=4, block_h=32,
-                                       block_w=bw, out=buf),
+                                       block_w=bw, double_buffer=db,
+                                       out=buf),
         lambda: spd_multistep_plain(dprog, st, (0.2,), m=4, block_h=32,
                                     block_w=bw))
     import torch.nn.functional as F
@@ -796,11 +836,12 @@ def main() -> None:
 
     # uLBM PE 4096^2, m 4, block 16: the run_blocked launch.
     buf = torch.empty_like(tstate)
-    bw = tkern.tile(4096, 16, 4)[0]
+    bw, db = tkern.tile(4096, 16, 4)
     ms, plain_ms, err = timed_pair(
         "uLBM PE 4096^2 m=4",
         lambda: spd_multistep_streamed(lprog, tstate, tregs, m=4,
-                                       block_h=16, block_w=bw, out=buf),
+                                       block_h=16, block_w=bw,
+                                       double_buffer=db, out=buf),
         lambda: spd_multistep_plain(lprog, tstate, tregs, m=4, block_h=16,
                                     block_w=bw), plain_iters=1)
     pe_flops = tsim.hardware_report.flops
@@ -817,7 +858,7 @@ def main() -> None:
     # (the stripe body's time is that of the launch it runs in).
     bh = plan[0]
     pbuf = torch.empty_like(pstate)
-    bwd = pkern.tile(720, bh, 4, double_buffer=False)[0]
+    bwd = pkern.tile(720, bh, 4, double_buffer=False, streamed=False)[0]
     ms_d, plain_d, err_d = timed_pair(
         "uLBM PE 300x720 m=4 declarative",
         lambda: spd_multistep(lprog, pstate, pregs, m=4, block_h=bh,
@@ -875,7 +916,8 @@ def main() -> None:
     sb.exchange_y()
     ext = sb.src(0, 0)
     hbuf = torch.empty((1, 2048, 8192), device="cuda")
-    bw = big.kernel.tile(8192, 32, 4, double_buffer=False)[0]
+    bw = big.kernel.tile(8192, 32, 4, double_buffer=False,
+                         streamed=False)[0]
     ms, plain_ms, err = timed_pair(
         "diffusion (4, 1) shard 2048x8192 m=4 declarative halo",
         lambda: spd_multistep_halo(dprog, ext, (0.2,), m=4, block_h=32,
@@ -896,7 +938,8 @@ def main() -> None:
     attr4 = tstate[9].contiguous()
     fbuf = torch.empty_like(f4)
     bwh = launch_tile(4096, 16, 4, halo=1, halo_x=1,
-                      planes=lambda db: LBM_PLANES, double_buffer=False)[0]
+                      planes=lambda db: LBM_PLANES, double_buffer=False,
+                      max_cells=LBM_CELLS)[0]
     ms, plain_ms, err = timed_pair(
         "hand-written LBM 4096^2 m=4",
         lambda: lbm_multistep(f4, attr4, 1 / 0.8, 0.0, m=4, block_h=16,
@@ -943,6 +986,40 @@ def main() -> None:
            "src/repro/kernels/flash_attention/flash_attention.py:106",
            lm["launches"], ms, plain_ms, nbytes, ops,
            max(lm["errs"] + flash_errs), lib_ms, peak=bf16_peak)
+
+    del q, k, v, views, want, got, lm
+    torch.cuda.empty_cache()
+
+    # The stencil kernels' design choices side by side, on the same
+    # main-path inputs (three rounds after a warm-up).
+    from repro_torch.kernels.lbm_stream import variants as lbm_variants
+    from repro_torch.kernels.spd_stream import variants as spd_variants
+
+    phase("  design variants (CUDA events, 3 rounds after a warm-up):")
+    for name, r in lbm_variants.run(f4, attr4, 1 / 0.8).items():
+        phase(f"  lbm {name} (16x{r['block_w']}): "
+              f"{sum(r['ms']) / len(r['ms']):.4f} ms "
+              f"({', '.join(f'{t:.4f}' for t in r['ms'])}); "
+              f"{r['regs']} registers, {r['spill']} spill bytes; max abs "
+              f"err vs plain {r['max_abs_err']:.3e}")
+        if r["max_abs_err"] > 0:
+            fail(f"LBM variant {name} differs from the plain version")
+    phase(f"  lbm library lookup per launch, host ms: "
+          f"{lbm_variants.library_lookup_ms()}")
+    del f4, attr4, fbuf
+    variant_runs = (
+        ("uLBM PE 4096^2 m 4", lprog, tstate, tregs, 16),
+        ("diffusion 8192^2 m 4", dprog,
+         big.state(dif.sine_init(8192, 8192)[0]), (0.2,), 32),
+    )
+    for label, prog, state, regs, bh in variant_runs:
+        res = spd_variants.run(prog, state, regs, m=4, block_h=bh)
+        for line in spd_variants.report(label, res):
+            phase(line)
+        if not all(r["bitwise"] for r in res.values()):
+            fail(f"{label}: a variant differs from the shipped launch")
+    del variant_runs, state
+    torch.cuda.empty_cache()
 
     phase(f"  mesh runs: {json.dumps(mesh)}")
     phase(f"total {time.perf_counter() - t_start:.1f} s")

@@ -66,6 +66,13 @@ _STREAM_1D = ("Delay", "StreamForward", "StreamBackward")
 #: (``SPD_MAX_REGS`` in ``csrc/spd_tile.cuh``).
 MAX_REGS = 16
 
+#: Blocks of the generated kernel's streamed launch one SM should hold:
+#: its 256 threads use ~50 registers, so shared memory decides, and two
+#: blocks per SM beat one block of the widest tile that fits
+#: (kernels/spd_stream/variants.py, docs/port.md §tile). The declarative
+#: launches keep the one-block rule.
+BLOCKS_PER_SM = 2
+
 
 class CodegenError(SPDError):
     """The core cannot be lowered to a stream kernel (with the reason)."""
@@ -356,6 +363,11 @@ class StripeProgram:
              if key in defined and defined[key] < k},
             key=lambda v: int(v[1:]),
         )
+        # The last phase reads the state pointwise only (every stencil
+        # read of the step is of an intermediate, done by then), so a step
+        # may write its result over its input: one state buffer, not two.
+        self.in_place = not any(st.op == "shift" and st.ins[0].startswith(
+            "in") for st in phases[-1])
         self._lib = None
 
     @classmethod
@@ -370,6 +382,14 @@ class StripeProgram:
         """Shared-memory planes of one tile: ``nbuf`` state buffers of P
         planes plus the K materialized intermediates."""
         return nbuf * self.P + self.K
+
+    def launch_planes(self, *, streamed: bool, double_buffer: bool) -> int:
+        """Planes a launch's tile holds (``csrc/spd_stream.cuh``): the
+        declarative launch ping/pongs two state buffers; the streamed one
+        steps in place when :attr:`in_place` (one buffer, else two), plus
+        the ring's second slot with ``double_buffer``."""
+        state = 1 if streamed and self.in_place else 2
+        return self.planes(state + bool(double_buffer))
 
     # ---- the plain version: torch over a batch of tiles -------------------
 
@@ -439,11 +459,14 @@ class StripeProgram:
             f"  static constexpr int K = {self.K};",
             f"  static constexpr int HALO = {self.halo};",
             f"  static constexpr int HALO_X = {self.halo_x};",
+            "  static constexpr bool IN_PLACE = "
+            f"{'true' if self.in_place else 'false'};",
             "  static __device__ __forceinline__ void step(",
-            "      const float* __restrict__ src, float* __restrict__ dst,",
-            "      float* __restrict__ mat, int R, int C,",
+            # src and dst are one buffer when the step runs in place
+            "      const float* src, float* dst,",
+            "      float* __restrict__ mat, const SpdTile& t,",
             "      const SpdRegs& regs) {",
-            "    const int RC = R * C;",
+            "    const int R = t.R, C = t.C, RC = t.RC;",
         ]
 
         def name(key):
@@ -460,13 +483,17 @@ class StripeProgram:
 
         last = len(self.phases) - 1
         for k, phase in enumerate(self.phases):
+            # One thread per cell, cells SPD_THREADS apart; a phase with
+            # a stencil read carries the cell's (r, c) by additions
+            # (SpdTile), never dividing idx by C.
+            shifted = any(st.op == "shift" for st in phase)
             L.append(f"    // phase {k}")
-            L.append("    for (int idx = threadIdx.x; idx < RC; "
-                     "idx += blockDim.x) {")
-            body = []
-            shifted = {st.ins[0] for st in phase if st.op == "shift"}
             if shifted:
-                body.append("const int r = idx / C, c = idx - r * C;")
+                L.append("    {")
+                L.append("    int r = t.r0, c = t.c0;")
+            L.append("    for (int idx = threadIdx.x; idx < RC; "
+                     "idx += SPD_THREADS) {")
+            body = []
             pointwise = set()
             for st in phase:
                 if st.op != "shift":
@@ -501,11 +528,31 @@ class StripeProgram:
             if k == last:
                 for p, o in enumerate(self.outputs):
                     body.append(f"dst[{p} * RC + idx] = {name(o)};")
+            if shifted:
+                body += ["r += t.dr;", "c += t.dc;",
+                         "if (c >= C) { c -= C; ++r; }"]
             L.extend("      " + line for line in body)
             L.append("    }")
+            if shifted:
+                L.append("    }")
             L.append("    __syncthreads();")
         L += ["  }", "};", "", '#include "spd_stream.cuh"', ""]
         return "\n".join(L)
+
+    def tile(self, width: int, block_h: int, m: int, *,
+             block_w: int | None = None, double_buffer: bool = True,
+             streamed: bool = True):
+        """``(block_w, double_buffer)`` of a launch of this program's
+        kernel: :func:`launch_tile` priced at :meth:`launch_planes`; a
+        streamed launch looks for room for :data:`BLOCKS_PER_SM` blocks on
+        an SM first."""
+        return launch_tile(
+            width, block_h, m, halo=self.halo, halo_x=self.halo_x,
+            planes=lambda db: self.launch_planes(streamed=streamed,
+                                                 double_buffer=db),
+            block_w=block_w, double_buffer=double_buffer,
+            blocks_per_sm=BLOCKS_PER_SM if streamed else 1,
+        )
 
     def library(self):
         """The compiled CUDA library of this program (built on first use)."""
@@ -916,13 +963,13 @@ class StreamKernel:
         return out, (block_h, m, double_buffer)
 
     def tile(self, width: int, block_h: int, m: int, *,
-             block_w: int | None = None, double_buffer: bool = True):
-        """``(block_w, double_buffer)`` of the streamed launch."""
-        return launch_tile(
-            width, block_h, m, halo=self.halo, halo_x=self.halo_x,
-            planes=lambda db: self.program.planes(3 if db else 2),
-            block_w=block_w, double_buffer=double_buffer,
-        )
+             block_w: int | None = None, double_buffer: bool = True,
+             streamed: bool = True):
+        """``(block_w, double_buffer)`` of the streamed launch (of the
+        declarative one with ``streamed=False``)."""
+        return self.program.tile(width, block_h, m, block_w=block_w,
+                                 double_buffer=double_buffer,
+                                 streamed=streamed)
 
     # ---- the compiler's reference function --------------------------------
 

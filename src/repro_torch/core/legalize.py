@@ -727,6 +727,18 @@ SMEM_BYTES = 232_448
 #: Widest column tile :func:`launch_tile` proposes before it shrinks to fit.
 MAX_BLOCK_W = 128
 
+#: Shared memory of one Hopper SM (228 KB) and what each resident block
+#: reserves of it (1 KB): k blocks share an SM when k·(tile + 1 KB) fits,
+#: so one block may take all of :data:`SMEM_BYTES`.
+SM_SMEM_BYTES = 233_472
+BLOCK_RESERVED_BYTES = 1_024
+
+
+def block_smem_budget(blocks_per_sm: int) -> int:
+    """Shared-memory bytes a tile may take so ``blocks_per_sm`` blocks
+    share one SM."""
+    return SM_SMEM_BYTES // int(blocks_per_sm) - BLOCK_RESERVED_BYTES
+
 
 def tile_smem_bytes(block_h: int, block_w: int, m: int, *, halo: int,
                     halo_x: int, planes: int) -> int:
@@ -734,10 +746,14 @@ def tile_smem_bytes(block_h: int, block_w: int, m: int, *, halo: int,
 
     A tile keeps ``planes`` f32 planes of ``(block_h + 2·m·halo) ×
     (block_w + 2·m·halo_x)`` cells resident: the generated stream kernel
-    holds ``nbuf·P + K`` planes (``nbuf`` = 2 ping/pong state buffers, 3
-    when the streamed launch prefetches the next tile, ``K`` materialized
-    intermediates), the hand-written LBM kernel ``2·9 + 1``. The wrappers
-    pass exactly this many bytes as the launch's dynamic shared memory.
+    holds ``nbuf·P + K`` planes (``nbuf`` state buffers and ring slots: 2
+    ping/pong buffers in the declarative launch; 1 in place or 2 in the
+    streamed launch, plus 1 when it prefetches the next tile; ``K``
+    materialized intermediates, ``StripeProgram.launch_planes``), the
+    hand-written LBM kernel ``9 + 10`` (post-collision populations and the
+    load slot; its populations live in registers).
+    The wrappers pass exactly this many bytes as the launch's dynamic
+    shared memory.
     """
     rows = int(block_h) + 2 * int(m) * int(halo)
     cols = int(block_w) + 2 * int(m) * int(halo_x)
@@ -746,22 +762,50 @@ def tile_smem_bytes(block_h: int, block_w: int, m: int, *, halo: int,
 
 def launch_tile(width: int, block_h: int, m: int, *, halo: int,
                 halo_x: int, planes, block_w: int | None = None,
-                double_buffer: bool = True) -> tuple[int, bool]:
+                double_buffer: bool = True,
+                max_cells: int | None = None,
+                blocks_per_sm: int = 1) -> tuple[int, bool]:
     """Pick the column tile ``block_w`` of a Hopper launch.
 
     ``planes(double_buffer)`` gives the resident plane count of the
-    kernel's tile. An explicit ``block_w`` is checked, never shrunk. With
-    ``block_w=None`` the widest of ``min(width, MAX_BLOCK_W)``, then
-    halvings down to 1, whose tile fits :data:`SMEM_BYTES` is taken; when no
-    double-buffered tile fits, the single-buffer tile is tried (the same
-    streaming fallback :func:`blocking_plan` takes for VMEM). A plan
+    kernel's tile; ``max_cells`` caps the stripe's cells where a kernel's
+    threads own them in registers (the hand-written LBM kernel). An
+    explicit ``block_w`` is checked, never shrunk. With ``block_w=None``
+    the widest of ``min(width, MAX_BLOCK_W)``, then halvings down to 1,
+    whose tile fits :data:`SMEM_BYTES` (and ``max_cells``) is taken; when
+    no double-buffered tile fits, the single-buffer tile is tried (the
+    same streaming fallback :func:`blocking_plan` takes for VMEM). A plan
     that fits nowhere raises ``ValueError`` here, not at launch.
+
+    ``blocks_per_sm > 1`` (the generated stream kernel, whose registers
+    allow it) first looks for a tile that leaves room for that many blocks
+    on one SM (:func:`block_smem_budget`): the widest width whose
+    double-buffered tile, else single-buffer tile, fits that budget, since
+    a narrower tile recomputes more guard cells than the prefetch saves
+    (docs/port.md §tile); only when none does, the one-block rule above.
     Returns ``(block_w, double_buffer)``.
     """
     width = int(width)
     if width < 1:
         raise ValueError(f"grid width must be positive, got {width}")
-    for db in ((True, False) if double_buffer else (False,)):
+    rows = int(block_h) + 2 * int(m) * int(halo)
+
+    def cells_fit(bw):
+        return max_cells is None or rows * (
+            bw + 2 * int(m) * int(halo_x)) <= max_cells
+
+    dbs = (True, False) if double_buffer else (False,)
+    if block_w is None and int(blocks_per_sm) > 1:
+        budget = block_smem_budget(blocks_per_sm)
+        bw = min(width, MAX_BLOCK_W)
+        while bw >= 1:
+            for db in dbs:
+                if tile_smem_bytes(block_h, bw, m, halo=halo, halo_x=halo_x,
+                                   planes=planes(db)) <= budget and \
+                        cells_fit(bw):
+                    return bw, db
+            bw //= 2
+    for db in dbs:
         price = functools.partial(
             tile_smem_bytes, block_h, m=m, halo=halo, halo_x=halo_x,
             planes=planes(db),
@@ -769,16 +813,18 @@ def launch_tile(width: int, block_h: int, m: int, *, halo: int,
         if block_w is not None:
             if not 1 <= int(block_w):
                 raise ValueError(f"block_w must be >= 1, got {block_w}")
-            if price(int(block_w)) <= SMEM_BYTES:
+            if price(int(block_w)) <= SMEM_BYTES and cells_fit(int(block_w)):
                 return int(block_w), db
             continue
         bw = min(width, MAX_BLOCK_W)
         while bw >= 1:
-            if price(bw) <= SMEM_BYTES:
+            if price(bw) <= SMEM_BYTES and cells_fit(bw):
                 return bw, db
             bw //= 2
     raise ValueError(
-        f"no column tile fits {SMEM_BYTES} B of shared memory: block_h="
+        f"no column tile fits {SMEM_BYTES} B of shared memory"
+        + (f" and {max_cells} cells" if max_cells is not None else "")
+        + ": block_h="
         f"{block_h}, m={m}, halo={halo}, halo_x={halo_x}, "
         f"block_w={block_w if block_w is not None else 1} needs "
         f"{tile_smem_bytes(block_h, block_w or 1, m, halo=halo, halo_x=halo_x, planes=planes(False))} B"
@@ -789,6 +835,9 @@ __all__ = [
     "MAX_BLOCK_W",
     "PLAN_FIELDS",
     "SMEM_BYTES",
+    "SM_SMEM_BYTES",
+    "BLOCK_RESERVED_BYTES",
+    "block_smem_budget",
     "RunPlan",
     "VMEM_BYTES",
     "VMEM_DOUBLE_BUFFER",

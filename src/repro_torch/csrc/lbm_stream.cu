@@ -8,35 +8,68 @@
 // version (repro_torch.kernels.lbm_stream.lbm_stream.lbm_multistep_plain);
 // built with -fmad=false so no multiply-add is contracted.
 //
-// Tiling: one thread block per (block_h x block_w) tile. Shared memory
-// holds the (block_h + 2m) x (block_w + 2m) stripe of the 9 populations,
-// a second 9-plane buffer for the post-collision values (streaming reads
-// the neighbours' post-collision populations, so they are materialized
-// over the tile and the block synchronizes) and the attribute plane:
-// 19 planes in all. Rows and columns are loaded mod H and mod W; stencil
-// reads inside the tile zero-fill, so m guard cells per side go stale
-// over m steps and only the center is written, into a separate output.
+// Tiling: a tile's stripe is (block_h + 2m) x (block_w + 2m) cells, rows
+// mod H and columns mod W; stencil reads inside the tile zero-fill, so m
+// guard cells per side go stale over m steps and only the center is
+// written, into a separate output.
+//
+// Design (docs/port.md §tile):
+//  * Persistent blocks (occupancy x SMs) walk the tiles.
+//  * Register-resident populations: thread t owns the stripe cells t + k
+//    LBM_THREADS (k < LBM_CPT) and keeps their 9 populations and attribute
+//    in registers across the m steps. Collision reads registers and writes
+//    the post-collision populations g (9 shared planes); after a barrier,
+//    streaming reads each owned cell's 9 neighbours from g and bounces back
+//    into registers. Only g and the load slot live in shared memory.
+//  * A 1-slot load ring: the tile's 10 planes (9 populations, attributes)
+//    arrive in the slot by 16-byte cp.async (tile_copy.cuh; 4-byte where
+//    W, block_w or m is not a multiple of 4); once the owners have read
+//    their cells into registers, the next tile's copies are issued into
+//    the same slot and overlap this tile's m steps.
+//  * The center cells go back through g (free after the last step) and
+//    out in 16-byte stores.
+//  * No index division per element or cell: each owned cell's (row,
+//    column) and every copy walk are computed once per kernel.
+// Shared memory: (9 + 10) planes of the stripe, 19 (LBM_SMEM_POPS, a
+// variant for measurement, keeps the populations in 9 more shared planes
+// instead of registers: 28).
 //
 // Bound: HBM bytes per launch >= (9 + 1 + 9) H W 4 B (populations and
 // attributes read once, populations written once); m fused steps per
 // round trip raise the arithmetic per byte (131 flops per cell-step).
 
-#include <cuda_runtime.h>
+#include "tile_copy.cuh"
 
-#define LBM_THREADS 256
+#ifndef LBM_THREADS
+#define LBM_THREADS 512
+#endif
+#ifndef LBM_CPT
+#define LBM_CPT 4  // stripe cells per thread: a tile holds <= 2048 cells
+#endif
+#ifndef LBM_SMEM_POPS
+#define LBM_SMEM_POPS 0
+#endif
+#ifndef LBM_PREFETCH
+#define LBM_PREFETCH 1
+#endif
+#ifndef LBM_MIN_BLOCKS
+#define LBM_MIN_BLOCKS 1  // blocks per SM the registers are sized for
+#endif
 
-__device__ __forceinline__ float lbm_tap(const float* __restrict__ plane,
-                                         int y, int x, int R, int C) {
-  return ((unsigned)y < (unsigned)R && (unsigned)x < (unsigned)C)
-             ? plane[y * C + x]
-             : 0.0f;
-}
+#define LBM_PLANES (19 + 9 * LBM_SMEM_POPS)
 
-__global__ void __launch_bounds__(LBM_THREADS)
+#if LBM_SMEM_POPS
+#define POP(k, i) fs[(i) * RC + cell[k]]
+#else
+#define POP(k, i) fr[k][i]
+#endif
+
+__global__ void __launch_bounds__(LBM_THREADS, LBM_MIN_BLOCKS)
 lbm_multistep_kernel(const float* __restrict__ f_in,
                      const float* __restrict__ attr_in,
                      float* __restrict__ f_out, int H, int W, int bh, int bw,
-                     int m, int ntx, float one_tau, float u_lid) {
+                     int m, int ntx, int ntiles, int vec, float one_tau,
+                     float u_lid) {
   // Lattice directions, opposites, and the f32 roundings of the weights
   // and of 6 w_i e_x,i; every loop over them is unrolled, so each index
   // folds to a constant.
@@ -50,99 +83,170 @@ lbm_multistep_kernel(const float* __restrict__ f_in,
                          -0.6666666865348816f, 0.0f, 0.1666666716337204f,
                          -0.1666666716337204f, -0.1666666716337204f,
                          0.1666666716337204f};
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int R = bh + 2 * m, C = bw + 2 * m, RC = R * C;
-  float* f = smem;           // 9 planes: the state
-  float* g = f + 9 * RC;     // 9 planes: post-collision populations
-  float* a = g + 9 * RC;     // 1 plane: attributes
-  const int by = blockIdx.x / ntx, bx = blockIdx.x - by * ntx;
-  const int y0 = by * bh - m, x0 = bx * bw - m;
-  for (int i = threadIdx.x; i < 10 * RC; i += blockDim.x) {
-    const int p = i / RC, rem = i - p * RC, r = rem / C, c = rem - r * C;
-    int gy = (y0 + r) % H;
-    if (gy < 0) gy += H;
-    int gx = (x0 + c) % W;
-    if (gx < 0) gx += W;
-    const size_t cell = (size_t)gy * W + gx;
-    if (p < 9) {
-      f[i] = f_in[(size_t)p * H * W + cell];
+  float* g = smem;          // 9 planes: post-collision populations
+  float* slot = g + 9 * RC;  // 10 planes: the load slot
+#if LBM_SMEM_POPS
+  float* fs = slot + 10 * RC;  // 9 planes: the populations
+#endif
+  const int V = vec ? 4 : 1;
+  const RowWalk lw = row_walk(10, R, C / V, LBM_THREADS);
+  const RowWalk sw = row_walk(9, bh, bw / V, LBM_THREADS);
+  // The owned cells, their offsets and which of their neighbours lie
+  // inside the tile (up, down, left, right).
+  int cell[LBM_CPT];
+  bool own[LBM_CPT], in_u[LBM_CPT], in_d[LBM_CPT], in_l[LBM_CPT],
+      in_r[LBM_CPT], center[LBM_CPT];
+#pragma unroll
+  for (int k = 0; k < LBM_CPT; ++k) {
+    cell[k] = threadIdx.x + k * LBM_THREADS;
+    own[k] = cell[k] < RC;
+    const int r = cell[k] / C, c = cell[k] - r * C;
+    in_u[k] = r > 0;
+    in_d[k] = r < R - 1;
+    in_l[k] = c > 0;
+    in_r[k] = c < C - 1;
+    center[k] = r >= m && r < m + bh && c >= m && c < m + bw;
+  }
+  auto row = [=](int p, int gy) {
+    return p < 9 ? f_in + ((size_t)p * H + gy) * W : attr_in + (size_t)gy * W;
+  };
+  auto issue = [&](int t) {
+    const int ty = t / ntx, tx = t - ty * ntx;
+    if (vec) {
+      load_stripe<4, true>(row, slot, lw, 10, R, C, H, W, ty * bh - m,
+                           tx * bw - m);
     } else {
-      a[rem] = attr_in[cell];
+      load_stripe<1, true>(row, slot, lw, 10, R, C, H, W, ty * bh - m,
+                           tx * bw - m);
     }
-  }
-  __syncthreads();
-  for (int s = 0; s < m; ++s) {
-    // collide (BGK), gated to fluid cells
-    for (int idx = threadIdx.x; idx < RC; idx += blockDim.x) {
-      float fi[9];
+    cp_async_commit();
+  };
+#if !LBM_SMEM_POPS
+  float fr[LBM_CPT][9];
+#endif
+  float at[LBM_CPT];
+  if (LBM_PREFETCH && blockIdx.x < ntiles) issue(blockIdx.x);
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    if (!LBM_PREFETCH) issue(tile);
+    cp_async_wait<0>();
+    __syncthreads();
 #pragma unroll
-      for (int i = 0; i < 9; ++i) fi[i] = f[i * RC + idx];
-      const bool fluid = a[idx] < 0.5f;
-      float rho = fi[0];
+    for (int k = 0; k < LBM_CPT; ++k) {
+      if (!own[k]) continue;
 #pragma unroll
-      for (int i = 1; i < 9; ++i) rho = rho + fi[i];
-      const float inv_rho = 1.0f / rho;
-      const float ux = (fi[1] + fi[5] + fi[8] - fi[3] - fi[6] - fi[7]) * inv_rho;
-      const float uy = (fi[2] + fi[5] + fi[6] - fi[4] - fi[7] - fi[8]) * inv_rho;
-      const float usq = ux * ux + uy * uy;
+      for (int i = 0; i < 9; ++i) POP(k, i) = slot[i * RC + cell[k]];
+      at[k] = slot[9 * RC + cell[k]];
+    }
+    __syncthreads();
+    if (LBM_PREFETCH && tile + (int)gridDim.x < ntiles) {
+      issue(tile + gridDim.x);
+    }
+    for (int s = 0; s < m; ++s) {
+      // collide (BGK), gated to fluid cells
 #pragma unroll
-      for (int i = 0; i < 9; ++i) {
-        float feq;
-        if (i == 0) {
-          feq = w[0] * rho * (1.0f - 1.5f * usq);
-        } else {
-          const float cu = (float)kEX[i] * ux + (float)kEY[i] * uy;
-          feq = w[i] * rho * (1.0f + 3.0f * cu + 4.5f * cu * cu - 1.5f * usq);
+      for (int k = 0; k < LBM_CPT; ++k) {
+        if (!own[k]) continue;
+        float fi[9];
+#pragma unroll
+        for (int i = 0; i < 9; ++i) fi[i] = POP(k, i);
+        const bool fluid = at[k] < 0.5f;
+        float rho = fi[0];
+#pragma unroll
+        for (int i = 1; i < 9; ++i) rho = rho + fi[i];
+        const float inv_rho = 1.0f / rho;
+        const float ux =
+            (fi[1] + fi[5] + fi[8] - fi[3] - fi[6] - fi[7]) * inv_rho;
+        const float uy =
+            (fi[2] + fi[5] + fi[6] - fi[4] - fi[7] - fi[8]) * inv_rho;
+        const float usq = ux * ux + uy * uy;
+#pragma unroll
+        for (int i = 0; i < 9; ++i) {
+          float feq;
+          if (i == 0) {
+            feq = w[0] * rho * (1.0f - 1.5f * usq);
+          } else {
+            const float cu = (float)kEX[i] * ux + (float)kEY[i] * uy;
+            feq = w[i] * rho *
+                  (1.0f + 3.0f * cu + 4.5f * cu * cu - 1.5f * usq);
+          }
+          const float gi = fi[i] - one_tau * (fi[i] - feq);
+          g[i * RC + cell[k]] = fluid ? gi : fi[i];
         }
-        const float gi = fi[i] - one_tau * (fi[i] - feq);
-        g[i * RC + idx] = fluid ? gi : fi[i];
       }
+      __syncthreads();
+      // stream (zero-fill taps inside the tile), then bounce-back
+#pragma unroll
+      for (int k = 0; k < LBM_CPT; ++k) {
+        if (!own[k]) continue;
+        float st[9];
+#pragma unroll
+        for (int i = 0; i < 9; ++i) {
+          // the tap at (r - ey, c - ex)
+          const bool inside = (kEY[i] > 0 ? in_u[k] : true) &&
+                              (kEY[i] < 0 ? in_d[k] : true) &&
+                              (kEX[i] > 0 ? in_l[k] : true) &&
+                              (kEX[i] < 0 ? in_r[k] : true);
+          st[i] = inside ? g[i * RC + cell[k] - kEY[i] * C - kEX[i]] : 0.0f;
+        }
+        const bool solid = at[k] >= 0.5f, moving = at[k] >= 1.5f;
+#pragma unroll
+        for (int i = 0; i < 9; ++i) {
+          const float refl = st[kOPP[i]];
+          const float bb = moving ? refl + corr[i] * u_lid : refl;
+          POP(k, i) = solid ? bb : st[i];
+        }
+      }
+      __syncthreads();
+    }
+    // The center cells through g (free since the last barrier) and out.
+#pragma unroll
+    for (int k = 0; k < LBM_CPT; ++k) {
+      if (!own[k] || !center[k]) continue;
+#pragma unroll
+      for (int i = 0; i < 9; ++i) g[i * RC + cell[k]] = POP(k, i);
     }
     __syncthreads();
-    // stream (zero-fill taps inside the tile), then bounce-back
-    for (int idx = threadIdx.x; idx < RC; idx += blockDim.x) {
-      const int r = idx / C, c = idx - r * C;
-      float st[9];
-#pragma unroll
-      for (int i = 0; i < 9; ++i)
-        st[i] = lbm_tap(g + i * RC, r - kEY[i], c - kEX[i], R, C);
-      const float at = a[idx];
-      const bool solid = at >= 0.5f, moving = at >= 1.5f;
-#pragma unroll
-      for (int i = 0; i < 9; ++i) {
-        const float refl = st[kOPP[i]];
-        const float bb = moving ? refl + corr[i] * u_lid : refl;
-        f[i * RC + idx] = solid ? bb : st[i];
-      }
+    const int by = tile / ntx, bx = tile - by * ntx;
+    if (vec) {
+      store_center<4>(g, f_out, sw, 9, R, C, W, H, by * bh, bx * bw, bh, m,
+                      m);
+    } else {
+      store_center<1>(g, f_out, sw, 9, R, C, W, H, by * bh, bx * bw, bh, m,
+                      m);
     }
     __syncthreads();
-  }
-  const int n = bh * bw;
-  for (int i = threadIdx.x; i < 9 * n; i += blockDim.x) {
-    const int p = i / n, rem = i - p * n, r = rem / bw, c = rem - r * bw;
-    const int gx = bx * bw + c;
-    if (gx >= W) continue;
-    f_out[((size_t)p * H + by * bh + r) * W + gx] =
-        f[p * RC + (r + m) * C + (c + m)];
   }
 }
 
 extern "C" long long lbm_smem_bytes(int bh, int bw, int m) {
-  return (long long)(bh + 2 * m) * (bw + 2 * m) * 19 * (long long)sizeof(float);
+  return (long long)(bh + 2 * m) * (bw + 2 * m) * LBM_PLANES *
+         (long long)sizeof(float);
 }
+
+// The most stripe cells a tile may hold (the owners' registers).
+extern "C" int lbm_max_cells() { return LBM_THREADS * LBM_CPT; }
 
 extern "C" int lbm_multistep(const float* f, const float* attr, float* out,
                              int H, int W, int bh, int bw, int m,
                              float one_tau, float u_lid, long long smem,
-                             void* stream) {
+                             int dev, void* stream) {
   if (smem < lbm_smem_bytes(bh, bw, m)) return -1;
-  cudaError_t e = cudaFuncSetAttribute(
-      lbm_multistep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  if ((long long)(bh + 2 * m) * (bw + 2 * m) > lbm_max_cells()) return -4;
+  if (bh < 1 || H % bh) return (int)cudaErrorInvalidValue;
+  const void* fn = (const void*)lbm_multistep_kernel;
+  int grid = 0;
+  int e = launch_setup(fn, dev, smem, LBM_THREADS, &grid);
+  if (e) return e;
   const int ntx = (W + bw - 1) / bw;
-  lbm_multistep_kernel<<<(H / bh) * ntx, LBM_THREADS, (size_t)smem,
+  const int ntiles = (H / bh) * ntx;
+  if (ntiles < grid) grid = ntiles;
+  const int vec = tile_vec4(f, out, W, bw, m) &&
+                  ((uintptr_t)attr & 15) == 0;
+  lbm_multistep_kernel<<<grid, LBM_THREADS, (size_t)smem,
                          (cudaStream_t)stream>>>(f, attr, out, H, W, bh, bw,
-                                                 m, ntx, one_tau, u_lid);
+                                                 m, ntx, ntiles, vec,
+                                                 one_tau, u_lid);
   return (int)cudaGetLastError();
 }

@@ -23,6 +23,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -128,6 +129,27 @@ def load(name: str, source: str) -> ctypes.CDLL:
     return _LIBS[key]
 
 
+def ptxas_usage(log: str) -> dict[str, tuple[int, int]]:
+    """``{entry function: (registers, spill bytes)}`` from ``nvcc -Xptxas
+    -v`` output (the ``.log`` beside a library); spill bytes are stores
+    plus loads."""
+    usage, name, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage[name] = (int(m.group(1)), spill)
+            name = None
+    return usage
+
+
 def check(rc: int, what: str) -> None:
     """Raise unless a C entry point returned 0."""
     if rc == -1:
@@ -140,6 +162,9 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: no TMA descriptor (the driver refused "
                            "the base or a stride, or has no "
                            "cuTensorMapEncodeTiled)")
+    if rc == -4:
+        raise RuntimeError(f"{what}: the tile holds more cells than the "
+                           "kernel's threads own")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
@@ -165,19 +190,22 @@ def load_spd_library(program) -> ctypes.CDLL:
     ``csrc/spd_stream.cuh``)."""
     lib = load(f"spd_{program.name}", program.cuda_source())
     lib.spd_multistep.argtypes = [_P, _P, _I, _I, _I, _I, _I, SpdRegs, _LL,
-                                  _P]
+                                  _I, _P]
     lib.spd_multistep.restype = _I
     lib.spd_multistep_streamed.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I,
-                                           SpdRegs, _LL, _P]
+                                           SpdRegs, _LL, _I, _P]
     lib.spd_multistep_streamed.restype = _I
     lib.spd_multistep_halo.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                       SpdRegs, _LL, _P]
+                                       SpdRegs, _LL, _I, _P]
     lib.spd_multistep_halo.restype = _I
     lib.spd_multistep_halo_streamed.argtypes = [_P, _P, _I, _I, _I, _I, _I,
-                                                _I, _I, _I, SpdRegs, _LL, _P]
+                                                _I, _I, _I, SpdRegs, _LL, _I,
+                                                _P]
     lib.spd_multistep_halo_streamed.restype = _I
     lib.spd_smem_bytes.argtypes = [_I, _I, _I, _I]
     lib.spd_smem_bytes.restype = _LL
+    lib.spd_stream_buffers.argtypes = []
+    lib.spd_stream_buffers.restype = _I
     return lib
 
 
@@ -185,15 +213,24 @@ def lbm_source() -> str:
     return (CSRC / "lbm_stream.cu").read_text()
 
 
-def load_lbm_library() -> ctypes.CDLL:
-    """Build and bind the hand-written D2Q9 kernel (``csrc/lbm_stream.cu``)."""
-    lib = load("lbm_stream", lbm_source())
+def bind_lbm(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Bind the entry points of a built ``csrc/lbm_stream.cu``."""
     lib.lbm_multistep.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
-                                  ctypes.c_float, ctypes.c_float, _LL, _P]
+                                  ctypes.c_float, ctypes.c_float, _LL, _I,
+                                  _P]
     lib.lbm_multistep.restype = _I
     lib.lbm_smem_bytes.argtypes = [_I, _I, _I]
     lib.lbm_smem_bytes.restype = _LL
+    lib.lbm_max_cells.argtypes = []
+    lib.lbm_max_cells.restype = _I
     return lib
+
+
+@functools.cache
+def load_lbm_library() -> ctypes.CDLL:
+    """Build and bind the hand-written D2Q9 kernel (``csrc/lbm_stream.cu``),
+    once per process: a launch then costs no hash of the source."""
+    return bind_lbm(load("lbm_stream", lbm_source()))
 
 
 class FlashStrides(ctypes.Structure):

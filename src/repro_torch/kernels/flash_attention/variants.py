@@ -59,6 +59,7 @@ def main() -> None:
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_plain,
     )
+    from repro_torch.kernels.timing import card_line, ms_rounds
 
     if not torch.cuda.is_available():
         raise SystemExit("variants: needs the card")
@@ -73,10 +74,7 @@ def main() -> None:
             .bfloat16() for _ in range(2))
     want = flash_attention_plain(q, k, v).float()
     ops = 4 * b * hq * d * (s * (s + 1) // 2)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    print(f"{smi}; causal prefill launch q {tuple(q.shape)} kv "
+    print(f"{card_line()}; causal prefill launch q {tuple(q.shape)} kv "
           f"{tuple(k.shape)} bf16")
     out = torch.empty((b, s, hq, d), dtype=q.dtype,
                       device="cuda").transpose(1, 2)
@@ -102,24 +100,7 @@ def main() -> None:
         notes[name] = ptxas_d128(so.with_suffix(".log").read_text())
         runs[name] = run
 
-    def ms_of(run, iters=50):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            run()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
-
-    for run in runs.values():  # warm the card up to its steady clocks
-        ms_of(run, 200)
-    # Three rounds, the second in reverse order, so a drift in the card's
-    # clocks shows as a difference between them.
-    times = {name: [] for name in runs}
-    for order in (list(runs), list(reversed(runs)), list(runs)):
-        for name in order:
-            times[name].append(ms_of(runs[name]))
+    times = ms_rounds(runs, rounds=3, iters=50, warmup=4)
     # The card's clock and power under each variant: nvidia-smi samples
     # while ~0.7 s of launches are queued.
     clocks = {}

@@ -3,11 +3,14 @@
 Replaces the JAX package's ``kernels/lbm_stream/lbm_stream.py:
 lbm_multistep`` (with ``_kernel`` and ``_step``): the paper's temporal
 parallelism realized as temporal blocking — one HBM round trip advances
-``m`` time steps. A thread block keeps a ``(block_h + 2m) × (block_w +
-2m)`` stripe of the 9 populations and the attribute plane in shared
-memory, applies m collide → stream → bounce steps on chip, and writes only
-the center cells (docs/port.md §tile). It is the independent anchor the
-generated uLBM PE kernel is held to.
+``m`` time steps. Persistent thread blocks walk the ``(block_h + 2m) ×
+(block_w + 2m)`` stripes; each thread keeps the 9 populations and the
+attribute of the stripe cells it owns in registers across m collide →
+stream → bounce steps, shared memory holds the post-collision populations
+and a load slot into which the next tile's stripe is copied (16-byte
+``cp.async``) while this one steps, and only the center cells are written
+(docs/port.md §tile). It is the independent anchor the generated uLBM PE
+kernel is held to.
 
 Bound on the card: at least ``(9 + 1 + 9)·H·W·4`` bytes of HBM traffic per
 launch; with 131 flops per cell-step the m fused steps raise the
@@ -28,9 +31,12 @@ from repro_torch.core.codegen import _tile_shift, gather_tiles, scatter_centers
 from repro_torch.core.compiler import f32
 from repro_torch.core.legalize import launch_tile, tile_smem_bytes
 
-#: Shared-memory planes of one tile: 9 populations, 9 post-collision
-#: populations, 1 attribute plane.
+#: Shared-memory planes of one tile: 9 post-collision populations and the
+#: load slot's 10 (9 populations, the attributes).
 LBM_PLANES = 19
+#: Stripe cells one tile may hold: the kernel's 512 threads own 4 cells
+#: each, in registers (``lbm_max_cells`` of ``csrc/lbm_stream.cu``).
+LBM_CELLS = 2048
 
 
 def _step(f, attr, one_tau, u_lid):
@@ -95,7 +101,8 @@ def lbm_multistep(f, attr, one_tau, u_lid=0.0, *, m: int = 4,
       attr: (H, W) f32 cell attributes (0 fluid / 1 wall / 2 moving lid).
       one_tau: 1/tau relaxation; u_lid: lid velocity for attr==2 cells.
       m: fused time steps per HBM round trip (temporal parallelism).
-      block_h, block_w: the tile (``block_w=None``: widest that fits).
+      block_h, block_w: the tile (``block_w=None``: the widest whose
+        stripe fits shared memory and :data:`LBM_CELLS`).
     """
     if f.dim() != 3 or f.shape[0] != 9 or attr.shape != f.shape[1:]:
         raise ValueError(
@@ -111,7 +118,7 @@ def lbm_multistep(f, attr, one_tau, u_lid=0.0, *, m: int = 4,
         raise ValueError(f"m={m} must be <= block_h={block_h} (halo source)")
     block_w, _ = launch_tile(w, block_h, m, halo=1, halo_x=1,
                              planes=lambda db: LBM_PLANES, block_w=block_w,
-                             double_buffer=False)
+                             double_buffer=False, max_cells=LBM_CELLS)
     if f.device.type == "cpu":
         return lbm_multistep_plain(f, attr, one_tau, u_lid, m=m,
                                    block_h=block_h, block_w=block_w)
@@ -124,11 +131,13 @@ def lbm_multistep(f, attr, one_tau, u_lid=0.0, *, m: int = 4,
     smem = tile_smem_bytes(block_h, block_w, m, halo=1, halo_x=1,
                            planes=LBM_PLANES)
     lib = load_lbm_library()
-    check(lib.lbm_multistep(
-        f.data_ptr(), attr.data_ptr(), out.data_ptr(), h, w, block_h,
-        block_w, m, float(np.float32(one_tau)), float(np.float32(u_lid)),
-        smem, torch.cuda.current_stream(f.device).cuda_stream,
-    ), "lbm_multistep")
+    with torch.cuda.device(f.device):
+        check(lib.lbm_multistep(
+            f.data_ptr(), attr.data_ptr(), out.data_ptr(), h, w, block_h,
+            block_w, m, float(np.float32(one_tau)), float(np.float32(u_lid)),
+            smem, f.device.index,
+            torch.cuda.current_stream(f.device).cuda_stream,
+        ), "lbm_multistep")
     lbm_multistep.launches += 1
     return out
 

@@ -36,7 +36,7 @@ from repro_torch.core.codegen import (
     gather_tiles,
     scatter_centers,
 )
-from repro_torch.core.legalize import launch_tile, tile_smem_bytes
+from repro_torch.core.legalize import tile_smem_bytes
 
 
 def check_plan(program: StripeProgram, state, m: int, block_h: int) -> None:
@@ -175,9 +175,11 @@ def launch(fn, program: StripeProgram, x, regs, *, m: int, block_h: int,
     declarative one passes False. ``guard`` launches over a
     guard-block-extended shard: ext rows without wrap, ``rows - 2·block_h``
     output rows, row-range tensors allowed. ``block_w=None`` takes the
-    widest column tile that fits the block's shared memory, and a
-    streamed launch drops to the single-buffer protocol when no
-    prefetching tile fits.
+    plan of :meth:`StripeProgram.tile`: a declarative launch the widest
+    column tile that fits the block's shared memory; a streamed launch
+    the widest that leaves room for two blocks on an SM — prefetching
+    when that tile fits at that width, single-buffer otherwise — and the
+    one-block rule only when no tile does.
     """
     streamed = fn.__name__.endswith("_streamed")
     if guard:
@@ -186,11 +188,9 @@ def launch(fn, program: StripeProgram, x, regs, *, m: int, block_h: int,
         check_plan(program, x, m, block_h)
         out_rows = None
     _, rows, w = x.shape
-    block_w, double_buffer = launch_tile(
-        w, block_h, m, halo=program.halo, halo_x=program.halo_x,
-        planes=lambda db: program.planes(3 if db else 2), block_w=block_w,
-        double_buffer=double_buffer,
-    )
+    block_w, double_buffer = program.tile(w, block_h, m, block_w=block_w,
+                                          double_buffer=double_buffer,
+                                          streamed=streamed)
     if x.device.type == "cpu":
         plain = spd_multistep_halo_plain if guard else spd_multistep_plain
         return deliver(plain(program, x, regs, m=m, block_h=block_h,
@@ -200,7 +200,9 @@ def launch(fn, program: StripeProgram, x, regs, *, m: int, block_h: int,
     out = cuda_args(x, out, out_rows)
     smem = tile_smem_bytes(block_h, block_w, m, halo=program.halo,
                            halo_x=program.halo_x,
-                           planes=program.planes(3 if double_buffer else 2))
+                           planes=program.launch_planes(
+                               streamed=streamed,
+                               double_buffer=double_buffer))
     args = [x.data_ptr(), out.data_ptr(), rows, w]
     if guard:
         args += [plane_rows(x), plane_rows(out)]
@@ -209,7 +211,7 @@ def launch(fn, program: StripeProgram, x, regs, *, m: int, block_h: int,
         args.append(int(double_buffer))
     with torch.cuda.device(x.device):
         check(getattr(program.library(), fn.__name__)(
-            *args, spd_regs(regs), smem,
+            *args, spd_regs(regs), smem, x.device.index,
             torch.cuda.current_stream(x.device).cuda_stream,
         ), fn.__name__)
     fn.launches += 1

@@ -4,11 +4,13 @@ Replaces the JAX package's ``kernels/spd_stream/streaming.py:
 spd_multistep_streamed`` (one Pallas program walking the row blocks with
 manual ping/pong DMA into VMEM, docs/pipeline.md §stream). On Hopper,
 persistent thread blocks — the kernel's occupancy times the SM count —
-walk the ``(block_h × block_w)`` tiles. With ``double_buffer`` each block
-prefetches its next tile's stripe into a second shared-memory buffer with
-``cp.async`` while the current tile computes; without it one buffer is
-loaded, computed and written in turn (``csrc/spd_stream.cuh``,
-docs/port.md §tile).
+walk the ``(block_h × block_w)`` tiles through a ring of load slots. With
+``double_buffer`` each block prefetches its next tile's stripe into a
+second slot with 16-byte ``cp.async`` copies while the current tile
+computes; without it one slot is loaded, computed and written in turn
+(``csrc/spd_stream.cuh``, docs/port.md §tile). The default plan seeks
+room for two blocks per SM first, so the uLBM PE runs one slot at two
+blocks per SM and diffusion two slots at three.
 
 Bound on the card: at least ``2·P·H·W·4`` bytes of HBM traffic per launch;
 m fused steps per round trip, and the prefetch that overlaps the next
@@ -38,8 +40,10 @@ def spd_multistep_streamed(program: StripeProgram, state, regs, *, m: int,
 
     Same contract and bitwise the same result as
     :func:`repro_torch.kernels.spd_stream.spd_stream.spd_multistep`.
-    ``double_buffer`` drops to the single-buffer protocol when no
-    prefetching tile fits the block's shared memory.
+    With ``block_w=None``, ``double_buffer`` drops to the single-buffer
+    protocol when the widest tile with room for two blocks per SM fits
+    only without the prefetch slot, or when no prefetching tile fits
+    (:meth:`StripeProgram.tile`).
     """
     return launch(spd_multistep_streamed, program, state, regs, m=m,
                   block_h=block_h, block_w=block_w,

@@ -125,7 +125,11 @@ def test_run_blocked_and_run_for_point(lbm_pair):
         m, detail = 4, {"block_rows": 12}
 
     out, (bh, m, db) = tk.run_for_point(state, regs, point=Point(), steps=8)
-    assert (bh, m, db) == (8, 4, True)
+    # The streamed plan at width 128: the in-place one-slot 8×64 tile
+    # (87,552 B) leaves room for two blocks per SM, its two-slot twin
+    # (133,632 B) does not, so the plan runs without the prefetch slot.
+    assert (bh, m, db) == (8, 4, False)
+    assert tk.tile(128, 8, 4) == (64, False)
     assert torch.equal(out, got)
 
 
@@ -186,3 +190,69 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         tlbm.taylor_green_init(16, 64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tdif.compile_diffusion(64).stream_kernel()
+
+
+@pytest.mark.parametrize("app", ["diffusion", "ulbm"])
+def test_printed_step_divides_no_cell_index(app, dif_pair, lbm_pair):
+    """The printed ``SpdCore::step`` walks its cells without dividing an
+    index: one loop per phase, a phase with a stencil read carrying the
+    cell's (r, c) by additions from the walk ``spd_tile`` computes once
+    per kernel; no ``/`` or ``%`` by the tile width in any phase loop."""
+    import re
+
+    prog = (dif_pair[0].kernel if app == "diffusion"
+            else lbm_pair[0]).program
+    body = prog.cuda_source().split("struct SpdCore", 1)[1]
+    loops = re.findall(r"for \(int idx = threadIdx\.x; idx < RC; "
+                       r"idx \+= SPD_THREADS\) \{\n(.*?)\n    \}", body,
+                       re.S)
+    assert len(loops) == len(prog.phases)
+    for phase, loop in zip(prog.phases, loops):
+        assert not re.search(r"(idx|r|c)\s*[/%]|[/%]\s*(C|R|RC)\b", loop)
+        assert "%" not in loop
+        shifted = any(st.op == "shift" for st in phase)
+        assert ("c += t.dc;" in loop) == shifted
+        assert ("if (c >= C) { c -= C; ++r; }" in loop) == shifted
+    assert "const int r = idx / C" not in body
+
+
+def test_in_place_step_only_without_input_stencils(dif_pair, lbm_pair):
+    """A step may write over its input when its last phase reads the state
+    pointwise only: the uLBM PE (every stencil read is of the
+    post-collision intermediates), not diffusion (it stencils its input).
+    The printed source says so, and its two state pointers carry no
+    ``__restrict__``, as they may be one buffer."""
+    dprog, pprog = dif_pair[0].kernel.program, lbm_pair[0].program
+    assert not dprog.in_place and pprog.in_place
+    for prog in (dprog, pprog):
+        src = prog.cuda_source()
+        flag = "true" if prog.in_place else "false"
+        assert f"static constexpr bool IN_PLACE = {flag};" in src
+        assert "const float* src, float* dst," in src
+        assert prog.launch_planes(streamed=True, double_buffer=False) == \
+            prog.planes(1 if prog.in_place else 2)
+        assert prog.launch_planes(streamed=False, double_buffer=False) == \
+            prog.planes(2)
+
+
+def test_spd_variant_plans_undo_one_choice_each(dif_pair, lbm_pair):
+    """``kernels/spd_stream/variants.py`` times the shipped plan beside
+    plans that each undo one choice: the uLBM PE's in-place two-slot 16×32
+    tile (two blocks per SM) beside the one-block 64-wide tile, one slot,
+    and ping/pong state; diffusion has no in-place variant."""
+    from repro_torch.core.legalize import block_smem_budget
+    from repro_torch.kernels.spd_stream.variants import variant_plans
+
+    plans, srcs = variant_plans(lbm_pair[0].program, 4096, 16, 4)
+    assert plans["kernel"] == (32, True, 111_360) == plans["scalar_copies"]
+    assert plans["one_block"] == (64, True, 200_448)
+    assert plans["one_block_ring1"] == (64, False, 200_448)
+    assert plans["ring1"] == (32, False, 72_960)
+    assert plans["ping_pong"] == (32, False, 111_360)
+    assert plans["kernel"][2] <= block_smem_budget(2) < plans["one_block"][2]
+    assert "IN_PLACE = false" in srcs["ping_pong"]
+    assert srcs["scalar_copies"].startswith("#define TILE_COPY_SCALAR 1\n")
+    plans, srcs = variant_plans(dif_pair[0].kernel.program, 8192, 32, 4)
+    assert set(plans) == {"kernel", "one_block_ring1", "ring1",
+                          "scalar_copies"}
+    assert set(srcs) == {"scalar_copies"}

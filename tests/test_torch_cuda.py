@@ -74,6 +74,116 @@ def test_smem_pricing_equals_the_kernels(card):
     for nbuf in (2, 3):
         assert lib.spd_smem_bytes(16, 32, 4, nbuf) == tile_smem_bytes(
             16, 32, 4, halo=1, halo_x=1, planes=kern.program.planes(nbuf))
+    # The streamed launch steps the uLBM PE in place (one state buffer),
+    # diffusion ping/pong (two), as the legalizer prices them.
+    dprog = dif.DiffusionSimulation(64, 96).kernel.program
+    for prog, bufs in ((kern.program, 1), (dprog, 2)):
+        assert prog.library().spd_stream_buffers() == bufs
+        for db in (True, False):
+            assert prog.launch_planes(streamed=True, double_buffer=db) == \
+                prog.planes(bufs + db)
+
+
+#: (H, W, block_h, block_w, m) of the kernels' copy paths: the 16-byte
+#: path with tiles on both periodic edges, a ragged last column tile on it,
+#: a width that is not a multiple of 4 (the 4-byte path), m from 1 to 4
+#: (m·halo_x off a multiple of 4 is the 4-byte path too), m·halo ==
+#: block_h, and a grid of fewer tiles than persistent blocks.
+COPY_CASES = {
+    "vec4": (64, 96, 16, 32, 4),
+    "ragged": (64, 104, 16, 32, 4),
+    "width98": (32, 98, 8, 32, 4),
+    "m1": (32, 96, 8, 32, 1),
+    "m2": (32, 96, 8, 32, 2),
+    "m3": (48, 96, 16, 24, 3),
+    "m_eq_block_h": (32, 96, 4, 32, 4),
+    "few_tiles": (16, 32, 16, 32, 2),
+}
+
+
+def _noisy(x, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return x * (1 + 0.01 * torch.randn(x.shape, generator=g).to(x.device))
+
+
+def _pe(h, w):
+    sim = lbm.LBMSimulation(lbm.LBMProblem(h, w))
+    f, attr = lbm.couette_init(h, w)
+    return sim, _noisy(f, 1), attr, (1 / 0.9, 0.07, 1.0)
+
+
+@pytest.mark.parametrize("case", list(COPY_CASES))
+def test_copy_paths_equal_plain(card, case):
+    """Both stream kernels on every copy path: the generated kernels
+    (diffusion and the uLBM PE; streamed with and without the prefetch
+    slot, declarative) and the hand-written LBM kernel, bitwise equal to
+    their plain versions."""
+    h, w, bh, bw, m = COPY_CASES[case]
+    dsim = dif.DiffusionSimulation(h, w)
+    st = dsim.state(_noisy(dif.sine_init(h, w)[0], 0))
+    sim, f, attr, regs = _pe(h, w)
+    pe = sim.stream_kernel()
+    for kern, state, rg in ((dsim.kernel, st, (0.2,)),
+                            (pe, sim.stream_state(f, attr), regs)):
+        want = spd_multistep_plain(kern.program, state, rg, m=m,
+                                   block_h=bh, block_w=bw)
+        for db in (True, False):
+            assert torch.equal(kern(state, rg, m=m, block_h=bh, block_w=bw,
+                                    double_buffer=db), want), (case, db)
+        assert torch.equal(kern.multistep(state, rg, m=m, block_h=bh,
+                                          block_w=bw), want), case
+    want = lbm_multistep_plain(f, attr, regs[0], regs[1], m=m, block_h=bh,
+                               block_w=bw)
+    assert torch.equal(lbm_multistep(f, attr, regs[0], regs[1], m=m,
+                                     block_h=bh, block_w=bw), want), case
+
+
+def test_lbm_pricing_equals_the_kernel(card):
+    from repro_torch.kernels.build import load_lbm_library
+    from repro_torch.kernels.lbm_stream.lbm_stream import (
+        LBM_CELLS,
+        LBM_PLANES,
+    )
+
+    lib = load_lbm_library()
+    assert lib.lbm_max_cells() == LBM_CELLS
+    for bh, bw, m in ((16, 64, 4), (8, 32, 1), (20, 64, 4)):
+        assert lib.lbm_smem_bytes(bh, bw, m) == tile_smem_bytes(
+            bh, bw, m, halo=1, halo_x=1, planes=LBM_PLANES)
+
+
+@pytest.mark.parametrize("width", [98, 104])
+@pytest.mark.parametrize("m", [1, 4])
+def test_halo_launches_on_row_range_views(card, width, m):
+    """Both halo launches read ext and write out as row ranges of larger
+    buffers (plane strides in rows), on the 4-byte (width 98) and 16-byte
+    (width 104) paths, bitwise equal to their plain version."""
+    from repro_torch.kernels.spd_stream import (
+        spd_multistep_halo,
+        spd_multistep_halo_streamed,
+    )
+    from repro_torch.kernels.spd_stream.sharded import (
+        spd_multistep_halo_plain,
+    )
+
+    sim, f, attr, regs = _pe(96, width)
+    state = sim.stream_state(f, attr)
+    program = sim.stream_kernel().program
+    big = torch.zeros((10, 96 + 12, width), device="cuda")
+    big[:, 5:101] = state
+    ext = big[:, 5:101]
+    want = spd_multistep_halo_plain(program, ext.contiguous(), regs, m=m,
+                                    block_h=16, block_w=32)
+    for launch, kw in ((spd_multistep_halo, {}),
+                       (spd_multistep_halo_streamed, {"double_buffer": True}),
+                       (spd_multistep_halo_streamed,
+                        {"double_buffer": False})):
+        obig = torch.full((10, 64 + 8, width), -1.0, device="cuda")
+        got = launch(program, ext, regs, m=m, block_h=16, block_w=32,
+                     out=obig[:, 3:67], **kw)
+        assert got.data_ptr() == obig[:, 3:67].data_ptr()
+        assert torch.equal(obig[:, 3:67], want), (launch.__name__, kw)
+        assert (obig[:, :3] == -1).all() and (obig[:, 67:] == -1).all()
 
 
 @pytest.mark.parametrize("m", [1, 4])

@@ -83,8 +83,15 @@ def test_tile_pricing_matches_the_kernels_layout():
         16, 32, 4, halo=1, halo_x=1, planes=prog.planes(nbuf))
     assert price(2) == 29 * 24 * 40 * 4 == 111_360
     assert price(3) == 111_360 + 38_400 == 149_760
+    # The streamed launch steps the PE in place (one state buffer) and
+    # leaves room for two blocks per SM: at 16×32 its two-slot tile is the
+    # declarative launch's ping/pong tile, 111,360 B.
+    assert prog.in_place
+    assert prog.launch_planes(streamed=True, double_buffer=True) == 29
+    assert prog.launch_planes(streamed=False, double_buffer=False) == 29
     assert kern.tile(720, 16, 4) == (32, True)
-    assert kern.tile(720, 16, 4, double_buffer=False) == (64, False)
+    assert kern.tile(720, 16, 4, double_buffer=False,
+                     streamed=False) == (64, False)
     assert (tleg.tile_smem_bytes(32, 128, 4, halo=1, halo_x=1,
                                  planes=LBM_PLANES)
             == 40 * 136 * 19 * 4)
@@ -112,3 +119,43 @@ def test_launch_tile_shrinks_falls_back_and_rejects():
                          block_w=512, double_buffer=False)
     with pytest.raises(ValueError, match="shared memory"):
         tleg.launch_tile(64, 4000, 1, halo=1, halo_x=1, planes=planes)
+
+
+def test_launch_tile_two_blocks_per_sm_and_cell_cap():
+    """``blocks_per_sm=2`` takes the widest tile with room for two blocks
+    on an SM (two-slot where it fits at that width, else one-slot) before
+    the one-block rule; ``max_cells`` caps the stripe's cells."""
+    planes = lambda db: 39 if db else 29  # noqa: E731  (the uLBM PE)
+    price = lambda bw, db: tleg.tile_smem_bytes(  # noqa: E731
+        16, bw, 4, halo=1, halo_x=1, planes=planes(db))
+    assert tleg.block_smem_budget(1) == tleg.SMEM_BYTES
+    assert 2 * (tleg.block_smem_budget(2) + tleg.BLOCK_RESERVED_BYTES) \
+        <= tleg.SM_SMEM_BYTES
+    bw, db = tleg.launch_tile(4096, 16, 4, halo=1, halo_x=1, planes=planes,
+                              blocks_per_sm=2)
+    assert (bw, db) == (32, False)
+    assert price(32, True) > tleg.block_smem_budget(2) >= price(32, False)
+    # Diffusion's two-slot tile already leaves room for three blocks.
+    assert tleg.launch_tile(8192, 32, 4, halo=1, halo_x=1,
+                            planes=lambda db: 3 if db else 2,
+                            blocks_per_sm=2) == (128, True)
+    # No tile leaves room for two blocks: the one-block rule.
+    big = lambda db: 60 if db else 50  # noqa: E731
+    assert tleg.launch_tile(4096, 64, 4, halo=1, halo_x=1, planes=big,
+                            blocks_per_sm=2) == tleg.launch_tile(
+        4096, 64, 4, halo=1, halo_x=1, planes=big) == (4, True)
+    # An explicit tile is checked against one block, never shrunk.
+    assert tleg.launch_tile(4096, 16, 4, halo=1, halo_x=1, planes=planes,
+                            block_w=32, blocks_per_sm=2) == (32, True)
+    # The LBM kernel's cap: 24 rows × (64 + 8) = 1728 cells fit 2048,
+    # 24 × 136 do not.
+    assert tleg.launch_tile(4096, 16, 4, halo=1, halo_x=1,
+                            planes=lambda db: 19, double_buffer=False,
+                            max_cells=2048) == (64, False)
+    assert tleg.launch_tile(4096, 24, 4, halo=1, halo_x=1,
+                            planes=lambda db: 19, double_buffer=False,
+                            max_cells=2048) == (32, False)
+    with pytest.raises(ValueError, match="2048 cells"):
+        tleg.launch_tile(4096, 16, 4, halo=1, halo_x=1,
+                         planes=lambda db: 19, block_w=128,
+                         double_buffer=False, max_cells=2048)
