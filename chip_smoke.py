@@ -422,6 +422,7 @@ def main() -> None:
         LBM_PLANES,
         lbm_multistep,
         lbm_multistep_plain,
+        lbm_owned,
     )
     from repro_torch.kernels.lbm_stream.ops import (
         lbm_run_blocked,
@@ -532,6 +533,10 @@ def main() -> None:
                        double_buffer=False)
             b = lkern.multistep(state, regs, m=m, block_h=16, block_w=32)
             c = lkern(state, regs, m=m, block_h=8, block_w=64)
+            # 8x128 at m 4 holds more stripe cells than the owners: state
+            # in the load slot, both launches
+            fb = (lkern(state, regs, m=m, block_h=8, block_w=128),
+                  lkern.multistep(state, regs, m=m, block_h=8, block_w=128))
             errs.setdefault("pe", []).append(check_close(
                 f"uLBM PE {cname} m={m} streamed", a, plain, KERNEL_TOL))
             errs.setdefault("pe_decl", []).append(check_close(
@@ -541,6 +546,14 @@ def main() -> None:
             check_equal(f"uLBM PE {cname} m={m} double_buffer on == off",
                         a, a1)
             check_equal(f"uLBM PE {cname} m={m} plan 16x32 == 8x64", a, c)
+            if m == 4:
+                if lprog.owned(8, 128, m) or not lprog.owned(16, 32, m):
+                    fail("uLBM PE 8x128 / 16x32 at m 4 not on the slot / "
+                         "register walks")
+            check_equal(f"uLBM PE {cname} m={m} 8x128 streamed == 16x32",
+                        fb[0], a)
+            check_equal(f"uLBM PE {cname} m={m} 8x128 declarative == 16x32",
+                        fb[1], a)
             hp = lbm_multistep_plain(f, attr, one_tau, u_lid, m=m,
                                      block_h=16, block_w=64)
             h = lbm_multistep(f, attr, one_tau, u_lid, m=m, block_h=16)
@@ -549,6 +562,16 @@ def main() -> None:
             check_close(f"generated PE vs hand-written {cname} m={m}",
                         a[:9], h, GEN_VS_HAND_TOL)
         halo_pair(f"uLBM PE {cname}", lprog, state, regs, 16, 32)
+        halo_pair(f"uLBM PE {cname} 8x128 tile", lprog, state, regs, 8, 128)
+        # the hand-written kernel's slot instantiation (264 x 10 cells)
+        hp = lbm_multistep_plain(f, attr, one_tau, u_lid, m=4, block_h=256,
+                                 block_w=2)
+        h = lbm_multistep(f, attr, one_tau, u_lid, m=4, block_h=256)
+        if lbm_owned(256, 2, 4):
+            fail("LBM block_h 256 tile not on the slot instantiation")
+        errs.setdefault("hand", []).append(check_close(
+            f"hand-written LBM {cname} m=4 block_h 256 (slot)", h, hp,
+            KERNEL_TOL))
         single = lkern.run_blocked(state, regs, steps=8, m=4, block_h=16)
         sk = lkern.sharded(4, devices=["cuda:0"] * 4, dx=2)
         check_equal(f"uLBM PE {cname} (2, 2) mesh on cuda:0 x4 == single "
@@ -556,21 +579,27 @@ def main() -> None:
                                              block_h=16), single)
     for prog, kern in ((lprog, lkern), (dprog, dsim.kernel)):
         lib = prog.library()
+        if lib.spd_owner_cells() != prog.owner_cells:
+            fail(f"{prog.name} kernel owns {lib.spd_owner_cells()} cells, "
+                 f"the legalizer prices {prog.owner_cells}")
         for db in (True, False):
             for streamed in (True, False):
-                bw, db2 = kern.tile(1024, 16, 4, double_buffer=db,
-                                    streamed=streamed)
-                want = tile_smem_bytes(16, bw, 4, halo=1, halo_x=1,
-                                       planes=prog.launch_planes(
-                                           streamed=streamed,
-                                           double_buffer=db2))
-                nbuf = (lib.spd_stream_buffers() if streamed else 2) + db2
-                got = lib.spd_smem_bytes(16, bw, 4, nbuf)
-                if got != want:
-                    fail(f"{prog.name} shared-memory pricing {want} B != "
-                         f"kernel's {got} B")
+                for bw in (None, 128):  # the plan's tile; 8x128: slot state
+                    bw, db2 = kern.tile(1024, 8, 4, block_w=bw,
+                                        double_buffer=db, streamed=streamed)
+                    planes = prog.launch_planes(streamed=streamed,
+                                                double_buffer=db2)
+                    want = prog.smem_bytes(8, bw, 4, streamed=streamed,
+                                           double_buffer=db2)
+                    got = lib.spd_smem_bytes(
+                        8, bw, 4, lib.spd_tile_planes(streamed, db2))
+                    if got != want or lib.spd_tile_planes(
+                            streamed, db2) != planes:
+                        fail(f"{prog.name} shared-memory pricing {want} B "
+                             f"!= kernel's {got} B")
     hlib = build.load_lbm_library()
-    for bh, bw, m in ((16, 64, 4), (20, 64, 4), (16, 64, 1)):
+    for bh, bw, m in ((16, 64, 4), (20, 64, 4), (16, 64, 1), (256, 2, 4),
+                      (300, 1, 4)):
         want = tile_smem_bytes(bh, bw, m, halo=1, halo_x=1,
                                planes=LBM_PLANES)
         got = hlib.lbm_smem_bytes(bh, bw, m)
@@ -580,7 +609,7 @@ def main() -> None:
         fail(f"LBM kernel owns {hlib.lbm_max_cells()} cells, the legalizer "
              f"prices {LBM_CELLS}")
     phase("  legalizer's shared-memory pricing == kernel's allocation")
-    del plain, a, a1, b, c, h, hp, state
+    del plain, a, a1, b, c, fb, h, hp, state
     torch.cuda.empty_cache()
 
     # ---- 3. the main path at real size --------------------------------
@@ -654,6 +683,28 @@ def main() -> None:
                            block_h=16)
     check_close("LBM 4096^2 hand-written vs generated", hand, out[:9],
                 GEN_VS_HAND_TOL)
+
+    # after the timed runs: its plain version's 720 tiles fill the
+    # allocator's cache
+    class TallPoint:  # a tile taller than the LBM kernel's owners hold
+        m, detail = 4, {"block_rows": 300}
+
+    f, attr = lbm.cavity_init(300, 720)
+    tall, tplan = lbm_run_for_point(f, attr, paper.problem.one_tau,
+                                    TallPoint(), steps=8, u_lid=0.05)
+    twant = f
+    tbw = launch_tile(720, 300, 4, halo=1, halo_x=1,
+                      planes=lambda db: LBM_PLANES, double_buffer=False)[0]
+    for _ in range(2):
+        twant = lbm_multistep_plain(twant, attr, paper.problem.one_tau, 0.05,
+                                    m=4, block_h=300, block_w=tbw)
+    if tplan != (300, 4) or lbm_owned(300, tbw, 4):
+        fail(f"LBM 300x720 block_rows 300: plan {tplan}, tile 300x{tbw}")
+    check_equal(f"LBM 300x720 cavity lbm_run_for_point block_rows 300 plan "
+                f"{tplan} (tile 300x{tbw}, slot instantiation) == plain",
+                tall, twant)
+    del tall, twant
+
     body = dict(StripeProgram.launches)
     launches = {
         "spd_multistep_streamed[Diff2D]": body.get("Diff2D", 0),
@@ -938,8 +989,7 @@ def main() -> None:
     attr4 = tstate[9].contiguous()
     fbuf = torch.empty_like(f4)
     bwh = launch_tile(4096, 16, 4, halo=1, halo_x=1,
-                      planes=lambda db: LBM_PLANES, double_buffer=False,
-                      max_cells=LBM_CELLS)[0]
+                      planes=lambda db: LBM_PLANES, double_buffer=False)[0]
     ms, plain_ms, err = timed_pair(
         "hand-written LBM 4096^2 m=4",
         lambda: lbm_multistep(f4, attr4, 1 / 0.8, 0.0, m=4, block_h=16,
@@ -997,7 +1047,7 @@ def main() -> None:
 
     phase("  design variants (CUDA events, 3 rounds after a warm-up):")
     for name, r in lbm_variants.run(f4, attr4, 1 / 0.8).items():
-        phase(f"  lbm {name} (16x{r['block_w']}): "
+        phase(f"  lbm {name} ({r['block_h']}x{r['block_w']}): "
               f"{sum(r['ms']) / len(r['ms']):.4f} ms "
               f"({', '.join(f'{t:.4f}' for t in r['ms'])}); "
               f"{r['regs']} registers, {r['spill']} spill bytes; max abs "

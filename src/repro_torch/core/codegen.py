@@ -56,7 +56,7 @@ import torch
 
 from .compiler import CompiledCore, eval_expr, f32
 from .dfg import Bin, Call, Expr, Neg, Num, SPDError, Var
-from .legalize import launch_tile, resolve_run_plan
+from .legalize import launch_tile, resolve_run_plan, tile_smem_bytes
 from .library import LibraryModule, f32_literal
 
 #: 1-D stream-state modules with no 2-D stripe lowering.
@@ -66,12 +66,24 @@ _STREAM_1D = ("Delay", "StreamForward", "StreamBackward")
 #: (``SPD_MAX_REGS`` in ``csrc/spd_tile.cuh``).
 MAX_REGS = 16
 
-#: Blocks of the generated kernel's streamed launch one SM should hold:
-#: its 256 threads use ~50 registers, so shared memory decides, and two
-#: blocks per SM beat one block of the widest tile that fits
-#: (kernels/spd_stream/variants.py, docs/port.md §tile). The declarative
-#: launches keep the one-block rule.
+#: Blocks of a shared-state generated kernel one SM should hold: its 256
+#: threads' registers are sized for two (``SPD_MIN_BLOCKS``), so shared
+#: memory decides, and two blocks per SM beat one block of the widest
+#: tile that fits (kernels/spd_stream/variants.py, docs/port.md §tile).
+#: Both launches seek it when they choose ``block_w``.
 BLOCKS_PER_SM = 2
+
+#: Threads of a shared-state generated kernel's block (``SPD_THREADS``).
+THREADS = 256
+
+#: A register-state kernel's block: 1,024 threads owning 2 stripe cells
+#: each (``REG_CPT``, one for a core of more than 10 state planes), their
+#: registers sized for one block per SM (64 a thread), on the widest tile
+#: whose stripe the owners hold. Measured against 256 threads × 5 cells
+#: at two blocks per SM, 512 × 2 and 512 × 4 at one, and shared state
+#: (kernels/spd_stream/variants.py, PERF.md §6).
+REG_THREADS = 1024
+REG_CPT = 2
 
 
 class CodegenError(SPDError):
@@ -366,8 +378,17 @@ class StripeProgram:
         # The last phase reads the state pointwise only (every stencil
         # read of the step is of an intermediate, done by then), so a step
         # may write its result over its input: one state buffer, not two.
-        self.in_place = not any(st.op == "shift" and st.ins[0].startswith(
-            "in") for st in phases[-1])
+        self.in_place = not any(_reads_state_by_stencil(st)
+                                for st in phases[-1])
+        # No phase reads the state by stencil: each cell's state is read
+        # by that cell alone, so a thread may keep its cells' state in
+        # registers across the m steps (docs/port.md §ir).
+        self.reg_state = not any(_reads_state_by_stencil(st)
+                                 for phase in phases for st in phase)
+        self.cpt = (REG_CPT if self.P <= 10 else 1) if self.reg_state else 1
+        self.threads = REG_THREADS if self.reg_state else THREADS
+        self.blocks_per_sm = 1 if self.reg_state else BLOCKS_PER_SM
+        self._tiles: dict[tuple, tuple[int, bool]] = {}
         self._lib = None
 
     @classmethod
@@ -384,12 +405,46 @@ class StripeProgram:
         return nbuf * self.P + self.K
 
     def launch_planes(self, *, streamed: bool, double_buffer: bool) -> int:
-        """Planes a launch's tile holds (``csrc/spd_stream.cuh``): the
-        declarative launch ping/pongs two state buffers; the streamed one
-        steps in place when :attr:`in_place` (one buffer, else two), plus
-        the ring's second slot with ``double_buffer``."""
-        state = 1 if streamed and self.in_place else 2
-        return self.planes(state + bool(double_buffer))
+        """Planes a launch's tile holds (``spd_tile_planes`` of
+        ``csrc/spd_stream.cuh``): ``P + K`` for a :attr:`reg_state` core
+        (one load slot beside the registers, the same for a tile too large
+        for the owners, whose state is stepped in the slot); otherwise one
+        state buffer in place (:attr:`in_place`) or two ping/pong, plus
+        the second ring slot in a streamed launch with ``double_buffer``."""
+        if self.reg_state:
+            return self.planes(1)
+        state = 1 if self.in_place else 2
+        return self.planes(state + bool(streamed and double_buffer))
+
+    @property
+    def owner_cells(self) -> int:
+        """Stripe cells a block's threads own in registers (0 when the
+        core keeps its state in shared memory)."""
+        return self.threads * self.cpt if self.reg_state else 0
+
+    def owned(self, block_h: int, block_w: int, m: int) -> bool:
+        """Whether a tile's state lives in the owners' registers: a
+        :attr:`reg_state` core on a stripe of at most :attr:`owner_cells`
+        cells (the rule the kernel applies, ``spd_owned``)."""
+        rows = block_h + 2 * m * self.halo
+        cols = block_w + 2 * m * self.halo_x
+        return self.reg_state and rows * cols <= self.owner_cells
+
+    @property
+    def guard_rows(self) -> int:
+        """Rows of ``C`` cells before the first plane and after the last
+        that keep every stencil tap inside the allocation
+        (``SPD_GUARD_ROWS``)."""
+        return 2 * (self.halo + 1)
+
+    def smem_bytes(self, block_h: int, block_w: int, m: int, *,
+                   streamed: bool, double_buffer: bool) -> int:
+        """Dynamic shared memory of one launch's tile."""
+        return tile_smem_bytes(
+            block_h, block_w, m, halo=self.halo, halo_x=self.halo_x,
+            planes=self.launch_planes(streamed=streamed,
+                                      double_buffer=double_buffer),
+            guard_rows=self.guard_rows)
 
     # ---- the plain version: torch over a batch of tiles -------------------
 
@@ -445,29 +500,113 @@ class StripeProgram:
 
     # ---- the CUDA printer --------------------------------------------------
 
-    def cuda_source(self) -> str:
-        """The generated translation unit: the ``SpdCore`` tile step,
-        then the shared launch scaffolding of ``csrc/spd_stream.cuh``."""
-        mat_idx = {v: j for j, v in enumerate(self.mat)}
+    def cuda_source(self, *, taps: str = "offset",
+                    reg_state: bool | None = None) -> str:
+        """The generated translation unit: the ``SpdCore`` tile steps,
+        then the shared launch scaffolding of ``csrc/spd_stream.cuh``.
+
+        ``step`` walks the cells ``t, t + SPD_THREADS, …`` of a tile whose
+        state lies in shared memory; a :attr:`reg_state` core also gets
+        ``step_owned``, which steps its owned cells' state in registers.
+        ``taps="offset"`` (shipped) prints every stencil tap as one shared
+        load at a constant offset from the cell (``csrc/spd_tile.cuh``);
+        ``"checked"`` as ``spd_tap`` with two bounds compares, and
+        ``reg_state=False`` a register-state core with shared state only
+        (the variants of ``kernels/spd_stream/variants.py``).
+        """
+        if taps not in ("offset", "checked"):
+            raise ValueError(f"taps must be 'offset' or 'checked': {taps!r}")
+        reg = self.reg_state if reg_state is None else bool(reg_state)
+        if reg and not self.reg_state:
+            raise CodegenError(f"{self.name}: the step reads its state by "
+                               "stencil; it cannot keep it in registers")
         L = [
             f"// Generated from SPD core {self.name} by "
             "repro_torch.core.codegen; do not edit.",
-            '#include "spd_tile.cuh"',
-            "",
+        ]
+        if reg:
+            # the owner layout, each macro open to a variant's override
+            for macro, v in (("SPD_THREADS", self.threads),
+                             ("SPD_CPT", self.cpt),
+                             ("SPD_MIN_BLOCKS", self.blocks_per_sm)):
+                L += [f"#ifndef {macro}", f"#define {macro} {v}", "#endif"]
+        L += ['#include "spd_tile.cuh"', ""]
+        flag = lambda b: "true" if b else "false"  # noqa: E731
+        L += [
             "struct SpdCore {",
             f"  static constexpr int P = {self.P};",
             f"  static constexpr int K = {self.K};",
             f"  static constexpr int HALO = {self.halo};",
             f"  static constexpr int HALO_X = {self.halo_x};",
-            "  static constexpr bool IN_PLACE = "
-            f"{'true' if self.in_place else 'false'};",
+            f"  static constexpr bool IN_PLACE = {flag(self.in_place)};",
+            f"  static constexpr bool REG_STATE = {flag(reg)};",
+            f"  static constexpr int CPT = {'SPD_CPT' if reg else 1};",
             "  static __device__ __forceinline__ void step(",
             # src and dst are one buffer when the step runs in place
             "      const float* src, float* dst,",
             "      float* __restrict__ mat, const SpdTile& t,",
             "      const SpdRegs& regs) {",
-            "    const int R = t.R, C = t.C, RC = t.RC;",
         ]
+        checked = taps == "checked"
+        # R is read by checked taps only
+        dims = ("    const int R = t.R, C = t.C, RC = t.RC;" if checked
+                else "    const int C = t.C, RC = t.RC;")
+        L.append(dims)
+        for k in range(len(self.phases)):
+            # One thread per cell, cells SPD_THREADS apart; checked taps
+            # carry the cell's (r, c) by additions (SpdTile).
+            walk = checked and self._shifted(k)
+            L.append(f"    // phase {k}")
+            if walk:
+                L += ["    {", "    int r = t.r0, c = t.c0;"]
+            L.append("    for (int idx = threadIdx.x; idx < RC; "
+                     "idx += SPD_THREADS) {")
+            body = self._phase_body(
+                k, lambda p: f"src[{p} * RC + idx]",
+                lambda p, v: f"dst[{p} * RC + idx] = {v};", checked)
+            if walk:
+                body += ["r += t.dr;", "c += t.dc;",
+                         "if (c >= C) { c -= C; ++r; }"]
+            L.extend("      " + line for line in body)
+            L.append("    }")
+            if walk:
+                L.append("    }")
+            L.append("    __syncthreads();")
+        L.append("  }")
+        if reg:
+            L += [
+                "  // The owned cells' state in registers: s[q] is cell",
+                "  // t + q SPD_THREADS of the tile, owned while < RC.",
+                "  static __device__ __forceinline__ void step_owned(",
+                "      float (&s)[CPT][P], const SpdOwned<CPT>& own,",
+                "      float* __restrict__ mat, const SpdTile& t,",
+                "      const SpdRegs& regs) {",
+                dims,
+            ]
+            for k in range(len(self.phases)):
+                L += [f"    // phase {k}", "#pragma unroll",
+                      "    for (int q = 0; q < CPT; ++q) {",
+                      "      const int idx = threadIdx.x + q * SPD_THREADS;",
+                      "      if (idx >= RC) continue;"]
+                if checked and self._shifted(k):
+                    L.append("      const int r = own.r[q], c = own.c[q];")
+                body = self._phase_body(
+                    k, lambda p: f"s[q][{p}]",
+                    lambda p, v: f"s[q][{p}] = {v};", checked)
+                L.extend("      " + line for line in body)
+                L += ["    }", "    __syncthreads();"]
+            L.append("  }")
+        L += ["};", "", '#include "spd_stream.cuh"', ""]
+        return "\n".join(L)
+
+    def _shifted(self, k: int) -> bool:
+        return any(st.op == "shift" for st in self.phases[k])
+
+    def _phase_body(self, k: int, state, store, checked: bool) -> list:
+        """Phase ``k`` of one cell ``idx``: its pointwise reads (a state
+        plane through ``state(p)``), statements, taps, materialized
+        stores and, in the last phase, the new state (``store(p, v)``)."""
+        mat_idx = {v: j for j, v in enumerate(self.mat)}
 
         def name(key):
             if key.startswith("r"):
@@ -476,83 +615,82 @@ class StripeProgram:
                 return f32_literal(self.consts[key])
             return key
 
-        def plane(key):
-            if key.startswith("in"):
-                return f"src + {int(key[2:])} * RC"
-            return f"mat + {mat_idx[key]} * RC"
+        def tap(key, dy, dx):
+            arr, p = (("src", int(key[2:])) if key.startswith("in")
+                      else ("mat", mat_idx[key]))
+            if checked:
+                return (f"spd_tap({arr} + {p} * RC, r - ({dy}), "
+                        f"c - ({dx}), R, C)")
+            return f"{arr}[{p} * RC + idx - ({dy} * C + ({dx}))]"
 
-        last = len(self.phases) - 1
-        for k, phase in enumerate(self.phases):
-            # One thread per cell, cells SPD_THREADS apart; a phase with
-            # a stencil read carries the cell's (r, c) by additions
-            # (SpdTile), never dividing idx by C.
-            shifted = any(st.op == "shift" for st in phase)
-            L.append(f"    // phase {k}")
-            if shifted:
-                L.append("    {")
-                L.append("    int r = t.r0, c = t.c0;")
-            L.append("    for (int idx = threadIdx.x; idx < RC; "
-                     "idx += SPD_THREADS) {")
-            body = []
-            pointwise = set()
-            for st in phase:
-                if st.op != "shift":
-                    pointwise.update(_stmt_reads(st))
-            if k == last:
-                pointwise.update(self.outputs)
-            for key in sorted(pointwise, key=_key_order):
-                if key.startswith("in"):
-                    body.append(f"const float {key} = src[{key[2:]} * RC "
-                                "+ idx];")
-                elif key in mat_idx and self._defined[key] < k:
-                    body.append(f"const float {key} = mat[{mat_idx[key]} "
-                                "* RC + idx];")
-            for st in phase:
-                if st.op == "equ":
-                    body.append(f"const float {st.outs[0]} = "
-                                f"{_expr_c(st.expr, name)};")
-                elif st.op == "lib":
-                    body.extend(st.mod.cuda(list(st.outs),
-                                            [name(i) for i in st.ins],
-                                            dict(st.params)))
-                else:
-                    body.append(
-                        f"const float {st.outs[0]} = spd_tap("
-                        f"{plane(st.ins[0])}, r - ({st.dy}), "
-                        f"c - ({st.dx}), R, C);"
-                    )
-            for key in self.mat:
-                if self._defined[key] == k:
-                    body.append(f"mat[{mat_idx[key]} * RC + idx] = "
-                                f"{key};")
-            if k == last:
-                for p, o in enumerate(self.outputs):
-                    body.append(f"dst[{p} * RC + idx] = {name(o)};")
-            if shifted:
-                body += ["r += t.dr;", "c += t.dc;",
-                         "if (c >= C) { c -= C; ++r; }"]
-            L.extend("      " + line for line in body)
-            L.append("    }")
-            if shifted:
-                L.append("    }")
-            L.append("    __syncthreads();")
-        L += ["  }", "};", "", '#include "spd_stream.cuh"', ""]
-        return "\n".join(L)
+        last = k == len(self.phases) - 1
+        pointwise = set()
+        for st in self.phases[k]:
+            if st.op != "shift":
+                pointwise.update(_stmt_reads(st))
+        if last:
+            pointwise.update(self.outputs)
+        body = []
+        for key in sorted(pointwise, key=_key_order):
+            if key.startswith("in"):
+                body.append(f"const float {key} = {state(key[2:])};")
+            elif key in mat_idx and self._defined[key] < k:
+                body.append(f"const float {key} = mat[{mat_idx[key]} "
+                            "* RC + idx];")
+        for st in self.phases[k]:
+            if st.op == "equ":
+                body.append(f"const float {st.outs[0]} = "
+                            f"{_expr_c(st.expr, name)};")
+            elif st.op == "lib":
+                body.extend(st.mod.cuda(list(st.outs),
+                                        [name(i) for i in st.ins],
+                                        dict(st.params)))
+            else:
+                body.append(f"const float {st.outs[0]} = "
+                            f"{tap(st.ins[0], st.dy, st.dx)};")
+        for key in self.mat:
+            if self._defined[key] == k:
+                body.append(f"mat[{mat_idx[key]} * RC + idx] = {key};")
+        if last:
+            for p, o in enumerate(self.outputs):
+                body.append(store(p, name(o)))
+        return body
 
     def tile(self, width: int, block_h: int, m: int, *,
              block_w: int | None = None, double_buffer: bool = True,
              streamed: bool = True):
         """``(block_w, double_buffer)`` of a launch of this program's
-        kernel: :func:`launch_tile` priced at :meth:`launch_planes`; a
-        streamed launch looks for room for :data:`BLOCKS_PER_SM` blocks on
-        an SM first."""
-        return launch_tile(
+        kernel: :func:`launch_tile` priced at :meth:`launch_planes` and
+        :attr:`guard_rows`, looking for room for :attr:`blocks_per_sm`
+        blocks on an SM first (two for a shared-state core; one for a
+        register-state core, whose registers take the SM, narrowed to the
+        widest halving whose stripe the owners hold, where one does).
+        ``double_buffer`` is the streamed launch's prefetch: never in the
+        declarative launch, nor on a register-state core's tile too large
+        for the owners (:meth:`owned`). Plans are cached per program: a
+        launch at a small grid is bound by its host time."""
+        key = (width, block_h, m, block_w, double_buffer, streamed)
+        if key not in self._tiles:
+            self._tiles[key] = self._tile(*key)
+        return self._tiles[key]
+
+    def _tile(self, width, block_h, m, block_w, double_buffer, streamed):
+        bw, db = launch_tile(
             width, block_h, m, halo=self.halo, halo_x=self.halo_x,
             planes=lambda db: self.launch_planes(streamed=streamed,
                                                  double_buffer=db),
-            block_w=block_w, double_buffer=double_buffer,
-            blocks_per_sm=BLOCKS_PER_SM if streamed else 1,
+            block_w=block_w, double_buffer=double_buffer and streamed,
+            blocks_per_sm=self.blocks_per_sm, guard_rows=self.guard_rows,
         )
+        if self.reg_state and block_w is None:
+            w = bw
+            while w > 1 and not self.owned(block_h, w, m):
+                w //= 2
+            if self.owned(block_h, w, m):
+                bw = w
+        if self.reg_state and not self.owned(block_h, bw, m):
+            db = False
+        return bw, db
 
     def library(self):
         """The compiled CUDA library of this program (built on first use)."""
@@ -577,6 +715,10 @@ class _KeyEnv(Mapping):
 
     def __len__(self):
         return 0
+
+
+def _reads_state_by_stencil(st: Stmt) -> bool:
+    return st.op == "shift" and st.ins[0].startswith("in")
 
 
 def _key_order(key: str):
@@ -745,6 +887,7 @@ def lower_stripe(compiled: CompiledCore, halo: int,
                 f"core {core.name}: output port {p!r} is a scalar, not a "
                 "stream"
             )
+    _check_reach(core.name, fl.stmts, outputs, halo, halo_x)
     phases: list[list[Stmt]] = [[]]
     phase_of: dict[str, int] = {}
     for st in fl.stmts:
@@ -755,6 +898,32 @@ def lower_stripe(compiled: CompiledCore, halo: int,
             phase_of[o] = len(phases) - 1
     return StripeProgram(core.name, len(ports), len(core.regs), halo,
                          halo_x, phases, outputs, fl.consts)
+
+
+def _check_reach(name: str, stmts, outputs, halo: int,
+                 halo_x: int) -> None:
+    """Refuse a core whose chained stencil reads reach farther than the
+    composed halo (a shift and its opposite cancel in the halo, not in the
+    reads): the tile's guard cells would not cover them, and the kernel's
+    taps read outside the tile only in cells that the guard crops."""
+    reach: dict[str, tuple] = {}
+    for st in stmts:
+        ry = rx = 0
+        for key in _stmt_reads(st):
+            y, x = reach.get(key, (0, 0))
+            ry, rx = max(ry, y), max(rx, x)
+        if st.op == "shift":
+            ry, rx = ry + abs(st.dy), rx + abs(st.dx)
+        for o in st.outs:
+            reach[o] = (ry, rx)
+    ry = max((reach.get(o, (0, 0))[0] for o in outputs), default=0)
+    rx = max((reach.get(o, (0, 0))[1] for o in outputs), default=0)
+    if ry > halo or rx > halo_x:
+        raise CodegenError(
+            f"core {name}: its stencil reads reach ({ry}, {rx}) cells, "
+            f"beyond the composed halo ({halo}, {halo_x}); the tile's guard "
+            "cells would not cover them"
+        )
 
 
 def _tile_shift(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:

@@ -741,38 +741,39 @@ def block_smem_budget(blocks_per_sm: int) -> int:
 
 
 def tile_smem_bytes(block_h: int, block_w: int, m: int, *, halo: int,
-                    halo_x: int, planes: int) -> int:
+                    halo_x: int, planes: int, guard_rows: int = 0) -> int:
     """Shared-memory bytes of one port-kernel tile (docs/port.md §tile).
 
     A tile keeps ``planes`` f32 planes of ``(block_h + 2·m·halo) ×
-    (block_w + 2·m·halo_x)`` cells resident: the generated stream kernel
-    holds ``nbuf·P + K`` planes (``nbuf`` state buffers and ring slots: 2
-    ping/pong buffers in the declarative launch; 1 in place or 2 in the
-    streamed launch, plus 1 when it prefetches the next tile; ``K``
-    materialized intermediates, ``StripeProgram.launch_planes``), the
-    hand-written LBM kernel ``9 + 10`` (post-collision populations and the
-    load slot; its populations live in registers).
-    The wrappers pass exactly this many bytes as the launch's dynamic
-    shared memory.
+    (block_w + 2·m·halo_x)`` cells resident, and ``guard_rows`` more rows
+    of the same width: the generated stream kernel holds ``P + K`` planes
+    for a core whose state lives in registers (a load slot and the ``K``
+    materialized intermediates), else ``nbuf·P + K`` (``nbuf`` state
+    buffers and ring slots: 1 in place or 2 ping/pong, plus 1 when a
+    streamed launch prefetches the next tile), with ``2·(halo + 1)``
+    guard rows that keep every stencil tap inside the allocation
+    (``StripeProgram.launch_planes``, ``StripeProgram.guard_rows``); the
+    hand-written LBM kernel ``9 + 10`` (post-collision populations and
+    the load slot) and no guard rows. The wrappers pass exactly this many
+    bytes as the launch's dynamic shared memory.
     """
     rows = int(block_h) + 2 * int(m) * int(halo)
     cols = int(block_w) + 2 * int(m) * int(halo_x)
-    return rows * cols * int(planes) * 4
+    return (rows * int(planes) + int(guard_rows)) * cols * 4
 
 
 def launch_tile(width: int, block_h: int, m: int, *, halo: int,
                 halo_x: int, planes, block_w: int | None = None,
-                double_buffer: bool = True,
-                max_cells: int | None = None,
-                blocks_per_sm: int = 1) -> tuple[int, bool]:
+                double_buffer: bool = True, blocks_per_sm: int = 1,
+                guard_rows: int = 0) -> tuple[int, bool]:
     """Pick the column tile ``block_w`` of a Hopper launch.
 
     ``planes(double_buffer)`` gives the resident plane count of the
-    kernel's tile; ``max_cells`` caps the stripe's cells where a kernel's
-    threads own them in registers (the hand-written LBM kernel). An
-    explicit ``block_w`` is checked, never shrunk. With ``block_w=None``
-    the widest of ``min(width, MAX_BLOCK_W)``, then halvings down to 1,
-    whose tile fits :data:`SMEM_BYTES` (and ``max_cells``) is taken; when
+    kernel's tile, ``guard_rows`` its rows beside the planes
+    (:func:`tile_smem_bytes`). An explicit ``block_w`` is checked, never
+    shrunk. With ``block_w=None`` the widest of ``min(width,
+    MAX_BLOCK_W)``, then halvings down to 1, whose tile fits
+    :data:`SMEM_BYTES` is taken; when
     no double-buffered tile fits, the single-buffer tile is tried (the
     same streaming fallback :func:`blocking_plan` takes for VMEM). A plan
     that fits nowhere raises ``ValueError`` here, not at launch.
@@ -788,12 +789,6 @@ def launch_tile(width: int, block_h: int, m: int, *, halo: int,
     width = int(width)
     if width < 1:
         raise ValueError(f"grid width must be positive, got {width}")
-    rows = int(block_h) + 2 * int(m) * int(halo)
-
-    def cells_fit(bw):
-        return max_cells is None or rows * (
-            bw + 2 * int(m) * int(halo_x)) <= max_cells
-
     dbs = (True, False) if double_buffer else (False,)
     if block_w is None and int(blocks_per_sm) > 1:
         budget = block_smem_budget(blocks_per_sm)
@@ -801,33 +796,31 @@ def launch_tile(width: int, block_h: int, m: int, *, halo: int,
         while bw >= 1:
             for db in dbs:
                 if tile_smem_bytes(block_h, bw, m, halo=halo, halo_x=halo_x,
-                                   planes=planes(db)) <= budget and \
-                        cells_fit(bw):
+                                   planes=planes(db),
+                                   guard_rows=guard_rows) <= budget:
                     return bw, db
             bw //= 2
     for db in dbs:
         price = functools.partial(
             tile_smem_bytes, block_h, m=m, halo=halo, halo_x=halo_x,
-            planes=planes(db),
+            planes=planes(db), guard_rows=guard_rows,
         )
         if block_w is not None:
             if not 1 <= int(block_w):
                 raise ValueError(f"block_w must be >= 1, got {block_w}")
-            if price(int(block_w)) <= SMEM_BYTES and cells_fit(int(block_w)):
+            if price(int(block_w)) <= SMEM_BYTES:
                 return int(block_w), db
             continue
         bw = min(width, MAX_BLOCK_W)
         while bw >= 1:
-            if price(bw) <= SMEM_BYTES and cells_fit(bw):
+            if price(bw) <= SMEM_BYTES:
                 return bw, db
             bw //= 2
     raise ValueError(
-        f"no column tile fits {SMEM_BYTES} B of shared memory"
-        + (f" and {max_cells} cells" if max_cells is not None else "")
-        + ": block_h="
-        f"{block_h}, m={m}, halo={halo}, halo_x={halo_x}, "
+        f"no column tile fits {SMEM_BYTES} B of shared memory: "
+        f"block_h={block_h}, m={m}, halo={halo}, halo_x={halo_x}, "
         f"block_w={block_w if block_w is not None else 1} needs "
-        f"{tile_smem_bytes(block_h, block_w or 1, m, halo=halo, halo_x=halo_x, planes=planes(False))} B"
+        f"{tile_smem_bytes(block_h, block_w or 1, m, halo=halo, halo_x=halo_x, planes=planes(False), guard_rows=guard_rows)} B"
     )
 
 

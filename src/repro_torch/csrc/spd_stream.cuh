@@ -3,28 +3,30 @@
 // Included at the end of a generated translation unit, after
 // `struct SpdCore` (P state planes, K materialized intermediates, the
 // per-step stencil reach HALO / HALO_X, IN_PLACE -- the step may write
-// its result over its input -- and `step(src, dst, mat, tile, regs)`). Four launches share SpdCore::step and the tile copies of
-// tile_copy.cuh:
+// its result over its input -- REG_STATE -- no phase reads a state plane
+// by stencil, so each thread may keep its cells' state in registers --
+// CPT, the cells each thread owns then, `step(src, dst, mat, tile, regs)`
+// over shared state and, for REG_STATE cores, `step_owned(s, own, mat,
+// tile, regs)` over register state). One kernel template,
+// spd_multistep_kernel<GUARD>, serves the four launches:
 //
 //   spd_multistep           one thread block per (block_h x block_w) tile;
 //                           the stripe is copied, waited for, stepped and
 //                           stored -- replaces
 //                           kernels/spd_stream/spd_stream.py:spd_multistep.
 //   spd_multistep_streamed  persistent blocks (occupancy x SM count) walk
-//                           the tiles through a ring of load slots: with
-//                           double_buffer, 2 slots, the next tile's stripe
-//                           in flight (cp.async) while the current one
-//                           computes; without, 1 slot, loaded then
-//                           computed -- replaces
+//                           the tiles, with the next tile's stripe in
+//                           flight (cp.async) while the current one steps
+//                           when double_buffer -- replaces
 //                           kernels/spd_stream/streaming.py:
 //                           spd_multistep_streamed.
 //   spd_multistep_halo      the first launch over one guard-block-extended
-//                           shard of a device mesh -- replaces
-//                           kernels/spd_stream/sharded.py:spd_multistep_halo.
+//                           shard of a device mesh (GUARD = true) --
+//                           replaces kernels/spd_stream/sharded.py:
+//                           spd_multistep_halo.
 //   spd_multistep_halo_streamed
-//                           the second launch over such a shard (GUARD =
-//                           true of the streamed kernel) -- replaces
-//                           kernels/spd_stream/streaming.py:
+//                           the second launch over such a shard --
+//                           replaces kernels/spd_stream/streaming.py:
 //                           spd_multistep_halo_streamed.
 //
 // A tile's stripe is (block_h + 2 m HALO) x (block_w + 2 m HALO_X) cells.
@@ -34,11 +36,23 @@
 // stripe starts at input row (by + 1) block_h - m HALO and never leaves
 // the input (m HALO <= block_h): no row is wrapped, and the output has
 // rows - 2 block_h rows. Columns are loaded mod the width of the array
-// handed in, by every launch. m steps run ping/pong between two state
-// buffers in shared memory (the streamed launch steps one buffer in place
-// when IN_PLACE: its last phase reads the state pointwise only), and only
-// the center block_h x block_w cells are written, into a separate output
-// (never in place).
+// handed in, by every launch. Only the center block_h x block_w cells are
+// written, into a separate output (never in place).
+//
+// State, by core and tile (spd_tile_planes prices each):
+//  * REG_STATE, a tile of at most SPD_OWNER_CELLS cells: thread t owns
+//    the stripe cells t + k SPD_THREADS (k < CPT) and keeps their P state
+//    values in registers across the m steps; shared memory holds one load
+//    slot (P planes) and the K materialized planes. Once the owners have
+//    read a tile out of the slot, the next tile's copies are issued into
+//    it (double_buffer) and overlap the m steps; the center cells go out
+//    from the registers, each warp's stores on consecutive columns.
+//  * REG_STATE, a larger tile: the state in the slot, stepped in place
+//    (a REG_STATE core reads its state pointwise only), no prefetch; the
+//    same P + K planes.
+//  * Other cores: the state in shared memory, ping/pong between two
+//    buffers (one, stepped in place, when IN_PLACE), plus a second ring
+//    slot with double_buffer in the streamed launch.
 //
 // Rows are contiguous; the planes of the input and of the output may lie
 // any whole number of rows apart (ips / ops rows), so a halo launch reads
@@ -48,16 +62,22 @@
 // Bound: HBM bytes per launch >= 4 P (in_rows + out_rows) W B (each input
 // word of a stripe row read once, each output word written once). The
 // design answers it with m fused steps per round trip, 16-byte copies in
-// and out (tile_copy.cuh), the next tile's copies overlapping this tile's
-// steps in the streamed launch, and no index division per element or per
-// cell, so the steps' arithmetic is what the SMs issue.
+// (tile_copy.cuh), the next tile's copies overlapping this tile's steps,
+// and, since the steps' instructions are then what the SMs issue, few of
+// them per cell-step: state in registers where no neighbour reads it, a
+// stencil tap as one shared load at a constant offset, and no index
+// division per element or per cell.
 #pragma once
 
 #include "tile_copy.cuh"
 
-// State buffers of the streamed launch (the ring's second slot comes on
-// top with double_buffer); the declarative launch always ping/pongs two.
-#define SPD_STREAM_BUFS (SpdCore::IN_PLACE ? 1 : 2)
+#define SPD_OWNER_CELLS (SPD_THREADS * SpdCore::CPT)
+
+// Whether a tile of RC stripe cells keeps its state in the owners'
+// registers (the rule of repro_torch StripeProgram.owned).
+__device__ __forceinline__ bool spd_owned(int RC) {
+  return SpdCore::REG_STATE && RC <= SPD_OWNER_CELLS;
+}
 
 // Every thread's walks, computed once per kernel: the stripe's load walk
 // (P planes of R rows, C / V chunks), the center's store walk (P planes of
@@ -109,94 +129,146 @@ __device__ __forceinline__ void spd_store(const float* __restrict__ buf,
   }
 }
 
-// m fused steps, ping/pong between a and b; returns the buffer holding
-// the result.
-__device__ __forceinline__ float* spd_tile_steps(float* a, float* b,
-                                                 float* mat, int m,
-                                                 const SpdTile& t,
-                                                 const SpdRegs& regs) {
-  for (int s = 0; s < m; ++s) {
-    SpdCore::step(a, b, mat, t, regs);
-    float* x = a;
-    a = b;
-    b = x;
+// The register-state walk of a REG_STATE core over tiles b, b + grid, ...
+// (`issue(t)` copies tile t into `slot` as one cp.async group). GUARD only
+// makes the call from the kernel template dependent, so a core without
+// step_owned never instantiates it.
+template <class Core, bool GUARD, class Issue>
+__device__ __forceinline__ void spd_owned_walk(
+    float* __restrict__ out, const float* slot, float* mat,
+    const SpdWalks& w, Issue issue, int W, int ops, int bh, int bw, int mh,
+    int mw, int m, int ntx, int ntiles, bool prefetch,
+    const SpdRegs& regs) {
+  constexpr int N = Core::CPT;
+  const int C = w.tile.C, RC = w.tile.RC;
+  // (r, c) of each owned cell: the shipped step reads neither (each tap
+  // is an offset from the cell), the checked-tap variant both.
+  SpdOwned<N> own;
+  {
+    int r = w.tile.r0, c = w.tile.c0;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      own.r[k] = r;
+      own.c[k] = c;
+      r += w.tile.dr;
+      c += w.tile.dc;
+      if (c >= C) {
+        c -= C;
+        ++r;
+      }
+    }
   }
-  return a;
+  float s[N][Core::P];
+  if (prefetch && blockIdx.x < ntiles) issue(blockIdx.x);
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    if (!prefetch) issue(tile);
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int cell = threadIdx.x + k * SPD_THREADS;
+      if (cell >= RC) continue;
+#pragma unroll
+      for (int p = 0; p < Core::P; ++p) s[k][p] = slot[p * RC + cell];
+    }
+    __syncthreads();
+    if (prefetch && tile + (int)gridDim.x < ntiles) issue(tile + gridDim.x);
+    for (int step = 0; step < m; ++step) {
+      Core::step_owned(s, own, mat, w.tile, regs);
+    }
+    // The center cells out from the registers, (r, c) walked again by
+    // additions; columns at or past W (the ragged last tile) masked.
+    const int by = tile / ntx, bx = tile - by * ntx;
+    float* base = out + ((long long)by * bh - mh) * W +
+                  ((long long)bx * bw - mw);
+    const int cend = min(mw + bw, W - bx * bw + mw);
+    int r = w.tile.r0, c = w.tile.c0;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int cell = threadIdx.x + k * SPD_THREADS;
+      if (cell < RC && r >= mh && r < mh + bh && c >= mw && c < cend) {
+#pragma unroll
+        for (int p = 0; p < Core::P; ++p) {
+          base[((long long)p * ops + r) * W + c] = s[k][p];
+        }
+      }
+      r += w.tile.dr;
+      c += w.tile.dc;
+      if (c >= C) {
+        c -= C;
+        ++r;
+      }
+    }
+  }
 }
 
 // GUARD: the input is a guard-block-extended shard (the halo launches).
-template <bool GUARD>
-__global__ void __launch_bounds__(SPD_THREADS)
-spd_multistep_kernel(const float* __restrict__ in, float* __restrict__ out,
-                     int H, int W, int ips, int ops, int bh, int bw,
-                     int m, int ntx, int vec, SpdRegs regs) {
-  extern __shared__ __align__(16) float smem[];
-  const int mh = m * SpdCore::HALO, mw = m * SpdCore::HALO_X;
-  const int R = bh + 2 * mh, C = bw + 2 * mw, RC = R * C;
-  float* s0 = smem;
-  float* s1 = s0 + SpdCore::P * RC;
-  float* mat = s1 + SpdCore::P * RC;
-  const SpdWalks w = spd_walks(R, C, bh, bw, vec);
-  const int by = blockIdx.x / ntx, bx = blockIdx.x - by * ntx;
-  spd_load<!GUARD>(in, s0, w, vec, H, W, ips, (by + GUARD) * bh - mh,
-                   bx * bw - mw);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  const float* res = spd_tile_steps(s0, s1, mat, m, w.tile, regs);
-  spd_store(res, out, w, vec, W, ops, by * bh, bx * bw, bh, mh, mw);
-}
-
-// The persistent walk. Block b takes tiles b, b + gridDim.x, ...; slot
-// `cur` holds the current tile's stripe and is the state buffer of its m
-// steps (with `work` the other ping/pong buffer unless IN_PLACE). With
-// double_buffer the ring has 2 slots: the next tile's copies are issued
+// Block b takes tiles b, b + gridDim.x, ... (one tile per block in the
+// declarative launch, whose grid is the tile count). On shared state,
+// slot `cur` holds the current tile's stripe and is the state buffer of
+// its m steps (with `work` the other ping/pong buffer unless IN_PLACE).
+// With prefetch the ring has 2 slots: the next tile's copies are issued
 // into the other slot (free since the previous tile's store) before this
 // tile's wait, so they overlap this tile's steps; cp_async_wait<1> then
 // waits for this tile's group alone.
 template <bool GUARD>
-__global__ void __launch_bounds__(SPD_THREADS)
-spd_multistep_streamed_kernel(const float* __restrict__ in,
-                              float* __restrict__ out, int H, int W,
-                              int ips, int ops, int bh, int bw, int m,
-                              int ntx, int ntiles, int double_buffer,
-                              int vec, SpdRegs regs) {
+__global__ void __launch_bounds__(SPD_THREADS, SPD_MIN_BLOCKS)
+spd_multistep_kernel(const float* __restrict__ in, float* __restrict__ out,
+                     int H, int W, int ips, int ops, int bh, int bw, int m,
+                     int ntx, int ntiles, int double_buffer, int vec,
+                     SpdRegs regs) {
   extern __shared__ __align__(16) float smem[];
   const int mh = m * SpdCore::HALO, mw = m * SpdCore::HALO_X;
   const int R = bh + 2 * mh, C = bw + 2 * mw, RC = R * C;
-  float* slot0 = smem;
+  constexpr int BUFS = SpdCore::IN_PLACE ? 1 : 2;
+  float* slot0 = smem + SPD_GUARD_ROWS(SpdCore::HALO) * C;
   float* work = slot0 + SpdCore::P * RC;  // unused when IN_PLACE
-  float* mat = slot0 + SPD_STREAM_BUFS * SpdCore::P * RC;
+  float* mat = slot0 + BUFS * SpdCore::P * RC;
   float* slot1 = mat + SpdCore::K * RC;  // only with double_buffer
   const SpdWalks w = spd_walks(R, C, bh, bw, vec);
   // Issue tile t's copies into buf, as one cp.async group.
-  auto issue = [&](int t, float* buf) {
+  auto issue_into = [&](int t, float* buf) {
     const int ty = t / ntx, tx = t - ty * ntx;
     spd_load<!GUARD>(in, buf, w, vec, H, W, ips, (ty + GUARD) * bh - mh,
                      tx * bw - mw);
     cp_async_commit();
   };
+  if constexpr (SpdCore::REG_STATE) {
+    if (spd_owned(RC)) {
+      spd_owned_walk<SpdCore, GUARD>(
+          out, slot0, mat, w, [&](int t) { issue_into(t, slot0); }, W, ops,
+          bh, bw, mh, mw, m, ntx, ntiles, double_buffer != 0, regs);
+      return;
+    }
+    double_buffer = 0;  // a larger tile: its state in the slot
+  }
   float* cur = slot0;
   float* other = slot1;
-  if (double_buffer && blockIdx.x < ntiles) issue(blockIdx.x, cur);
+  if (double_buffer && blockIdx.x < ntiles) issue_into(blockIdx.x, cur);
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     if (double_buffer) {
       const int next = tile + gridDim.x;
       if (next < ntiles) {
-        issue(next, other);
+        issue_into(next, other);
       } else {
         cp_async_commit();  // an empty group keeps the count
       }
       cp_async_wait<1>();
     } else {
-      issue(tile, cur);
+      issue_into(tile, cur);
       cp_async_wait<0>();
     }
     __syncthreads();
+    float* a = cur;
+    float* b = SpdCore::IN_PLACE ? cur : work;
+    for (int s = 0; s < m; ++s) {
+      SpdCore::step(a, b, mat, w.tile, regs);
+      float* x = a;
+      a = b;
+      b = x;
+    }
     const int by = tile / ntx, bx = tile - by * ntx;
-    const float* res = spd_tile_steps(cur, SpdCore::IN_PLACE ? cur : work,
-                                      mat, m, w.tile, regs);
-    spd_store(res, out, w, vec, W, ops, by * bh, bx * bw, bh, mh, mw);
+    spd_store(a, out, w, vec, W, ops, by * bh, bx * bw, bh, mh, mw);
     __syncthreads();
     if (double_buffer) {
       float* x = cur;
@@ -212,57 +284,52 @@ spd_multistep_streamed_kernel(const float* __restrict__ in,
 // the input's row count; the output has H rows (periodic launches) or
 // H - 2 bh rows (halo launches).
 
-extern "C" int spd_stream_buffers() { return SPD_STREAM_BUFS; }
-
-extern "C" long long spd_smem_bytes(int bh, int bw, int m, int nbuf) {
-  const long long R = bh + 2LL * m * SpdCore::HALO;
-  const long long C = bw + 2LL * m * SpdCore::HALO_X;
-  return R * C * (nbuf * SpdCore::P + SpdCore::K) * (long long)sizeof(float);
+// Planes of a launch's tile (repro_torch StripeProgram.launch_planes): a
+// REG_STATE core's load slot and K planes, whichever walk the tile takes;
+// otherwise its state buffers, the K planes and, in a streamed launch
+// with double_buffer, the second ring slot.
+extern "C" int spd_tile_planes(int streamed, int double_buffer) {
+  if (SpdCore::REG_STATE) return SpdCore::P + SpdCore::K;
+  const int bufs = SpdCore::IN_PLACE ? 1 : 2;
+  return (bufs + (streamed && double_buffer ? 1 : 0)) * SpdCore::P +
+         SpdCore::K;
 }
 
-static int spd_out_rows(bool guard, int H, int bh) {
-  return guard ? H - 2 * bh : H;
+// Stripe cells the owners hold in registers (0: the core keeps its state
+// in shared memory).
+extern "C" int spd_owner_cells() {
+  return SpdCore::REG_STATE ? SPD_OWNER_CELLS : 0;
+}
+
+extern "C" long long spd_smem_bytes(int bh, int bw, int m, int planes) {
+  const long long R = bh + 2LL * m * SpdCore::HALO;
+  const long long C = bw + 2LL * m * SpdCore::HALO_X;
+  return (R * planes + 2LL * SPD_GUARD_ROWS(SpdCore::HALO)) * C *
+         (long long)sizeof(float);
 }
 
 template <bool GUARD>
 static int spd_launch(const float* in, float* out, int H, int W, int ips,
-                      int ops, int bh, int bw, int m, SpdRegs regs,
-                      long long smem, int dev, void* stream) {
-  if (smem < spd_smem_bytes(bh, bw, m, 2)) return -1;
-  const int out_h = spd_out_rows(GUARD, H, bh);
-  if (bh < 1 || out_h < bh || out_h % bh) return (int)cudaErrorInvalidValue;
-  const void* fn = (const void*)spd_multistep_kernel<GUARD>;
-  int e = launch_setup(fn, dev, smem, SPD_THREADS, nullptr);
-  if (e) return e;
-  const int ntx = (W + bw - 1) / bw;
-  const int ntiles = (out_h / bh) * ntx;
-  const int vec = tile_vec4(in, out, W, bw, m * SpdCore::HALO_X);
-  spd_multistep_kernel<GUARD><<<ntiles, SPD_THREADS, (size_t)smem,
-                                (cudaStream_t)stream>>>(
-      in, out, H, W, ips, ops, bh, bw, m, ntx, vec, regs);
-  return (int)cudaGetLastError();
-}
-
-template <bool GUARD>
-static int spd_launch_streamed(const float* in, float* out, int H, int W,
-                               int ips, int ops, int bh, int bw, int m,
-                               int double_buffer, SpdRegs regs,
-                               long long smem, int dev, void* stream) {
-  if (smem < spd_smem_bytes(bh, bw, m, SPD_STREAM_BUFS + !!double_buffer)) {
+                      int ops, int bh, int bw, int m, int streamed,
+                      int double_buffer, SpdRegs regs, long long smem,
+                      int dev, void* stream) {
+  if (!streamed) double_buffer = 0;
+  if (smem < spd_smem_bytes(bh, bw, m,
+                            spd_tile_planes(streamed, double_buffer))) {
     return -1;
   }
-  const int out_h = spd_out_rows(GUARD, H, bh);
+  const int out_h = GUARD ? H - 2 * bh : H;
   if (bh < 1 || out_h < bh || out_h % bh) return (int)cudaErrorInvalidValue;
-  const void* fn = (const void*)spd_multistep_streamed_kernel<GUARD>;
-  int grid = 0;
-  int e = launch_setup(fn, dev, smem, SPD_THREADS, &grid);
-  if (e) return e;
+  const void* fn = (const void*)spd_multistep_kernel<GUARD>;
   const int ntx = (W + bw - 1) / bw;
   const int ntiles = (out_h / bh) * ntx;
+  int grid = ntiles;
+  int e = launch_setup(fn, dev, smem, SPD_THREADS, streamed ? &grid : nullptr);
+  if (e) return e;
   if (ntiles < grid) grid = ntiles;
   const int vec = tile_vec4(in, out, W, bw, m * SpdCore::HALO_X);
-  spd_multistep_streamed_kernel<GUARD><<<grid, SPD_THREADS, (size_t)smem,
-                                         (cudaStream_t)stream>>>(
+  spd_multistep_kernel<GUARD><<<grid, SPD_THREADS, (size_t)smem,
+                                (cudaStream_t)stream>>>(
       in, out, H, W, ips, ops, bh, bw, m, ntx, ntiles, double_buffer, vec,
       regs);
   return (int)cudaGetLastError();
@@ -271,8 +338,8 @@ static int spd_launch_streamed(const float* in, float* out, int H, int W,
 extern "C" int spd_multistep(const float* in, float* out, int H, int W,
                              int bh, int bw, int m, SpdRegs regs,
                              long long smem, int dev, void* stream) {
-  return spd_launch<false>(in, out, H, W, H, H, bh, bw, m, regs, smem, dev,
-                           stream);
+  return spd_launch<false>(in, out, H, W, H, H, bh, bw, m, 0, 0, regs, smem,
+                           dev, stream);
 }
 
 extern "C" int spd_multistep_streamed(const float* in, float* out, int H,
@@ -280,22 +347,22 @@ extern "C" int spd_multistep_streamed(const float* in, float* out, int H,
                                       int double_buffer, SpdRegs regs,
                                       long long smem, int dev,
                                       void* stream) {
-  return spd_launch_streamed<false>(in, out, H, W, H, H, bh, bw, m,
-                                    double_buffer, regs, smem, dev, stream);
+  return spd_launch<false>(in, out, H, W, H, H, bh, bw, m, 1, double_buffer,
+                           regs, smem, dev, stream);
 }
 
 extern "C" int spd_multistep_halo(const float* in, float* out, int rows,
                                   int W, int ips, int ops, int bh, int bw,
                                   int m, SpdRegs regs, long long smem,
                                   int dev, void* stream) {
-  return spd_launch<true>(in, out, rows, W, ips, ops, bh, bw, m, regs, smem,
-                          dev, stream);
+  return spd_launch<true>(in, out, rows, W, ips, ops, bh, bw, m, 0, 0, regs,
+                          smem, dev, stream);
 }
 
 extern "C" int spd_multistep_halo_streamed(
     const float* in, float* out, int rows, int W, int ips, int ops, int bh,
     int bw, int m, int double_buffer, SpdRegs regs, long long smem, int dev,
     void* stream) {
-  return spd_launch_streamed<true>(in, out, rows, W, ips, ops, bh, bw, m,
-                                   double_buffer, regs, smem, dev, stream);
+  return spd_launch<true>(in, out, rows, W, ips, ops, bh, bw, m, 1,
+                          double_buffer, regs, smem, dev, stream);
 }

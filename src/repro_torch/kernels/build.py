@@ -162,9 +162,6 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: no TMA descriptor (the driver refused "
                            "the base or a stride, or has no "
                            "cuTensorMapEncodeTiled)")
-    if rc == -4:
-        raise RuntimeError(f"{what}: the tile holds more cells than the "
-                           "kernel's threads own")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
@@ -204,8 +201,10 @@ def load_spd_library(program) -> ctypes.CDLL:
     lib.spd_multistep_halo_streamed.restype = _I
     lib.spd_smem_bytes.argtypes = [_I, _I, _I, _I]
     lib.spd_smem_bytes.restype = _LL
-    lib.spd_stream_buffers.argtypes = []
-    lib.spd_stream_buffers.restype = _I
+    lib.spd_tile_planes.argtypes = [_I, _I]
+    lib.spd_tile_planes.restype = _I
+    lib.spd_owner_cells.argtypes = []
+    lib.spd_owner_cells.restype = _I
     return lib
 
 

@@ -9,8 +9,11 @@ attribute of the stripe cells it owns in registers across m collide →
 stream → bounce steps, shared memory holds the post-collision populations
 and a load slot into which the next tile's stripe is copied (16-byte
 ``cp.async``) while this one steps, and only the center cells are written
-(docs/port.md §tile). It is the independent anchor the generated uLBM PE
-kernel is held to.
+(docs/port.md §tile). A tile with more stripe cells than the owners hold
+(:data:`LBM_CELLS`) takes the kernel's second instantiation: the
+populations stay in the load slot and are stepped there in place, with
+no prefetch, in the same 19 planes. It is the independent anchor the
+generated uLBM PE kernel is held to.
 
 Bound on the card: at least ``(9 + 1 + 9)·H·W·4`` bytes of HBM traffic per
 launch; with 131 flops per cell-step the m fused steps raise the
@@ -34,9 +37,16 @@ from repro_torch.core.legalize import launch_tile, tile_smem_bytes
 #: Shared-memory planes of one tile: 9 post-collision populations and the
 #: load slot's 10 (9 populations, the attributes).
 LBM_PLANES = 19
-#: Stripe cells one tile may hold: the kernel's 512 threads own 4 cells
-#: each, in registers (``lbm_max_cells`` of ``csrc/lbm_stream.cu``).
+#: Stripe cells the kernel's 512 threads own in registers, 4 each
+#: (``lbm_max_cells`` of ``csrc/lbm_stream.cu``); a larger tile runs with
+#: its populations in the load slot (:func:`lbm_owned`).
 LBM_CELLS = 2048
+
+
+def lbm_owned(block_h: int, block_w: int, m: int) -> bool:
+    """Whether a tile's populations live in the owners' registers (the
+    rule ``lbm_multistep`` of ``csrc/lbm_stream.cu`` applies)."""
+    return (block_h + 2 * m) * (block_w + 2 * m) <= LBM_CELLS
 
 
 def _step(f, attr, one_tau, u_lid):
@@ -102,7 +112,7 @@ def lbm_multistep(f, attr, one_tau, u_lid=0.0, *, m: int = 4,
       one_tau: 1/tau relaxation; u_lid: lid velocity for attr==2 cells.
       m: fused time steps per HBM round trip (temporal parallelism).
       block_h, block_w: the tile (``block_w=None``: the widest whose
-        stripe fits shared memory and :data:`LBM_CELLS`).
+        stripe fits shared memory).
     """
     if f.dim() != 3 or f.shape[0] != 9 or attr.shape != f.shape[1:]:
         raise ValueError(
@@ -118,7 +128,7 @@ def lbm_multistep(f, attr, one_tau, u_lid=0.0, *, m: int = 4,
         raise ValueError(f"m={m} must be <= block_h={block_h} (halo source)")
     block_w, _ = launch_tile(w, block_h, m, halo=1, halo_x=1,
                              planes=lambda db: LBM_PLANES, block_w=block_w,
-                             double_buffer=False, max_cells=LBM_CELLS)
+                             double_buffer=False)
     if f.device.type == "cpu":
         return lbm_multistep_plain(f, attr, one_tau, u_lid, m=m,
                                    block_h=block_h, block_w=block_w)

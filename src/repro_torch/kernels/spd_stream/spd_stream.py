@@ -4,10 +4,13 @@ body all four SPD launches share.
 Replaces the JAX package's ``kernels/spd_stream/spd_stream.py:
 spd_multistep`` (a Pallas grid of ``H / block_h`` programs with periodic
 BlockSpec maps). Here the grid is one CUDA thread block per
-``(block_h × block_w)`` tile: the block loads its stripe — ``m·halo`` rows
-and ``m·halo_x`` columns of guard cells per side, mod H and mod W — into
-shared memory, applies the generated tile function m times and writes the
-center cells (``csrc/spd_stream.cuh``, docs/port.md §tile).
+``(block_h × block_w)`` tile of the kernel template every SPD launch runs:
+the block loads its stripe — ``m·halo`` rows and ``m·halo_x`` columns of
+guard cells per side, mod H and mod W — into shared memory, applies the
+generated tile step m times (on the owned cells' state in registers for
+a core that reads no state plane by stencil, on shared state otherwise)
+and writes the center cells (``csrc/spd_stream.cuh``, docs/port.md
+§tile). Its tile is sized so two blocks share an SM.
 
 Bound on the card: at least ``2·P·H·W·4`` bytes of HBM traffic per launch
 (each state word read once, written once); the m fused steps per round
@@ -36,7 +39,6 @@ from repro_torch.core.codegen import (
     gather_tiles,
     scatter_centers,
 )
-from repro_torch.core.legalize import tile_smem_bytes
 
 
 def check_plan(program: StripeProgram, state, m: int, block_h: int) -> None:
@@ -175,11 +177,11 @@ def launch(fn, program: StripeProgram, x, regs, *, m: int, block_h: int,
     declarative one passes False. ``guard`` launches over a
     guard-block-extended shard: ext rows without wrap, ``rows - 2·block_h``
     output rows, row-range tensors allowed. ``block_w=None`` takes the
-    plan of :meth:`StripeProgram.tile`: a declarative launch the widest
-    column tile that fits the block's shared memory; a streamed launch
-    the widest that leaves room for two blocks on an SM — prefetching
-    when that tile fits at that width, single-buffer otherwise — and the
-    one-block rule only when no tile does.
+    plan of :meth:`StripeProgram.tile`: the widest column tile that
+    leaves room for two blocks on an SM — a streamed launch prefetching
+    when that tile fits at that width and, for a register-state core,
+    when the owners hold its stripe — and the one-block rule only when no
+    tile does.
     """
     streamed = fn.__name__.endswith("_streamed")
     if guard:
@@ -198,11 +200,8 @@ def launch(fn, program: StripeProgram, x, regs, *, m: int, block_h: int,
     from repro_torch.kernels.build import check, spd_regs
 
     out = cuda_args(x, out, out_rows)
-    smem = tile_smem_bytes(block_h, block_w, m, halo=program.halo,
-                           halo_x=program.halo_x,
-                           planes=program.launch_planes(
-                               streamed=streamed,
-                               double_buffer=double_buffer))
+    smem = program.smem_bytes(block_h, block_w, m, streamed=streamed,
+                              double_buffer=double_buffer)
     args = [x.data_ptr(), out.data_ptr(), rows, w]
     if guard:
         args += [plane_rows(x), plane_rows(out)]

@@ -4,13 +4,15 @@ Replaces the JAX package's ``kernels/spd_stream/streaming.py:
 spd_multistep_streamed`` (one Pallas program walking the row blocks with
 manual ping/pong DMA into VMEM, docs/pipeline.md §stream). On Hopper,
 persistent thread blocks — the kernel's occupancy times the SM count —
-walk the ``(block_h × block_w)`` tiles through a ring of load slots. With
-``double_buffer`` each block prefetches its next tile's stripe into a
-second slot with 16-byte ``cp.async`` copies while the current tile
-computes; without it one slot is loaded, computed and written in turn
-(``csrc/spd_stream.cuh``, docs/port.md §tile). The default plan seeks
-room for two blocks per SM first, so the uLBM PE runs one slot at two
-blocks per SM and diffusion two slots at three.
+walk the ``(block_h × block_w)`` tiles. With ``double_buffer`` each block
+prefetches its next tile's stripe with 16-byte ``cp.async`` copies while
+the current tile computes: into the one load slot once the owners have
+read it into registers (a core that reads no state plane by stencil,
+such as the uLBM PE), else into a second ring slot; without it one slot
+is loaded, computed and written in turn (``csrc/spd_stream.cuh``,
+docs/port.md §tile). The default plan seeks room for two blocks per SM
+first: the uLBM PE runs 16×32 tiles at two blocks per SM, diffusion
+32×128 with two slots at three.
 
 Bound on the card: at least ``2·P·H·W·4`` bytes of HBM traffic per launch;
 m fused steps per round trip, and the prefetch that overlaps the next
@@ -42,7 +44,8 @@ def spd_multistep_streamed(program: StripeProgram, state, regs, *, m: int,
     :func:`repro_torch.kernels.spd_stream.spd_stream.spd_multistep`.
     With ``block_w=None``, ``double_buffer`` drops to the single-buffer
     protocol when the widest tile with room for two blocks per SM fits
-    only without the prefetch slot, or when no prefetching tile fits
+    only without the prefetch slot, when no prefetching tile fits, or
+    when a register-state core's stripe exceeds the owners' cells
     (:meth:`StripeProgram.tile`).
     """
     return launch(spd_multistep_streamed, program, state, regs, m=m,

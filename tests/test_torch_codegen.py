@@ -125,11 +125,13 @@ def test_run_blocked_and_run_for_point(lbm_pair):
         m, detail = 4, {"block_rows": 12}
 
     out, (bh, m, db) = tk.run_for_point(state, regs, point=Point(), steps=8)
-    # The streamed plan at width 128: the in-place one-slot 8×64 tile
-    # (87,552 B) leaves room for two blocks per SM, its two-slot twin
-    # (133,632 B) does not, so the plan runs without the prefetch slot.
-    assert (bh, m, db) == (8, 4, False)
-    assert tk.tile(128, 8, 4) == (64, False)
+    # The streamed plan at width 128: the register-state kernel takes one
+    # block per SM and the widest tile whose stripe its 2,048 owned cells
+    # hold: 8×128 (16×136 cells) fits shared memory but not the owners,
+    # 8×64 (16×72) both, so the next tile's copies go into the one load
+    # slot while this tile steps.
+    assert (bh, m, db) == (8, 4, True)
+    assert tk.tile(128, 8, 4) == (64, True)
     assert torch.equal(out, got)
 
 
@@ -195,9 +197,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 @pytest.mark.parametrize("app", ["diffusion", "ulbm"])
 def test_printed_step_divides_no_cell_index(app, dif_pair, lbm_pair):
     """The printed ``SpdCore::step`` walks its cells without dividing an
-    index: one loop per phase, a phase with a stencil read carrying the
-    cell's (r, c) by additions from the walk ``spd_tile`` computes once
-    per kernel; no ``/`` or ``%`` by the tile width in any phase loop."""
+    index: one loop per phase over ``idx``, every stencil tap one load at
+    a constant offset from ``idx``, so no phase needs the cell's (r, c);
+    no ``/`` or ``%`` by the tile width in any phase loop."""
     import re
 
     prog = (dif_pair[0].kernel if app == "diffusion"
@@ -210,9 +212,12 @@ def test_printed_step_divides_no_cell_index(app, dif_pair, lbm_pair):
     for phase, loop in zip(prog.phases, loops):
         assert not re.search(r"(idx|r|c)\s*[/%]|[/%]\s*(C|R|RC)\b", loop)
         assert "%" not in loop
-        shifted = any(st.op == "shift" for st in phase)
-        assert ("c += t.dc;" in loop) == shifted
-        assert ("if (c >= C) { c -= C; ++r; }" in loop) == shifted
+        assert "c += t.dc;" not in loop
+        shifts = [st for st in phase if st.op == "shift"]
+        taps = re.findall(r"RC \+ idx - \((-?\d+) \* C \+ \((-?\d+)\)\)\]",
+                          loop)
+        assert sorted(taps) == sorted((str(st.dy), str(st.dx))
+                                      for st in shifts)
     assert "const int r = idx / C" not in body
 
 
@@ -229,30 +234,148 @@ def test_in_place_step_only_without_input_stencils(dif_pair, lbm_pair):
         flag = "true" if prog.in_place else "false"
         assert f"static constexpr bool IN_PLACE = {flag};" in src
         assert "const float* src, float* dst," in src
+        # The uLBM PE keeps its state in registers beside one load slot;
+        # diffusion ping/pongs two shared buffers.
         assert prog.launch_planes(streamed=True, double_buffer=False) == \
             prog.planes(1 if prog.in_place else 2)
         assert prog.launch_planes(streamed=False, double_buffer=False) == \
-            prog.planes(2)
+            prog.planes(1 if prog.in_place else 2)
 
 
 def test_spd_variant_plans_undo_one_choice_each(dif_pair, lbm_pair):
     """``kernels/spd_stream/variants.py`` times the shipped plan beside
-    plans that each undo one choice: the uLBM PE's in-place two-slot 16×32
-    tile (two blocks per SM) beside the one-block 64-wide tile, one slot,
-    and ping/pong state; diffusion has no in-place variant."""
-    from repro_torch.core.legalize import block_smem_budget
+    plans that each undo one choice: for the uLBM PE its register state
+    (1,024 threads × 2 cells, 16×64, one slot, prefetched: 132,480 B)
+    beside shared state, checked taps, no prefetch, other owner layouts
+    and the declarative launch at both layouts; diffusion has no
+    register-state variant, and its declarative tile is the same at both
+    rules."""
     from repro_torch.kernels.spd_stream.variants import variant_plans
 
+    S, D = "spd_multistep_streamed", "spd_multistep"
     plans, srcs = variant_plans(lbm_pair[0].program, 4096, 16, 4)
-    assert plans["kernel"] == (32, True, 111_360) == plans["scalar_copies"]
-    assert plans["one_block"] == (64, True, 200_448)
-    assert plans["one_block_ring1"] == (64, False, 200_448)
-    assert plans["ring1"] == (32, False, 72_960)
-    assert plans["ping_pong"] == (32, False, 111_360)
-    assert plans["kernel"][2] <= block_smem_budget(2) < plans["one_block"][2]
-    assert "IN_PLACE = false" in srcs["ping_pong"]
+    assert plans["kernel"] == (S, 64, True, 132_480)
+    assert plans["kernel"] == plans["checked_taps"] == plans["t512c4"] \
+        == plans["scalar_copies"]
+    assert plans["shared_state"] == (S, 32, True, 112_000)
+    assert plans["ring1"] == (S, 64, False, 132_480)
+    assert plans["t256c5"] == plans["t512c2"] == (S, 32, True, 73_600)
+    assert plans["declarative"] == (D, 64, False, 132_480)
+    assert plans["declarative_t256c5"] == (D, 32, False, 73_600)
+    assert set(srcs) == {"shared_state", "checked_taps", "t256c5", "t512c2",
+                         "t512c4", "declarative_t256c5", "scalar_copies"}
+    assert srcs["declarative_t256c5"] == srcs["t256c5"]
+    assert "REG_STATE = false" in srcs["shared_state"]
+    assert "spd_tap(" in srcs["checked_taps"]
+    assert srcs["t512c2"].startswith(
+        "#define SPD_THREADS 512\n#define SPD_CPT 2\n"
+        "#define SPD_MIN_BLOCKS 1\n")
     assert srcs["scalar_copies"].startswith("#define TILE_COPY_SCALAR 1\n")
     plans, srcs = variant_plans(dif_pair[0].kernel.program, 8192, 32, 4)
-    assert set(plans) == {"kernel", "one_block_ring1", "ring1",
+    assert set(plans) == {"kernel", "checked_taps", "ring1", "declarative",
                           "scalar_copies"}
-    assert set(srcs) == {"scalar_copies"}
+    assert plans["declarative"] == (D, 128, False, 45_696)
+    assert set(srcs) == {"checked_taps", "scalar_copies"}
+
+
+def _core(text):
+    from repro_torch.core import Registry, parse_spd
+
+    return Registry().compile(parse_spd(text)).stream_kernel(device="cpu")
+
+
+#: A core that stencils its state in a later phase than the first: phase
+#: 0 materializes a, phase 1 taps a and the state u.
+LATE_STATE_STENCIL = """
+    Name Late;
+    Main_In {mi::u};
+    Main_Out {mo::v};
+    EQU N0, a = u * 2.0;
+    HDL S1, 0, (b) = Stencil2D(a), dy=1, dx=0, W=8, mode=wrap;
+    HDL S2, 0, (c) = Stencil2D(u), dy=0, dx=1, W=8, mode=wrap;
+    EQU N1, v = b + c;
+"""
+
+
+@pytest.mark.parametrize("bndry", ["hdl", "spd"])
+def test_register_state_only_without_state_stencils(bndry, dif_pair):
+    """A core keeps its state in registers when no phase reads a state
+    plane by stencil: the uLBM PE (both boundary variants), not diffusion
+    (it taps its input) nor a core that taps its state in a later phase;
+    asking to print such a core with register state raises."""
+    prog = tlbm.LBMSimulation(tlbm.LBMProblem(16, 64), bndry=bndry,
+                              device="cpu").stream_kernel().program
+    assert prog.reg_state and prog.in_place
+    assert (prog.threads, prog.cpt, prog.owner_cells) == (1024, 2, 2048)
+    late = _core(LATE_STATE_STENCIL).program
+    assert len(late.phases) == 2
+    for other in (dif_pair[0].kernel.program, late):
+        assert not other.reg_state and other.owner_cells == 0
+        assert "REG_STATE = false" in other.cuda_source()
+        with pytest.raises(CodegenError, match="registers"):
+            other.cuda_source(reg_state=True)
+
+
+def test_printed_register_step_and_offset_taps(dif_pair, lbm_pair):
+    """The uLBM PE's printed source keeps each owned cell's state in
+    registers (``step_owned`` reads and writes ``s[q][p]``, never a shared
+    state plane) and no stencil tap checks bounds; diffusion prints the
+    shared-state step only, its taps unchecked too."""
+    import re
+
+    src = lbm_pair[0].program.cuda_source()
+    assert "static constexpr bool REG_STATE = true;" in src
+    assert "#define SPD_THREADS 1024" in src and "#define SPD_CPT 2" in src
+    owned = src.split("step_owned(", 1)[1]
+    assert "src[" not in owned and "dst[" not in owned
+    assert len(re.findall(r"= s\[q\]\[\d\];", owned)) == 10 + 1  # in9
+    assert len(re.findall(r"s\[q\]\[\d\] = ", owned)) == 10
+    assert "spd_tap(" not in src.split("struct SpdCore", 1)[1]
+    assert len(re.findall(r"mat\[\d \* RC \+ idx - \(", owned)) == 9
+    dsrc = dif_pair[0].kernel.program.cuda_source()
+    assert "step_owned" not in dsrc and "SPD_CPT" not in dsrc
+    assert "spd_tap(" not in dsrc.split("struct SpdCore", 1)[1]
+
+
+def test_tile_takes_the_owner_rule_of_the_kernel(dif_pair, lbm_pair):
+    """Both launches price the uLBM PE at P + K = 19 planes and 4 guard
+    rows, whichever walk a tile takes; a stripe within the 2,048 owned
+    cells keeps its state in registers (prefetched in the streamed
+    launch), a larger one in the slot without prefetch — the rule the
+    kernel applies — and the plan narrows a tile to one the owners hold.
+    Diffusion ping/pongs two shared planes, plus the streamed launch's
+    second slot."""
+    pe, dprog = lbm_pair[0].program, dif_pair[0].kernel.program
+    for streamed in (True, False):
+        for db in (True, False):
+            assert pe.launch_planes(streamed=streamed, double_buffer=db) == 19
+            assert dprog.launch_planes(streamed=streamed,
+                                       double_buffer=db) == \
+                2 + (streamed and db)
+    assert pe.owned(16, 64, 4) and pe.owned(20, 64, 4)  # 1,728, 2,016 cells
+    assert not pe.owned(8, 128, 4)  # 2,176 cells
+    assert pe.tile(4096, 16, 4) == (64, True)
+    assert pe.tile(4096, 8, 4) == (64, True)  # narrowed from 128
+    assert pe.tile(4096, 8, 4, block_w=128) == (128, False)
+    assert pe.tile(4096, 16, 4, streamed=False) == (64, False)
+    assert pe.tile(720, 20, 4) == (64, True)
+    assert pe.smem_bytes(16, 64, 4, streamed=True, double_buffer=False) == \
+        (24 * 19 + 4) * 72 * 4
+    assert not dprog.owned(32, 128, 4)
+    assert dprog.tile(8192, 32, 4) == (128, True)
+    assert dprog.tile(8192, 32, 4, streamed=False) == (128, False)
+
+
+def test_stencil_chains_beyond_the_halo_are_refused():
+    """A shift and its opposite cancel in the composed halo but not in the
+    reads: such a core is refused, since the tile's guard cells would not
+    cover its taps."""
+    with pytest.raises(CodegenError, match="beyond the composed halo"):
+        _core("""
+            Name Cancel;
+            Main_In {mi::u};
+            Main_Out {mo::v};
+            HDL S1, 0, (a) = Stencil2D(u), dy=0, dx=1, W=8, mode=wrap;
+            EQU N0, b = a * 2.0;
+            HDL S2, 0, (v) = Stencil2D(b), dy=0, dx=-1, W=8, mode=wrap;
+        """)

@@ -69,19 +69,27 @@ def test_ulbm_and_handwritten_equal_plain(card, case, m):
 
 
 def test_smem_pricing_equals_the_kernels(card):
+    """The legalizer's planes, guard rows and owner cells are the
+    kernel's own: the uLBM PE holds P + K = 19 planes in either launch
+    and owns 2,048 cells in registers; diffusion ping/pongs two shared
+    planes, plus the streamed launch's second slot."""
     kern = lbm.LBMSimulation(lbm.LBMProblem(64, 96)).stream_kernel()
-    lib = kern.program.library()
-    for nbuf in (2, 3):
-        assert lib.spd_smem_bytes(16, 32, 4, nbuf) == tile_smem_bytes(
-            16, 32, 4, halo=1, halo_x=1, planes=kern.program.planes(nbuf))
-    # The streamed launch steps the uLBM PE in place (one state buffer),
-    # diffusion ping/pong (two), as the legalizer prices them.
     dprog = dif.DiffusionSimulation(64, 96).kernel.program
-    for prog, bufs in ((kern.program, 1), (dprog, 2)):
-        assert prog.library().spd_stream_buffers() == bufs
-        for db in (True, False):
-            assert prog.launch_planes(streamed=True, double_buffer=db) == \
-                prog.planes(bufs + db)
+    for prog in (kern.program, dprog):
+        lib = prog.library()
+        assert lib.spd_owner_cells() == prog.owner_cells
+        for streamed in (0, 1):
+            for db in (0, 1):
+                planes = prog.launch_planes(streamed=bool(streamed),
+                                            double_buffer=bool(db))
+                assert lib.spd_tile_planes(streamed, db) == planes
+                for bh, bw, m in ((16, 32, 4), (16, 64, 4), (8, 96, 1)):
+                    assert lib.spd_smem_bytes(bh, bw, m, planes) == \
+                        prog.smem_bytes(bh, bw, m, streamed=bool(streamed),
+                                        double_buffer=bool(db))
+    assert kern.program.owner_cells == 2048 and dprog.owner_cells == 0
+    assert kern.program.launch_planes(streamed=True, double_buffer=True) \
+        == 19
 
 
 #: (H, W, block_h, block_w, m) of the kernels' copy paths: the 16-byte
@@ -150,6 +158,76 @@ def test_lbm_pricing_equals_the_kernel(card):
     for bh, bw, m in ((16, 64, 4), (8, 32, 1), (20, 64, 4)):
         assert lib.lbm_smem_bytes(bh, bw, m) == tile_smem_bytes(
             bh, bw, m, halo=1, halo_x=1, planes=LBM_PLANES)
+
+
+#: (H, W, block_h, block_w, m) of uLBM PE tiles with more stripe cells
+#: than the 2,048 its threads own: 20 × 132 on the 16-byte path, 28 × 102
+#: on the 4-byte path (W 98), 40 × 72 with a ragged last column tile and
+#: fewer tiles than persistent blocks.
+FALLBACK_CASES = {
+    "vec4": (64, 256, 16, 128, 2),
+    "width98": (96, 98, 24, 98, 2),
+    "ragged": (96, 104, 32, 64, 4),
+}
+
+
+@pytest.mark.parametrize("case", list(FALLBACK_CASES))
+def test_register_state_fallback_equals_plain(card, case):
+    """A uLBM PE tile too large for the owners' registers steps its state
+    in the load slot: both launches and both halo launches (on row-range
+    views) bitwise equal to their plain versions, and to the same run on
+    register-state tiles."""
+    from repro_torch.kernels.spd_stream import (
+        spd_multistep_halo,
+        spd_multistep_halo_streamed,
+    )
+    from repro_torch.kernels.spd_stream.sharded import (
+        spd_multistep_halo_plain,
+    )
+
+    h, w, bh, bw, m = FALLBACK_CASES[case]
+    sim, f, attr, regs = _pe(h, w)
+    kern = sim.stream_kernel()
+    prog = kern.program
+    assert prog.reg_state and not prog.owned(bh, bw, m)
+    state = sim.stream_state(f, attr)
+    want = spd_multistep_plain(prog, state, regs, m=m, block_h=bh,
+                               block_w=bw)
+    for db in (True, False):
+        assert torch.equal(kern(state, regs, m=m, block_h=bh, block_w=bw,
+                                double_buffer=db), want), db
+    assert torch.equal(kern.multistep(state, regs, m=m, block_h=bh,
+                                      block_w=bw), want)
+    small = next(b for b in (32, 16) if prog.owned(bh, b, m))
+    assert torch.equal(kern(state, regs, m=m, block_h=bh, block_w=small),
+                       want)
+    big = torch.zeros((10, h + 7, w), device="cuda")
+    big[:, 3:h + 3] = state
+    ext = big[:, 3:h + 3]
+    hwant = spd_multistep_halo_plain(prog, ext.contiguous(), regs, m=m,
+                                     block_h=bh, block_w=bw)
+    for launch, kw in ((spd_multistep_halo, {}),
+                       (spd_multistep_halo_streamed, {"double_buffer": True})):
+        obig = torch.full((10, h - 2 * bh + 4, w), -1.0, device="cuda")
+        launch(prog, ext, regs, m=m, block_h=bh, block_w=bw,
+               out=obig[:, 2:h - 2 * bh + 2], **kw)
+        assert torch.equal(obig[:, 2:h - 2 * bh + 2], hwant), launch
+        assert (obig[:, :2] == -1).all() and (obig[:, -2:] == -1).all()
+
+
+@pytest.mark.parametrize("block_h,h", [(256, 512), (300, 300)])
+def test_lbm_slot_instantiation_equals_plain(card, block_h, h):
+    """The hand-written kernel on tiles of more stripe cells than its
+    threads own (block_h 256 and 300, m 4) steps the populations in the
+    load slot, bitwise equal to its plain version."""
+    from repro_torch.kernels.lbm_stream.lbm_stream import lbm_owned
+
+    _, f, attr, regs = _pe(h, 64)
+    got = lbm_multistep(f, attr, regs[0], regs[1], m=4, block_h=block_h)
+    bw = 2 if block_h == 256 else 1
+    assert not lbm_owned(block_h, bw, 4)
+    assert torch.equal(got, lbm_multistep_plain(
+        f, attr, regs[0], regs[1], m=4, block_h=block_h, block_w=bw))
 
 
 @pytest.mark.parametrize("width", [98, 104])

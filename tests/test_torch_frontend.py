@@ -200,10 +200,11 @@ def test_cuda_source_prints_f32_literals_only():
 
     for sim in (tdif.DiffusionSimulation(16, 64, device="cpu"),):
         src = sim.kernel.program.cuda_source()
-        assert "spd_tap(src + 0 * RC" in src
+        assert "src[0 * RC + idx - (1 * C + (0))]" in src
     src = tlbm.LBMSimulation(tlbm.LBMProblem(16, 64), device="cpu") \
         .stream_kernel().program.cuda_source()
     body = src.split("struct SpdCore", 1)[1]
     bare = re.findall(r"(?<![\w.])\d+\.\d*(?:e[-+]?\d+)?(?![\w.])", body)
     assert not bare, f"literals without an f suffix: {bare}"
-    assert src.count("__syncthreads()") == 2
+    # two phases in each of the shared-state and register-state steps
+    assert src.count("__syncthreads()") == 4

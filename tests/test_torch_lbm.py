@@ -153,3 +153,36 @@ def test_couette_linear_profile():
     prof = ux.mean(dim=1).numpy()[1:-1]
     y = (np.arange(1, h - 1) - 0.5) / (h - 2)
     np.testing.assert_allclose(prof, u_lid * y, atol=2.5e-3)
+
+
+def test_lbm_run_for_point_on_a_tile_taller_than_the_owners_hold():
+    """A point whose tile holds more stripe cells than the kernel's
+    threads own in registers (block_rows 300 at m 4: 308 × 9 cells) runs,
+    and equals the JAX package's ``lbm_run_for_point`` in interpret mode;
+    both legalizers resolve the same plan. ``lbm_multistep`` at H 256,
+    block_h 256, m 4 runs too."""
+    from repro.core.legalize import resolve_run_plan as jplan
+    from repro.kernels.lbm_stream.ops import lbm_run_for_point as jrun
+    from repro_torch.core.legalize import resolve_run_plan
+    from repro_torch.kernels.lbm_stream.lbm_stream import lbm_owned
+
+    class Point:
+        m, detail = 4, {"block_rows": 300}
+
+    f, attr = jlbm.cavity_init(300, 64)
+    rng = np.random.default_rng(11)
+    f = (np.asarray(f) * (1 + 0.01 * rng.standard_normal((9, 300, 64))))
+    f = f.astype(np.float32)
+    attr = np.asarray(attr)
+    plan = resolve_run_plan(300, Point(), 8)
+    assert plan == (300, 4, 8, True) == jplan(300, Point(), 8)
+    got, tplan = lbm_run_for_point(_t(f), _t(attr), 1 / 0.9, Point(),
+                                   steps=8, u_lid=0.05)
+    want, wplan = jrun(f, attr, 1 / 0.9, Point(), steps=8, u_lid=0.05,
+                       interpret=True)
+    assert tplan == wplan == (300, 4)
+    assert not lbm_owned(300, 1, 4)
+    _close(got, want)
+    g = _t(f[:, :256])
+    out = lbm_multistep(g, _t(attr[:256]), 1 / 0.9, 0.05, m=4, block_h=256)
+    assert out.shape == g.shape and torch.isfinite(out).all()

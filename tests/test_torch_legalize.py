@@ -9,7 +9,7 @@ from repro.core import legalize as jleg
 from repro_torch.apps import diffusion as tdif
 from repro_torch.apps import lbm as tlbm
 from repro_torch.core import legalize as tleg
-from repro_torch.kernels.lbm_stream.lbm_stream import LBM_PLANES
+from repro_torch.kernels.lbm_stream.lbm_stream import LBM_PLANES, lbm_owned
 
 
 class _Point:
@@ -83,13 +83,17 @@ def test_tile_pricing_matches_the_kernels_layout():
         16, 32, 4, halo=1, halo_x=1, planes=prog.planes(nbuf))
     assert price(2) == 29 * 24 * 40 * 4 == 111_360
     assert price(3) == 111_360 + 38_400 == 149_760
-    # The streamed launch steps the PE in place (one state buffer) and
-    # leaves room for two blocks per SM: at 16×32 its two-slot tile is the
-    # declarative launch's ping/pong tile, 111,360 B.
-    assert prog.in_place
-    assert prog.launch_planes(streamed=True, double_buffer=True) == 29
-    assert prog.launch_planes(streamed=False, double_buffer=False) == 29
-    assert kern.tile(720, 16, 4) == (32, True)
+    # Both launches keep the PE's state in registers beside one load slot
+    # (P + K = 19 planes) with 2·(halo + 1) guard rows, one block per SM:
+    # 16×32 at m 4 is 19·24·40·4 + 4·40·4 = 73,600 B; the plan's 16×64,
+    # 132,480 B, its 1,728-cell stripe within the 2,048 owned cells.
+    assert prog.in_place and prog.reg_state
+    assert prog.launch_planes(streamed=True, double_buffer=True) == 19
+    assert prog.launch_planes(streamed=False, double_buffer=False) == 19
+    assert prog.guard_rows == 4
+    assert prog.smem_bytes(16, 32, 4, streamed=True, double_buffer=True) \
+        == 73_600
+    assert kern.tile(720, 16, 4) == (64, True)
     assert kern.tile(720, 16, 4, double_buffer=False,
                      streamed=False) == (64, False)
     assert (tleg.tile_smem_bytes(32, 128, 4, halo=1, halo_x=1,
@@ -124,7 +128,8 @@ def test_launch_tile_shrinks_falls_back_and_rejects():
 def test_launch_tile_two_blocks_per_sm_and_cell_cap():
     """``blocks_per_sm=2`` takes the widest tile with room for two blocks
     on an SM (two-slot where it fits at that width, else one-slot) before
-    the one-block rule; ``max_cells`` caps the stripe's cells."""
+    the one-block rule; the LBM kernel's tile is priced by shared memory
+    alone."""
     planes = lambda db: 39 if db else 29  # noqa: E731  (the uLBM PE)
     price = lambda bw, db: tleg.tile_smem_bytes(  # noqa: E731
         16, bw, 4, halo=1, halo_x=1, planes=planes(db))
@@ -147,15 +152,17 @@ def test_launch_tile_two_blocks_per_sm_and_cell_cap():
     # An explicit tile is checked against one block, never shrunk.
     assert tleg.launch_tile(4096, 16, 4, halo=1, halo_x=1, planes=planes,
                             block_w=32, blocks_per_sm=2) == (32, True)
-    # The LBM kernel's cap: 24 rows × (64 + 8) = 1728 cells fit 2048,
-    # 24 × 136 do not.
-    assert tleg.launch_tile(4096, 16, 4, halo=1, halo_x=1,
-                            planes=lambda db: 19, double_buffer=False,
-                            max_cells=2048) == (64, False)
-    assert tleg.launch_tile(4096, 24, 4, halo=1, halo_x=1,
-                            planes=lambda db: 19, double_buffer=False,
-                            max_cells=2048) == (32, False)
-    with pytest.raises(ValueError, match="2048 cells"):
+    # The LBM kernel takes every tile that fits shared memory: 24 rows ×
+    # (64 + 8) = 1,728 cells at block_h 16 fit the 2,048 its threads own,
+    # 32 × 72 = 2,304 at block_h 24 do not and run with the populations in
+    # the load slot; 264 × 10 at block_h 256 likewise.
+    lbm = lambda bh, w=4096: tleg.launch_tile(  # noqa: E731
+        w, bh, 4, halo=1, halo_x=1, planes=lambda db: 19,
+        double_buffer=False)
+    assert lbm(16) == (64, False) and lbm_owned(16, 64, 4)
+    assert lbm(24) == (64, False) and not lbm_owned(24, 64, 4)
+    assert lbm(256, 64) == (2, False) and not lbm_owned(256, 2, 4)
+    with pytest.raises(ValueError, match="shared memory"):
         tleg.launch_tile(4096, 16, 4, halo=1, halo_x=1,
                          planes=lambda db: 19, block_w=128,
-                         double_buffer=False, max_cells=2048)
+                         double_buffer=False)
