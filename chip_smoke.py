@@ -48,7 +48,21 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    contiguous q/k/v and on the prefill's head-split views, with TFLOP/s
    and the share of its bound; then the two stencil kernels' design
    choices side by side (``kernels/lbm_stream/variants.py``,
-   ``kernels/spd_stream/variants.py``: three rounds after a warm-up).
+   ``kernels/spd_stream/variants.py``: three rounds after a warm-up);
+7. the model → measure → search loop on the card (docs/port.md §dse),
+   stream launch counts set to 0 just before and read just after: (a)
+   ``python -m repro_torch.cli explore --devices 1 --topk 1 --strategy
+   halving --budget 12 --no-calibrate`` in-process, twice, with its
+   measurement cache in a temporary directory — section 1's best (1, 4),
+   every executed point feasible, at most 12 live measurements per app,
+   none on the repeat; (b) the two calibration probes (the FMA-chain
+   kernel's GF/s, whose first build lands in the warm-up, and the 1 GiB
+   bandwidth probe against 3.35 TB/s) and the exhaustive frontier search
+   (k 3, calibrated) of the uLBM PE at 4096² and diffusion at 8192²,
+   one line per executed plan, the best plan run again and held to
+   ``StreamKernel.reference``; (c) a seeded TPE study (budget 6) at
+   4096² and its resume, which measures nothing and keeps the trial
+   sequence; (d) the FMA-chain kernel against its plain version, bitwise.
 
 The last two lines are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -397,6 +411,219 @@ def lm_serving(cfg) -> dict:
     del model, bundle, cache, full
     torch.cuda.empty_cache()
     return out
+
+
+def dse_loop(kind: str, hbm: float, fp32: float) -> None:
+    """Phase 7: the model → measure → search loop on the card."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import cli
+    from repro_torch.apps import diffusion as dif
+    from repro_torch.apps import lbm
+    from repro_torch.core import measure
+    from repro_torch.core.dse import GPUModel
+    from repro_torch.core.search import ExhaustiveSearch, Study, TPESearch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.spd_stream.spd_stream import spd_multistep_plain
+    from repro_torch.kernels.spd_stream.streaming import (
+        spd_multistep_streamed,
+    )
+
+    phase(f"phase 7: model -> measure -> search on the card ({kind})")
+    t7 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dse-")
+    model = GPUModel()
+
+    def feasible(workload, e) -> bool:
+        return model.evaluate(workload, e["block_h"], e["m"], d=e["d"],
+                              double_buffer=e["double_buffer"]).feasible
+
+    try:
+        spd_multistep_streamed.launches = 0
+        # 7a. the CLI, twice: the repeat is served by the cache.
+        os.environ["REPRO_TORCH_MEASURE_CACHE"] = os.path.join(tmp, "a.json")
+        argv = ["explore", "--devices", "1", "--topk", "1", "--strategy",
+                "halving", "--budget", "12", "--json",
+                os.path.join(tmp, "a-report.json"), "--no-calibrate"]
+        runs = []
+        for i in range(2):
+            text = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                runs.append(cli.main(argv))
+            wall = time.perf_counter() - t0
+            lines = text.getvalue().splitlines()
+            for line in lines:
+                if line.startswith(("-> best", "| block_h", "(strategy",
+                                    "(measurement cache")) or (
+                        i == 0 and line.startswith("| ") and " live |" in line):
+                    phase(f"  cli run {i + 1}: {line}")
+            phase(f"  cli run {i + 1}: {wall:.2f} s")
+        first, again = runs
+        if (first["fpga"]["best"]["n"], first["fpga"]["best"]["m"]) != (1, 4):
+            fail(f"cli section 1 best {first['fpga']['best']}, expected "
+                 "(1, 4)")
+        workloads = {
+            "lbm": lbm.LBMSimulation(lbm.LBMProblem(256, 128))
+            .stream_workload(),
+            "diffusion": dif.DiffusionSimulation(256, 128).explorer().workload,
+        }
+        for app, workload in workloads.items():
+            spent, spent2 = (first[app]["budget_spent"],
+                             again[app]["budget_spent"])
+            if not first[app]["executed"] or not 0 < spent <= 12:
+                fail(f"cli {app}: {spent} live measurements for "
+                     f"{len(first[app]['executed'])} points (budget 12)")
+            if spent2 != 0:
+                fail(f"cli {app} repeat spent {spent2} live measurements")
+            for e in first[app]["executed"] + again[app]["executed"]:
+                if e["interpret"] or not feasible(workload, e):
+                    fail(f"cli {app}: executed point {e} is infeasible or "
+                         "ran the plain version")
+            phase(f"  cli {app}: budget_spent {spent} <= 12, repeat "
+                  f"{spent2}, declined {first[app]['declined']}, every "
+                  "executed point feasible")
+
+        # 7b. the probes, then the explorer at the port's measured sizes.
+        cal = measure.calibrate_backend("cuda", shape=(8192, 8192), m=8)
+        phase(f"  probe FMA-chain core 8192^2 m 8: {cal.elem_gflops:.1f} "
+              f"GF/s ({cal.elem_gflops / (fp32 / 1e9):.1%} of "
+              f"{fp32 / 1e12:.0f} TFLOP/s FP32); bandwidth probe "
+              f"(a + 1.0, {cal.detail['mem_mbytes']} MiB): "
+              f"{cal.mem_gbs:.1f} GB/s "
+              f"({cal.mem_gbs / (hbm / 1e9):.1%} of {hbm / 1e12:.2f} TB/s)")
+        dsim = dif.DiffusionSimulation(8192, 8192)
+        tsim = lbm.LBMSimulation(lbm.LBMProblem(4096, 4096))
+        f0, attr, _ = lbm.taylor_green_init(4096, 4096)
+        cases = (
+            ("uLBM PE 4096^2 TGV", tsim.explorer(), tsim.stream_kernel(),
+             tsim.stream_state(f0, attr), tsim.stream_regs()),
+            ("diffusion 8192^2", dsim.explorer(), dsim.kernel,
+             dsim.state(dif.sine_init(8192, 8192)[0]), (dsim.alpha,)),
+        )
+        for label, ex, kern, state, regs in cases:
+            sweep = ex.sweep_gpu(bh_values=(8, 16, 32, 64),
+                                 m_values=(1, 2, 4, 8), d_values=(1,))
+            res = ex.search(sweep, state, regs,
+                            strategy=ExhaustiveSearch(k=3,
+                                                      frontier_only=True),
+                            calibrate=True, cache=os.path.join(tmp, "b.json"))
+            if not res.executed:
+                fail(f"{label}: the search executed no point")
+            for e in res.executed:
+                bw, db = kern.tile(state.shape[2], e.block_h, e.m,
+                                   double_buffer=e.double_buffer)
+                phase(f"  {label} plan (block_h {e.block_h}, m {e.m}, "
+                      f"block_w {bw}, prefetch {db}): model "
+                      f"{e.predicted_gflops:.1f}, calibrated "
+                      f"{e.calibrated_gflops:.1f}, measured "
+                      f"{e.measured_gflops:.1f} GF/s, "
+                      f"{e.measured_mlups:.1f} MLUPS, rel_error "
+                      f"{e.rel_error:+.3f} ({e.wall_s * 1e3:.4f} ms, "
+                      f"{'cache' if e.cached else 'live'})")
+                if e.interpret or not feasible(ex.workload, e.as_dict()):
+                    fail(f"{label}: executed point {e.as_dict()} is "
+                         "infeasible or ran the plain version")
+            best = res.best
+            out = kern.run_blocked(state, regs, steps=best.steps, m=best.m,
+                                   block_h=best.block_h,
+                                   double_buffer=best.double_buffer)
+            check_close(f"{label} best plan (block_h {best.block_h}, m "
+                        f"{best.m}) vs reference", out,
+                        kern.reference(state, regs, m=best.steps), RUN_TOL)
+            ev_ms, _ = cuda_ms(lambda: kern.run_blocked(
+                state, regs, steps=best.steps, m=best.m,
+                block_h=best.block_h, double_buffer=best.double_buffer))
+            phase(f"  {label}: {res.budget_spent} live measurements, "
+                  f"{res.declined} declined, {res.skipped_illegal} without "
+                  f"a legal plan; best plan host-clock wall "
+                  f"{best.wall_s * 1e3:.4f} ms, CUDA events {ev_ms:.4f} ms")
+            # The whole lattice, measured: the model's fidelity beyond
+            # its frontier (frontier plans come from the cache).
+            full = ex.search(sweep, state, regs,
+                             strategy=ExhaustiveSearch(frontier_only=False),
+                             calibrate=True,
+                             cache=os.path.join(tmp, "b.json"))
+            by_m: dict = {}
+            for e in sorted(full.executed, key=lambda e: (e.m, e.block_h)):
+                by_m.setdefault(e.m, []).append(
+                    f"{e.block_h}: {e.measured_gflops:.0f} "
+                    f"({e.rel_error:+.2f})")
+            for m, cells in by_m.items():
+                phase(f"  {label} lattice m {m}, block_h: measured GF/s "
+                      f"(calibrated rel_error): {', '.join(cells)}")
+            fb = full.best
+            phase(f"  {label} lattice: {full.budget_spent} more live "
+                  f"measurements; measured best (block_h {fb.block_h}, m "
+                  f"{fb.m}) {fb.measured_gflops:.1f} GF/s, "
+                  f"{fb.measured_mlups:.1f} MLUPS; |rel_error| max "
+                  f"{max(abs(e.rel_error) for e in full.executed):.3f}")
+            del out, state
+            torch.cuda.empty_cache()
+
+        # 7c. a seeded TPE study at 4096^2 and its resume.
+        tex = tsim.explorer()
+        tsweep = tex.sweep_gpu(bh_values=(8, 16, 32, 64),
+                               m_values=(1, 2, 4, 8), d_values=(1,))
+        tstate = tsim.stream_state(f0, attr)
+        seqs = []
+        for i in range(2):
+            res = tex.search(tsweep, tstate, tsim.stream_regs(),
+                             strategy=TPESearch(seed=0, max_trials=6),
+                             budget=6, calibrate=False, cache=False,
+                             study="phase7-tpe", study_dir=tmp)
+            journal = [(r["point"]["block_h"], r["point"]["m"])
+                       for r in Study.resume("phase7-tpe", tmp).records
+                       if r.get("point")]
+            seqs.append((res, journal))
+            phase(f"  TPE study run {i + 1}: {res.budget_spent} measured, "
+                  f"{res.replayed} replayed; trial sequence {journal}; "
+                  f"best (block_h {res.best.block_h}, m {res.best.m}) "
+                  f"{res.best.measured_gflops:.1f} GF/s")
+        (r1, j1), (r2, j2) = seqs
+        if r1.budget_spent != 6 or r2.budget_spent != 0:
+            fail(f"TPE study: {r1.budget_spent} then {r2.budget_spent} "
+                 "plans measured, expected 6 then 0")
+        if j1 != j2 or r2.replayed != 6 or sorted(
+                (e.block_h, e.m) for e in r2.executed) != sorted(j1):
+            fail(f"TPE resume changed the trial sequence: {j1} -> {j2}")
+        launches = spd_multistep_streamed.launches
+        phase(f"  launches on the DSE path: "
+              f"{{'spd_multistep_streamed': {launches}}}")
+        if launches == 0:
+            fail("the DSE path launched no stream kernel")
+        del tstate, f0, attr, cases
+        torch.cuda.empty_cache()
+
+        # 7d. the FMA-chain core against its plain version.
+        fma = measure.fma_chain_kernel(32)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        st = torch.rand((1, 4096, 4096), generator=gen, device="cuda")
+        for m in (1, 4):
+            bw = fma.tile(4096, 32, m)[0]
+            check_equal(f"FMA-chain 4096^2 m={m} block 32x{bw} vs plain",
+                        fma(st, (0.997,), m=m, block_h=32),
+                        spd_multistep_plain(fma.program, st, (0.997,), m=m,
+                                            block_h=32, block_w=bw))
+        check_close("FMA-chain run_blocked 8 steps vs reference",
+                    fma.run_blocked(st, (0.997,), steps=8, m=4, block_h=32),
+                    fma.reference(st, (0.997,), m=8), RUN_TOL)
+        log = build.library_path(
+            f"spd_{fma.program.name}", fma.program.cuda_source()
+        ).with_suffix(".log").read_text()
+        for name, (regs, spill) in sorted(build.ptxas_usage(log).items()):
+            phase(f"  ptxas spd_{fma.program.name} {name}: {regs} "
+                  f"registers, {spill} spill bytes")
+            if spill:
+                fail(f"spd_{fma.program.name} {name} spills {spill} bytes")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase(f"  phase 7: {time.perf_counter() - t7:.1f} s")
 
 
 def main() -> None:
@@ -1072,6 +1299,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     phase(f"  mesh runs: {json.dumps(mesh)}")
+    dse_loop(kind, hbm, fp32)
     phase(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line)
     print(json.dumps({"kernels": kernels}))

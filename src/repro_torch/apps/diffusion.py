@@ -118,6 +118,15 @@ class DiffusionSimulation:
     def hardware_report(self):
         return self.core.hardware_report
 
+    def explorer(self, **kw):
+        """Design-space :class:`~repro_torch.core.explorer.Explorer` of the
+        core at this problem size; GPU lattice points execute through its
+        generated kernel (docs/pipeline.md §execute)."""
+        kw.setdefault("core", self.kernel)
+        return self.core.explorer(
+            elems=self.height * self.width, grid_w=self.width, **kw
+        )
+
     def state(self, u) -> torch.Tensor:
         return self.kernel.pack([u])
 

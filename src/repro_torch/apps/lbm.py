@@ -361,6 +361,25 @@ class LBMSimulation:
     def hardware_report(self):
         return self.pe.hardware_report
 
+    def stream_workload(self):
+        """DSE workload for this problem: T = H*W elements, W-wide rows,
+        with the Hopper tile of the PE's generated kernel
+        (``CompiledCore.stream_workload``)."""
+        p = self.problem
+        return self.pe.stream_workload(p.height * p.width, grid_w=p.width)
+
+    def explorer(self, **kw):
+        """Design-space :class:`~repro_torch.core.explorer.Explorer` for
+        this simulation's compiled PE on this problem size. The PE's
+        generated kernel is the explorer's core, so GPU lattice points —
+        multi-device ones included — execute through it
+        (``Explorer.search``, docs/pipeline.md §execute)."""
+        from repro_torch.core.explorer import Explorer
+
+        kw.setdefault("core", self.stream_kernel())
+        return Explorer(self.stream_workload(),
+                        census=self.hardware_report.census, **kw)
+
     # ---- codegen'd-kernel surface (docs/pipeline.md §codegen) -------------
 
     def stream_kernel(self):

@@ -151,8 +151,7 @@ def _device_of(values) -> torch.device | None:
 class HardwareReport:
     """The DSE-facing summary of one core's synthesized shape.
 
-    Field for field the JAX package's ``HardwareReport`` (its ``workload``
-    hand-off to the design-space models belongs to a later slice).
+    Field for field the JAX package's ``HardwareReport``.
     """
 
     name: str
@@ -165,6 +164,17 @@ class HardwareReport:
     stream_out_words: int
     # Per-step stencil reach in rows (codegen inference).
     halo: int = 1
+
+    def workload(self, elems: int, grid_w: int = 0):
+        """Bind this report to a stream length -> DSE ``StreamWorkload``.
+
+        The compile-to-explore hand-off: everything the sweep engine needs
+        (flops, stream widths, depth, buffer bits) comes from the
+        synthesized core; only the problem size is supplied here.
+        """
+        from .dse import StreamWorkload
+
+        return StreamWorkload.from_report(self, elems=elems, grid_w=grid_w)
 
 
 class CompiledCore:
@@ -253,6 +263,39 @@ class CompiledCore:
             stream_out_words=len(self.core.main_output_ports()),
             halo=self.stream_halo,
         )
+
+    def stream_workload(self, elems: int, grid_w: int = 0):
+        """``hardware_report.workload(...)`` with the Hopper tile of this
+        core's generated kernel (its resident planes and guard rows, for
+        the GPU model's ``smem`` rule, docs/port.md §dse); a core the
+        stream codegen cannot lower keeps the unknown-tile default."""
+        from dataclasses import replace
+
+        from .codegen import lower_stripe, stencil_summary
+
+        w = self.hardware_report.workload(elems, grid_w)
+        try:
+            summary = stencil_summary(self)
+            prog = lower_stripe(self, summary.halo(), summary.halo_x)
+        except SPDError:
+            return w
+        return replace(
+            w,
+            tile_planes=prog.launch_planes(streamed=True,
+                                           double_buffer=False),
+            tile_guard_rows=prog.guard_rows,
+        )
+
+    def explorer(self, elems: int, grid_w: int = 0, **kw):
+        """Design-space :class:`~repro_torch.core.explorer.Explorer` of
+        this core. The explorer keeps a reference to the core, so GPU
+        lattice points can be *executed* through the generated stream
+        kernel (``Explorer.search``, docs/pipeline.md §execute)."""
+        from .explorer import Explorer
+
+        kw.setdefault("core", self)
+        kw.setdefault("census", self.hardware_report.census)
+        return Explorer(self.stream_workload(elems, grid_w), **kw)
 
     def stream_kernel(self, device="cuda"):
         """Lower this core to a generated Hopper stream kernel.

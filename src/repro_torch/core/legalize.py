@@ -755,11 +755,13 @@ def tile_smem_bytes(block_h: int, block_w: int, m: int, *, halo: int,
     (``StripeProgram.launch_planes``, ``StripeProgram.guard_rows``); the
     hand-written LBM kernel ``9 + 10`` (post-collision populations and
     the load slot) and no guard rows. The wrappers pass exactly this many
-    bytes as the launch's dynamic shared memory.
+    bytes as the launch's dynamic shared memory. Integer numpy arrays of
+    ``block_h``/``m`` broadcast (the GPU model's batched ``smem`` rule,
+    docs/port.md §dse).
     """
-    rows = int(block_h) + 2 * int(m) * int(halo)
-    cols = int(block_w) + 2 * int(m) * int(halo_x)
-    return (rows * int(planes) + int(guard_rows)) * cols * 4
+    rows = block_h + 2 * m * halo
+    cols = block_w + 2 * m * halo_x
+    return (rows * planes + guard_rows) * cols * 4
 
 
 def launch_tile(width: int, block_h: int, m: int, *, halo: int,

@@ -598,3 +598,84 @@ def test_flash_launch_faults_raise(card):
         check(call(x.data_ptr(), 96), "flash_attention")
     with pytest.raises(RuntimeError, match="TMA descriptor"):
         check(call(x.data_ptr() + 2, 128), "flash_attention")
+
+
+# ---- the model -> measure -> search loop (chip_smoke.py phase 7) -------
+
+
+@pytest.mark.parametrize("app", ["lbm", "diffusion"])
+def test_dse_search_on_the_card(card, app, tmp_path):
+    """A calibrated frontier search through the generated kernel on the
+    card: every executed point feasible and run on the card, the best
+    plan's output within rtol 2e-5 / atol 1e-6 of the reference, and a
+    repeat served from the cache."""
+    from repro_torch.core.dse import GPUModel
+    from repro_torch.core.search import ExhaustiveSearch
+
+    if app == "lbm":
+        sim = lbm.LBMSimulation(lbm.LBMProblem(256, 256))
+        f, attr, _ = lbm.taylor_green_init(256, 256)
+        kern, state, regs = (sim.stream_kernel(), sim.stream_state(f, attr),
+                             sim.stream_regs())
+    else:
+        sim = dif.DiffusionSimulation(512, 512)
+        kern, state, regs = (sim.kernel, sim.state(dif.sine_init(512, 512)[0]),
+                             (0.2,))
+    ex = sim.explorer()
+    sweep = ex.sweep_gpu(bh_values=(8, 16, 32), m_values=(1, 2, 4),
+                         d_values=(1,))
+    kw = dict(strategy=ExhaustiveSearch(k=2, frontier_only=True),
+              cache=str(tmp_path / "c.json"))
+    res = ex.search(sweep, state, regs, **kw)
+    assert res.executed and res.budget_spent > 0
+    for e in res.executed:
+        assert not e.interpret and e.calibrated_gflops > 0
+        assert GPUModel().evaluate(ex.workload, e.block_h, e.m).feasible
+    best = res.best
+    out = kern.run_blocked(state, regs, steps=best.steps, m=best.m,
+                           block_h=best.block_h,
+                           double_buffer=best.double_buffer)
+    torch.testing.assert_close(out, kern.reference(state, regs,
+                                                   m=best.steps),
+                               rtol=2e-5, atol=1e-6)
+    assert ex.search(sweep, state, regs, **kw).budget_spent == 0
+
+
+def test_tpe_study_resume_on_the_card(card, tmp_path):
+    """A seeded TPE study and its resume: nothing re-measured, the same
+    trial sequence."""
+    from repro_torch.core.search import Study, TPESearch
+
+    sim = lbm.LBMSimulation(lbm.LBMProblem(256, 256))
+    f, attr, _ = lbm.taylor_green_init(256, 256)
+    ex = sim.explorer()
+    sweep = ex.sweep_gpu(bh_values=(8, 16, 32), m_values=(1, 2, 4),
+                         d_values=(1,))
+    runs = []
+    for _ in range(2):
+        res = ex.search(sweep, sim.stream_state(f, attr), sim.stream_regs(),
+                        strategy=TPESearch(seed=0, max_trials=4), budget=4,
+                        calibrate=False, cache=False, study="s",
+                        study_dir=str(tmp_path))
+        journal = [(r["point"]["block_h"], r["point"]["m"])
+                   for r in Study.resume("s", str(tmp_path)).records]
+        runs.append((res.budget_spent, res.replayed, journal))
+    assert runs[0][:2] == (4, 0) and runs[1][:2] == (0, 4)
+    assert runs[0][2] == runs[1][2]
+
+
+def test_fma_chain_kernel_equals_plain(card):
+    """The calibration probe's 32-deep FMA core (halo 0, one plane, one
+    register) on the card, bitwise against its plain version."""
+    from repro_torch.core.measure import fma_chain_kernel
+
+    kern = fma_chain_kernel(32)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    st = torch.rand((1, 512, 640), generator=g, device="cuda")
+    for m in (1, 3):
+        bw = kern.tile(640, 32, m)[0]
+        want = spd_multistep_plain(kern.program, st, (0.997,), m=m,
+                                   block_h=32, block_w=bw)
+        assert torch.equal(kern(st, (0.997,), m=m, block_h=32), want)
+        assert torch.equal(kern(st, (0.997,), m=m, block_h=32,
+                                double_buffer=False), want)

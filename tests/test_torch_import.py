@@ -34,12 +34,26 @@ import repro_torch.models.registry
 import repro_torch.serve.engine
 import repro_torch.kernels.flash_attention.ops
 import repro_torch.launch.serve
+import repro_torch.core.dse
+import repro_torch.core.planner
+import repro_torch.core.measure
+import repro_torch.core.explorer
+import repro_torch.core.search
+import repro_torch.core.search.runner
+import repro_torch.core.search.strategies
+import repro_torch.core.search.surrogate
+import repro_torch.core.search.study
+import repro_torch.cli
 from repro_torch.apps import diffusion
 sim = diffusion.DiffusionSimulation(16, 32, device="cpu")
 u0, _ = diffusion.sine_init(16, 32, device="cpu")
 assert sim.run(u0, 4, m=2, block_h=8).shape == (16, 32)
 assert sim.run(u0, 4, m=2, block_h=4, d=2).equal(sim.run(u0, 4, m=2,
                                                          block_h=4))
+ex = sim.explorer()
+res = ex.search(ex.sweep_gpu(bh_values=(8,), m_values=(1, 2), d_values=(1,)),
+                sim.state(u0), (0.2,), reps=1, calibrate=False)
+assert res.executed and res.best.interpret
 import torch
 from repro_torch.configs import get_arch
 from repro_torch.models import registry
