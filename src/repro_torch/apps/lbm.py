@@ -15,7 +15,10 @@ mirror the paper's §III-B decomposition:
 from :func:`repro_torch.core.transforms.temporal_cascade`. A full-grid
 torch reference and the Taylor-Green / Couette / cavity initial states
 live here too; :class:`LBMSimulation` runs the PE through the generated
-Hopper stream kernel (docs/pipeline.md §codegen).
+Hopper stream kernel (docs/pipeline.md §codegen). :func:`lbm_program` is
+the same PE as a 3-core stream program (collide+stream → boundary →
+moments, docs/port.md §program), every fusion partition bitwise equal to
+the PE.
 
 Lattice convention (matches the kernels and tests):
     e0=( 0, 0)  e1=( 1, 0)  e2=( 0, 1)  e3=(-1, 0)  e4=( 0,-1)
@@ -290,6 +293,71 @@ DRCT (oatr) = (a3);
 """
 
 
+def collide_stream_spd(width: int, mode: str = "wrap",
+                       name: str = "uLBM_CollideStream") -> str:
+    """Program stage 1: BGK collision chained into translation.
+
+    The first core of the 3-core LBM stream program (docs/port.md
+    §program): the first two HDL calls of :func:`pe_spd`, so the
+    program's fused execution stays bitwise equal to the monolithic PE.
+    """
+    fin = ",".join(_F)
+    g = ",".join(f"g{i}" for i in range(9))
+    s = ",".join(f"s{i}" for i in range(9))
+    return f"""
+Name {name};
+Main_In {{mi::{fin},atr}};
+Main_Out {{mo::{s},oatr}};
+Append_Reg {{rg::one_tau}};
+HDL Ucalc, 0, ({g},a1) = uLBM_calc({fin},atr,one_tau);
+HDL Utrans, 0, ({s},a2) = uLBM_Trans2D({g},a1);
+DRCT (oatr) = (a2);
+"""
+
+
+def bndry_stage_spd(name: str = "uLBM_Bndry2D", bndry: str = "hdl") -> str:
+    """Program stage 2: the bounce-back boundary unit as its own core.
+
+    Stencil-free (halo 0): a pipelined cut before this stage costs one
+    HBM round trip per step but no extra halo rows.
+    """
+    s = ",".join(f"s{i}" for i in range(9))
+    h = ",".join(f"h{i}" for i in range(9))
+    bmod = "uLBM_bndryHDL" if bndry == "hdl" else "uLBM_bndry"
+    return f"""
+Name {name};
+Main_In {{mi::{s},atr}};
+Main_Out {{mo::{h},oatr}};
+Append_Reg {{rg::u_lid,rho0}};
+HDL Ubndry, 0, ({h},a3) = {bmod}({s},atr,u_lid,rho0);
+DRCT (oatr) = (a3);
+"""
+
+
+def moments_spd(name: str = "uLBM_Moments") -> str:
+    """Program stage 3: macroscopic diagnostics, distributions pass through.
+
+    Computes rho/ux/uy *inside the stripe* and forwards the distributions
+    unchanged — which keeps every fusion partition of the program bitwise
+    equal to the monolithic PE. The diagnostics reach no output: the
+    generated kernel computes them, and ``nvcc`` removes them.
+    """
+    hin = ",".join(f"h{i}" for i in range(9))
+    L = [
+        f"Name {name};",
+        "Main_In {mi::" + hin + ",atr};",
+        "Main_Out {mo::" + ",".join(f"o{i}" for i in range(9)) + ",oatr};",
+        "EQU Mrho, rho = h0+h1+h2+h3+h4+h5+h6+h7+h8;",
+        "EQU Mirh, irho = 1.0 / rho;",
+        "EQU Mux, ux = (h1+h5+h8-h3-h6-h7)*irho;",
+        "EQU Muy, uy = (h2+h5+h6-h4-h7-h8)*irho;",
+    ]
+    for i in range(9):
+        L.append(f"DRCT (o{i}) = (h{i});")
+    L.append("DRCT (oatr) = (atr);")
+    return "\n".join(L)
+
+
 def build_lbm_registry(width: int, mode: str = "wrap",
                        bndry: str = "hdl") -> Registry:
     """Compile the three stages + PE into a fresh registry."""
@@ -300,6 +368,32 @@ def build_lbm_registry(width: int, mode: str = "wrap",
     reg.compile(parse_spd(bndry_spd()))
     reg.compile(parse_spd(pe_spd(width, mode, bndry=bndry)))
     return reg
+
+
+def lbm_program(width: int, mode: str = "wrap", bndry: str = "hdl",
+                device="cuda"):
+    """The LBM application as a 3-core stream program (docs/port.md
+    §program).
+
+    collide+stream → boundary handling → macroscopic diagnostics, with
+    the fusion partition — which stages share one generated kernel — left
+    to the DSE (``StreamProgram.explorer().sweep_gpu(fusion_values=...)``).
+    Fully fused it is the monolithic :func:`pe_spd` pipeline plus
+    in-stripe diagnostics; every partition is bitwise equal to it.
+    """
+    from repro_torch.core.program import StreamProgram
+
+    reg = build_lbm_registry(width, mode, bndry)
+    reg.compile(parse_spd(collide_stream_spd(width, mode)))
+    reg.compile(parse_spd(bndry_stage_spd(bndry=bndry)))
+    reg.compile(parse_spd(moments_spd()))
+    return StreamProgram(
+        reg,
+        ["uLBM_CollideStream", "uLBM_Bndry2D", "uLBM_Moments"],
+        width=width,
+        name="uLBM_Program",
+        device=device,
+    )
 
 
 # --------------------------------------------------------------------------
@@ -338,6 +432,7 @@ class LBMSimulation:
         pe = self.registry._cores["PEx1"]
         self.pe = pe if m == 1 else temporal_cascade(pe, m)
         self._stream_kernel = None
+        self._programs: dict = {}
 
     def _apply(self, f, attr):
         p = self.problem
@@ -397,6 +492,24 @@ class LBMSimulation:
     def stream_regs(self) -> tuple:
         """``Append_Reg`` values of the PE for this problem."""
         return (self.problem.one_tau, self.problem.u_lid, 1.0)
+
+    # ---- stream-program surface (docs/port.md §program) -------------------
+
+    def program(self, bndry: str = "hdl"):
+        """This problem as the 3-core stream program (built once per
+        boundary variant, on this simulation's device).
+
+        Same state packing (:meth:`stream_state`) and register values
+        (:meth:`stream_regs` — flat program order is ``one_tau, u_lid,
+        rho0``, matching the PE) as the monolithic kernel, so the two
+        paths are directly bit-comparable.
+        """
+        if bndry not in self._programs:
+            self._programs[bndry] = lbm_program(
+                self.problem.width, self.problem.mode, bndry,
+                device=self.device,
+            )
+        return self._programs[bndry]
 
 
 # --------------------------------------------------------------------------

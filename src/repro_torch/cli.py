@@ -33,8 +33,12 @@ diffs against the device actually running (``--no-calibrate`` compares
 against the card's data-sheet peaks instead), and wall times persist in
 the port's measurement cache (``$REPRO_TORCH_MEASURE_CACHE``, default
 ``build/repro_torch/measure-cache.json``; ``--no-cache`` to always
-re-time). The reference's ``--program`` waits for the port of stream
-programs.
+re-time). ``--program`` adds section 3c: the multi-core stream programs
+(docs/port.md §program) — LBM as a 3-core collide+stream → boundary →
+moments chain and the 2-core advection-diffusion app at 128×128 — with
+the fusion partition swept as a lattice axis, executed through the
+program back end (fused clusters as single launches, pipelined ones as a
+captured step replayed on the card), under ``"program"`` in the report.
 """
 
 from __future__ import annotations
@@ -64,6 +68,59 @@ def _search_line(res) -> str:
             f"{res.declined} plan(s) declined"
             + (f", {res.replayed} replayed from study {res.study!r}"
                if res.study else "") + ")")
+
+
+def _programs(args, dev, strategy, mcache, exec_d, exec_dx, n_cards,
+              study_kw) -> dict:
+    """Section 3c: the fusion partition as a search axis, over both
+    stream programs at 128×128; returns the ``"program"`` report."""
+    from repro_torch.apps import lbm
+    from repro_torch.apps.advection_diffusion import (
+        AdvectionDiffusionSimulation,
+        blob_init,
+    )
+    from repro_torch.core.explorer import render_executed
+    from repro_torch.core.program import fusion_partitions
+
+    print()
+    print("=" * 72)
+    print("3c) Stream programs: the fusion partition as a search axis")
+    print("    (docs/port.md §program; `fuse` column = cluster sizes, "
+          "e.g. 2+1)")
+    print("=" * 72)
+    psim = lbm.LBMSimulation(lbm.LBMProblem(128, 128, mode="wrap"),
+                             device=dev)
+    pf, pattr, _ = lbm.taylor_green_init(128, 128, device=dev)
+    asim = AdvectionDiffusionSimulation(128, 128, device=dev)
+    out = {}
+    for label, prog, state, regs in (
+        ("lbm_program", psim.program(), psim.stream_state(pf, pattr),
+         psim.stream_regs()),
+        ("advection_diffusion", asim.program,
+         asim.state(blob_init(128, 128, device=dev)), asim.regs()),
+    ):
+        pex = prog.explorer(128 * 128, grid_w=128)
+        psweep = pex.sweep_gpu(
+            bh_values=(8, 16, 32), m_values=(1, 2, 4), d_values=exec_d,
+            dx_values=exec_dx, double_buffer=args.double_buffer,
+            fusion_values=fusion_partitions(prog.nstages),
+        )
+        pres = pex.search(
+            psweep, state, regs, strategy=strategy, budget=args.budget,
+            reps=args.reps, calibrate=args.calibrate, cache=mcache,
+            max_devices=n_cards, **study_kw,
+        )
+        print(f"-- {label} ({prog.nstages} stages, partitions: "
+              f"{', '.join(fusion_partitions(prog.nstages))})")
+        print(render_executed(pres.executed))
+        print(_search_line(pres))
+        if pres.executed:
+            best = pres.best
+            print(f"-> best partition: {best.fusion} (block_h "
+                  f"{best.block_h}, m {best.m}, {best.measured_mlups:.2f} "
+                  "MLUPS)")
+        out[label] = pres.as_dict()
+    return out
 
 
 def explore_main(argv: list[str] | None = None) -> dict:
@@ -142,6 +199,15 @@ def explore_main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--trials", type=int, default=None, metavar="N",
                     help="cap on total tpe observations, replayed + "
                          "measured")
+    ap.add_argument("--program", action="store_true",
+                    help="also search the multi-core stream programs "
+                         "(docs/port.md §program): LBM as a 3-core "
+                         "collide+stream -> boundary -> moments chain and "
+                         "the 2-core advection-diffusion app, with the "
+                         "fusion partition (which stages share one "
+                         "generated kernel) swept as a lattice axis — the "
+                         "report table gains a `fuse` column and --json "
+                         "carries the partition per executed point")
     args = ap.parse_args(argv)
     try:
         dev = resolve_device(args.device)
@@ -276,6 +342,11 @@ def explore_main(argv: list[str] | None = None) -> dict:
         print(f"(inferred stencil: {len(halo.offsets)} offsets, "
               f"halo = {halo.halo_y} row/step — no hand-written kernel)")
         report["diffusion"] = dres.as_dict()
+
+        if args.program:
+            report["program"] = _programs(args, dev, strategy, mcache,
+                                          exec_d, exec_dx, n_cards,
+                                          study_kw)
 
         report["measure"] = {
             "reps": args.reps,

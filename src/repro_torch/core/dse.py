@@ -97,6 +97,12 @@ class StreamWorkload:
     # ping/pong state, ``2·words_in`` planes and no guard rows.
     tile_planes: int = 0
     tile_guard_rows: int = 0
+    # A program's Hopper tiles, one per stage span a cluster can cover:
+    # ``((lo, hi), (halo, halo_x, planes, guard_rows))`` of the span's
+    # fused wrapper kernel, filled in by ``StreamProgram.workload``. The
+    # ``smem`` rule prices each cluster of a partition at its own tile
+    # (``cluster_smem_bytes``).
+    cluster_tiles: tuple = ()
 
     @classmethod
     def from_report(cls, report, elems: int, grid_w: int = 0) -> "StreamWorkload":
@@ -133,12 +139,39 @@ class StreamWorkload:
             planes=planes, guard_rows=self.tile_guard_rows,
         )
 
+    def cluster_smem_bytes(self, block_h, m, fusion: str = ""):
+        """Shared-memory bytes of the largest smallest-tile among a
+        partition's clusters (docs/port.md §program): each cluster priced
+        at its own composed halo, planes and guard rows and its fused-step
+        count ``m_c`` (``m`` when the partition is one cluster, 1 when
+        pipelined). :meth:`~repro_torch.core.codegen.StreamKernel.tile`
+        raises for some cluster exactly when this exceeds
+        :data:`~repro_torch.core.legalize.SMEM_BYTES`. ``block_h``/``m``
+        may be arrays. Raises when the workload lists no cluster tiles
+        (one not built by ``StreamProgram.workload``)."""
+        clusters = self.fusion_clusters(fusion)
+        if not self.cluster_tiles:
+            raise ValueError(
+                f"workload {self.name!r} has program stages but no "
+                "cluster_tiles; build it with StreamProgram.workload(...)"
+            )
+        m_c = m if len(clusters) == 1 else np.ones_like(m)
+        tiles = dict(self.cluster_tiles)
+        sizes = []
+        for c in clusters:
+            halo, halo_x, planes, guard = tiles[c["span"]]
+            sizes.append(tile_smem_bytes(block_h, 1, m_c, halo=halo,
+                                         halo_x=halo_x, planes=planes,
+                                         guard_rows=guard))
+        return np.maximum.reduce(sizes)
+
     def fusion_clusters(self, fusion: str = "") -> list[dict]:
         """Partition ``stages`` into fusion clusters (docs/pipeline.md
-        §program): each cluster dict carries its aggregate ``flops``,
-        member ``words``/``halos`` lists and the *composed* halo (the
-        sum of member halos — the legalizer's rule). Raises if the
-        workload carries no stage chain."""
+        §program): each cluster dict carries its stage ``span``
+        ``(lo, hi)``, aggregate ``flops``, member ``words``/``halos``
+        lists and the *composed* halo (the sum of member halos — the
+        legalizer's rule). Raises if the workload carries no stage
+        chain."""
         if not self.stages:
             raise ValueError(
                 f"workload {self.name!r} has no program stages; "
@@ -150,6 +183,7 @@ class StreamWorkload:
             members = self.stages[lo:lo + s]
             lo += s
             out.append({
+                "span": (lo - s, lo),
                 "flops": sum(int(f) for f, _, _ in members),
                 "words": [int(w) for _, w, _ in members],
                 "halos": [int(h) for _, _, h in members],
@@ -614,8 +648,10 @@ class GPUModel:
             pt.limits.append(f"VMEM {vmem}>{t.vmem_bytes}")
         # Shared memory (docs/port.md §dse): the smallest column tile of
         # the Hopper launch must fit one thread block; where it does not,
-        # launch_tile raises, so the point has no executable plan.
-        smem = int(w.tile_smem_bytes(bh, m))
+        # launch_tile raises, so the point has no executable plan. A
+        # program prices each cluster's own tile (docs/port.md §program).
+        smem = int(w.tile_smem_bytes(bh, m) if clusters is None
+                   else w.cluster_smem_bytes(bh, m, fusion))
         if smem > t.smem_bytes:
             pt.feasible = False
             pt.limits.append(f"smem {smem}>{t.smem_bytes}")
@@ -786,7 +822,8 @@ class GPUModel:
             ])
         feasible = vmem <= t.vmem_bytes
         # the smallest Hopper tile must fit a block (scalar path's limit)
-        smem = w.tile_smem_bytes(bh, m)
+        smem = (w.tile_smem_bytes(bh, m) if clusters is None
+                else w.cluster_smem_bytes(bh, m, fusion))
         feasible = feasible & (smem <= t.smem_bytes)
         # the mesh must factor the device count (scalar path's hard limit)
         feasible = feasible & (chips % dxa == 0)

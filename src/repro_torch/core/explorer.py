@@ -427,7 +427,10 @@ class Explorer:
 
         Default back end: ``core`` (or the compiled core this explorer
         was built from) lowers to a
-        :class:`~repro_torch.core.codegen.StreamKernel`; ``state`` is the
+        :class:`~repro_torch.core.codegen.StreamKernel` — or is a
+        :class:`~repro_torch.core.program.StreamProgram`, whose points
+        legalize through its stage geometry and run the partition their
+        ``fusion`` names (docs/port.md §program); ``state`` is the
         stacked ``(P, H, W)`` grid, whose device picks the path (the
         generated kernel on a card, its plain version on the CPU), and
         ``regs`` the core's ``Append_Reg`` values. Points with ``d > 1``
@@ -459,8 +462,10 @@ class Explorer:
             )
         halo = sweep.workload.halo
         fingerprint = cache_tag
+        stages = None
         if run_factory is None:
             from .codegen import StreamKernel
+            from .program import StreamProgram, program_run_factory
 
             core = core if core is not None else self.core
             if core is None:
@@ -468,18 +473,29 @@ class Explorer:
                     "Explorer.search needs a compiled core: build the "
                     "explorer from a CompiledCore or pass core=..."
                 )
-            kern = (
-                core if isinstance(core, StreamKernel)
-                else core.stream_kernel(device=state.device)
-            )
             words, h, w = state.shape
-            halo, width = kern.halo, w
-            device = state.device
-            # The DFG fingerprint always wins on this path — a cache_tag
-            # must never alias two structurally different cores onto one
-            # cache key; tags are for run_factory back ends.
-            fingerprint = measure.core_fingerprint(kern)
-            run_factory = kernel_run_factory(kern, state, regs)
+            width, device = w, state.device
+            if isinstance(core, StreamProgram):
+                # Program back end (docs/port.md §program): plans legalize
+                # through the fused-cluster accounting and each point's
+                # fusion spec picks the ProgramKernel partition. The
+                # fingerprint is the fused monolithic wrapper's.
+                stages = core.stage_geometry()
+                fingerprint = measure.core_fingerprint(
+                    core.monolithic_kernel())
+                run_factory = program_run_factory(core, state, regs)
+            else:
+                kern = (
+                    core if isinstance(core, StreamKernel)
+                    else core.stream_kernel(device=state.device)
+                )
+                halo = kern.halo
+                # The DFG fingerprint always wins on this path — a
+                # cache_tag must never alias two structurally different
+                # cores onto one cache key; tags are for run_factory
+                # back ends.
+                fingerprint = measure.core_fingerprint(kern)
+                run_factory = kernel_run_factory(kern, state, regs)
         else:
             if grid_shape is None:
                 raise ValueError("run_factory needs grid_shape=(h, w)")
@@ -500,6 +516,7 @@ class Explorer:
             halo=halo,
             width=width,
             words=words,
+            stages=stages,
             steps=steps,
             device=device,
             reps=reps,

@@ -268,6 +268,7 @@ _SALT_MODULES = (
     "repro_torch.core.codegen",
     "repro_torch.core.legalize",
     "repro_torch.core.distribute",
+    "repro_torch.core.program",
     "repro_torch.kernels.build",
     "repro_torch.kernels.spd_stream.spd_stream",
     "repro_torch.kernels.spd_stream.sharded",

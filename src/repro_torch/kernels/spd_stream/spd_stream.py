@@ -26,10 +26,15 @@ bit for bit.
 guard-block-extended shard (``guard``), declarative or streamed — as the
 kernel source is one template: the contract checks, the column tile, the
 plain version on the CPU, the device checks, the shared-memory price, the
-call and the counts.
+call and the counts. A launch enqueued while a CUDA graph is captured
+(:func:`recording`) runs at each replay of the graph, not at the call: the
+wrapper records it there and the replay counts it (:func:`count`).
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -167,6 +172,36 @@ def spd_multistep_halo_plain(program: StripeProgram, ext, regs, *, m: int,
                            mh, mw)
 
 
+#: This thread's launches recorded during a CUDA-graph capture, or None.
+_capture = threading.local()
+
+
+@contextlib.contextmanager
+def recording():
+    """Record, instead of counting, the launches this thread's wrappers
+    enqueue while a CUDA graph is captured. Yields the list of
+    ``(wrapper, core name)`` the graph launches at each replay; the replay
+    passes each to :func:`count`."""
+    prev = getattr(_capture, "launches", None)
+    _capture.launches = rec = []
+    try:
+        yield rec
+    finally:
+        _capture.launches = prev
+
+
+def count(fn, name: str) -> None:
+    """Count one launch of wrapper ``fn``'s kernel of core ``name``, in
+    the wrapper's and the stripe body's counts, or record it inside
+    :func:`recording`."""
+    rec = getattr(_capture, "launches", None)
+    if rec is not None:
+        rec.append((fn, name))
+        return
+    fn.launches += 1
+    StripeProgram.count_launch(name)
+
+
 def launch(fn, program: StripeProgram, x, regs, *, m: int, block_h: int,
            block_w: int | None, double_buffer: bool, out, guard: bool):
     """The body of the four SPD launches.
@@ -213,8 +248,7 @@ def launch(fn, program: StripeProgram, x, regs, *, m: int, block_h: int,
             *args, spd_regs(regs), smem, x.device.index,
             torch.cuda.current_stream(x.device).cuda_stream,
         ), fn.__name__)
-    fn.launches += 1
-    StripeProgram.count_launch(program.name)
+    count(fn, program.name)
     return out
 
 

@@ -51,17 +51,37 @@ def test_no_execute_matches_the_reference(tmp_path, capsys):
 
 def test_without_a_card_cuda_is_refused(capsys):
     """The default device is the card: without one the command exits
-    non-zero with the port's message; ``--program`` is not ported yet."""
+    non-zero with the port's message, with or without ``--program``."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device runs")
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["explore", "--no-execute"])
-    assert exc.value.code != 0
-    assert "no CUDA device" in capsys.readouterr().err
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["explore", "--device", "cpu", "--program"])
-    assert exc.value.code == 2
-    assert "--program" in capsys.readouterr().err
+    for extra in ([], ["--program"]):
+        with pytest.raises(SystemExit) as exc:
+            cli.main(["explore", "--no-execute", *extra])
+        assert exc.value.code != 0
+        assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_program_search_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """``--program`` (section 3c) searches both stream programs: the
+    report holds each under ``"program"``, every executed point runs a
+    partition of its program, and no search spends more than its
+    budget."""
+    from repro_torch.core.program import fusion_partitions
+
+    monkeypatch.setenv("REPRO_TORCH_MEASURE_CACHE", str(tmp_path / "mc.json"))
+    report = cli.main(["explore", "--device", "cpu", "--devices", "1",
+                       "--strategy", "halving", "--budget", "4",
+                       "--no-calibrate", "--reps", "1", "--program"])
+    out = capsys.readouterr().out
+    assert "3c) Stream programs" in out and "-> best partition:" in out
+    stages = {"lbm_program": 3, "advection_diffusion": 2}
+    assert set(report["program"]) == set(stages)
+    for label, n in stages.items():
+        res = report["program"][label]
+        assert res["executed"] and 0 < res["budget_spent"] <= 4
+        for e in res["executed"]:
+            assert e["fusion"] in fusion_partitions(n)
+            assert e["interpret"] and e["d"] == 1
 
 
 def test_budgeted_search_and_its_cached_repeat(tmp_path, monkeypatch,

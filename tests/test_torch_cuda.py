@@ -679,3 +679,99 @@ def test_fma_chain_kernel_equals_plain(card):
         assert torch.equal(kern(st, (0.997,), m=m, block_h=32), want)
         assert torch.equal(kern(st, (0.997,), m=m, block_h=32,
                                 double_buffer=False), want)
+
+
+# ---- stream programs (chip_smoke.py phase 8, docs/port.md §program) ----
+
+
+def _program_app(app: str, h: int, w: int):
+    """(program, monolithic kernel, state, regs, block_h) of one app."""
+    from repro_torch.apps import advection_diffusion as ad
+
+    if app == "lbm":
+        sim = lbm.LBMSimulation(lbm.LBMProblem(h, w, u_lid=0.07))
+        f, attr = lbm.couette_init(h, w)
+        return (sim.program(), sim.stream_kernel(),
+                sim.stream_state(f, attr), sim.stream_regs(), 16)
+    sim = ad.AdvectionDiffusionSimulation(h, w)
+    return (sim.program, sim.monolithic_core.stream_kernel(),
+            sim.state(ad.blob_init(h, w)), sim.regs(), 32)
+
+
+@pytest.mark.parametrize("app", ["lbm", "advdiff"])
+@pytest.mark.parametrize("m", [1, 4])
+def test_program_partitions_equal_monolith(card, app, m):
+    """Every partition on the card — fused clusters, pipelined chains of
+    halo-0 and stencil clusters — bitwise equal to the monolithic kernel
+    at the same plan."""
+    from repro_torch.core.program import fusion_partitions
+
+    prog, mono, state, regs, bh = _program_app(app, 512, 1024)
+    want = mono.run_blocked(state, regs, steps=8, m=m, block_h=bh)
+    for spec in fusion_partitions(prog.nstages):
+        got = prog.kernel(spec).run_blocked(state, regs, steps=8, m=m,
+                                            block_h=bh)
+        assert torch.equal(got, want), spec
+
+
+@pytest.mark.parametrize("app", ["lbm", "advdiff"])
+def test_pipelined_graph_equals_eager_chain(card, app):
+    """The replayed CUDA graph of one program step equals the same chain
+    of cluster launches run eagerly, and counts one launch per cluster
+    per replayed step."""
+    from repro_torch.core.program import fusion_partitions
+    from repro_torch.kernels.spd_stream.streaming import (
+        spd_multistep_streamed,
+    )
+
+    prog, _, state, regs, bh = _program_app(app, 256, 512)
+    spec = fusion_partitions(prog.nstages)[-1]  # fully pipelined
+    pk = prog.kernel(spec)
+    eager = state
+    for _ in range(3):
+        for kern, (a, b) in zip(pk.clusters, pk.spans):
+            eager = kern(eager, regs[prog.reg_slice(a, b)], m=1, block_h=bh)
+    pk.run_blocked(state, regs, steps=1, m=1, block_h=bh)  # capture
+    before = spd_multistep_streamed.launches
+    got = pk.run_blocked(state, regs, steps=3, m=1, block_h=bh)
+    assert torch.equal(got, eager)
+    assert spd_multistep_streamed.launches - before == 3 * len(pk.clusters)
+
+
+def test_pipelined_graphs_share_one_ring(card):
+    """The graphs of every pipelined partition and plan run on the
+    program's one ring for the shape: three state buffers for the 3-core
+    uLBM program, however many graphs are captured."""
+    prog, _, state, regs, bh = _program_app("lbm", 256, 512)
+    specs = ("2+1", "1+2", "1+1+1")
+    want = prog.kernel("3").run_blocked(state, regs, steps=2, m=1,
+                                        block_h=bh)
+    for spec in specs:
+        for b in (8, bh):
+            got = prog.kernel(spec).run_blocked(state, regs, steps=2, m=1,
+                                                block_h=b)
+            assert torch.equal(got, want), (spec, b)
+    ptrs = {t.data_ptr() for t in prog.ring(state, 3)}
+    graphs = [g for spec in specs
+              for g in prog.kernel(spec)._graphs.values()]
+    assert len(graphs) == 6 and len(prog._rings) == 1 and len(ptrs) == 3
+    assert all({t.data_ptr() for t in g.bufs} <= ptrs for g in graphs)
+
+
+def test_pipelined_run_makes_no_host_sync(card):
+    """A pipelined run (after its capture) under
+    ``torch.cuda.set_sync_debug_mode("error")``: no call synchronizes the
+    host with the card — the counterpart of the reference's transfer
+    guard. ``run_unfused`` synchronizes and is refused."""
+    prog, _, state, regs, bh = _program_app("lbm", 256, 512)
+    pk = prog.kernel("1+1+1")
+    want = pk.run_blocked(state, regs, steps=2, m=1, block_h=bh)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = pk.run_blocked(state, regs, steps=2, m=1, block_h=bh)
+        with pytest.raises(RuntimeError):
+            pk.run_unfused(state, regs, steps=1, block_h=bh)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)

@@ -67,7 +67,7 @@ def test_workload_and_report_equal_the_reference(paper_pe):
     w = port.pe.hardware_report.workload(300 * 720, grid_w=720)
     assert dataclasses.asdict(w) == {**dataclasses.asdict(
         ref.hardware_report.workload(300 * 720, grid_w=720)),
-        "tile_planes": 0, "tile_guard_rows": 0}
+        "tile_planes": 0, "tile_guard_rows": 0, "cluster_tiles": ()}
     # the explorer's workload carries the generated kernel's Hopper tile
     assert port.stream_workload().tile_planes == 19
     assert port.stream_workload().tile_guard_rows == 4

@@ -44,6 +44,13 @@ import repro_torch.core.search.strategies
 import repro_torch.core.search.surrogate
 import repro_torch.core.search.study
 import repro_torch.cli
+import repro_torch.core.program
+import repro_torch.apps.advection_diffusion
+from repro_torch.apps import advection_diffusion as ad
+asim = ad.AdvectionDiffusionSimulation(16, 32, device="cpu")
+blob = ad.blob_init(16, 32, device="cpu")
+assert asim.run(blob, 2, fusion="1+1", block_h=8).equal(
+    asim.run(blob, 2, fusion="2", block_h=8))
 from repro_torch.apps import diffusion
 sim = diffusion.DiffusionSimulation(16, 32, device="cpu")
 u0, _ = diffusion.sine_init(16, 32, device="cpu")
