@@ -16,6 +16,13 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    hand-written LBM kernel, both halo launches on a ring shard and on a
    width-extended shard, and a (2, 2) mesh on ``["cuda:0"] * 4`` against
    the single-device run;
+2b. the batch axis (docs/port.md §serve): both periodic launches over
+   ``(B, P, H, W)`` batches, B 1, 3 and 8 of diffusion 2048² (m 4, block
+   32) and of the uLBM PE on the 300×720 cavity (m 4, block 20), B 13 of
+   the uLBM PE at 4096² (past 2^31 floats): every member bitwise equal to
+   its own launch, B 3 and 8 to the plain version, each launch timed
+   (CUDA events) against its bound, diffusion beside ``conv2d`` with
+   N = B;
 3. the main path at real size, with every launch count set to 0 just
    before and read just after: diffusion 8192² (64 steps, m 4), the
    paper's 300×720 LBM grid through ``run_for_point`` at m 4 (and its
@@ -80,8 +87,26 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    --budget 12`` in-process, twice (the repeat measures nothing); (f)
    every cluster core timed against its bound and held to its plain
    version (the rows of the ``kernels`` line). Phase 1 builds and
-   censuses the nine cluster libraries with the other kernels; a spill
-   fails there beyond :data:`SPILL_ALLOWANCE`.
+   censuses the nine cluster libraries with the other kernels; any spill
+   fails there;
+9. simulation serving on the card (docs/port.md §serve), launch counts
+   set to 0 just before and read just after each run below: one
+   ``SimEngine`` with three contexts (uLBM PE 300×720 cavity, diffusion
+   2048² at α 0.2 and 0.1), 8 requests of 64 steps each, Poisson
+   arrivals at 8 per tick, autotune on the first request (budget 4, b ∈
+   {1, 2, 4, 8}): its counts (tuning timings and serving), MLUPS end to
+   end and over the launches' wall, latency percentiles, batch occupancy
+   (a width above 1), live timings and pinned plans; a second engine on
+   the same studies, whose ``serve_traffic`` is the serving path: 0 live
+   timings and as many kernel launches as engine launches; one tick
+   under ``set_sync_debug_mode("error")``; ``python -m repro_torch.cli
+   serve`` in-process, warm; the declarative twin, off the serving path
+   (one full cohort of each context through ``spd_multistep``); every
+   completion and twin member bitwise equal to its own ``run_blocked``
+   on the CPU (the plain version) at the pinned plan; and both launches
+   timed on a full cohort (b members) at the pinned plans, against the
+   plain version and, for diffusion, ``conv2d`` with N = b — the kernels
+   line's batched rows, with the serving path's and the twin's counts.
 
 The last two lines are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -205,12 +230,11 @@ PREFILL_REL_L2 = 5e-2
 DECODE_TOL = dict(rtol=5e-2, atol=5e-2)
 
 
-#: ptxas spill bytes allowed per kernel instantiation, by stream library.
-#: The uLBM program's collide+stream cluster core spills 56 bytes in each
-#: of its two instantiations at the 64-register cap of its 1024-thread
-#: block, and runs no slower per launch than the spill-free PE cluster
-#: (docs/port.md §program); any other spill, or a larger one, fails.
-SPILL_ALLOWANCE = {"spd_uLBM_Program_f0_1": 56}
+#: ptxas spill bytes allowed per kernel instantiation, by stream library:
+#: none. Any spill of any stream kernel fails phase 1 (the uLBM program's
+#: collide+stream cluster, which once spilled 56 bytes at the 64-register
+#: cap of its 1,024-thread block, included; docs/port.md §program).
+SPILL_ALLOWANCE: dict[str, int] = {}
 
 
 def flash_census(build) -> None:
@@ -278,10 +302,401 @@ def stream_census(build, sources: dict) -> None:
                 spills.append(f"{lib} {name} spills {spill} bytes")
             elif spill:
                 allowed.append(f"{lib} {name} {spill} B")
-    phase(f"  spills within their allowance ({SPILL_ALLOWANCE} B per "
-          f"kernel): {allowed or 'none'}")
+    phase(f"  stream kernels' spills within their allowance "
+          f"({SPILL_ALLOWANCE or 'none'}): {allowed or 'none'}")
     if spills:
         fail("; ".join(spills))
+
+
+#: Phase 2b's batches: (app, (H, W), B values, m, block_h); the uLBM PE
+#: 4096² batch of 13 members passes 2^31 floats (its member bases are
+#: 64-bit).
+BATCHES = (("diffusion", (2048, 2048), (1, 3, 8), 4, 32),
+           ("cavity", (300, 720), (1, 3, 8), 4, 20),
+           ("tgv", (4096, 4096), (13,), 4, 16))
+
+
+def batched_launches(hbm: float, fp32: float) -> None:
+    """Phase 2b: both periodic launches over ``(B, P, H, W)`` batches at
+    :data:`BATCHES`. Every member is held bitwise to its own 3-D launch,
+    B 3 and B 8 to the plain version (not B 13: its plain version would
+    gather 13 grids of 4096² tiles), and each launch timed with CUDA
+    events against its bound (``2·B·P·H·W·4`` bytes); diffusion beside
+    four circular pads and ``conv2d`` with N = B. The kernels line's
+    batched rows come from phase 9, at the plans the serving path
+    pins."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.apps import diffusion as dif
+    from repro_torch.apps import lbm
+    from repro_torch.kernels.spd_stream.spd_stream import (
+        spd_multistep,
+        spd_multistep_plain,
+    )
+    from repro_torch.kernels.spd_stream.streaming import (
+        spd_multistep_streamed,
+    )
+
+    phase("phase 2b: the batch axis: each member == its own launch, B 3 and "
+          "B 8 == plain, CUDA events")
+    gen = torch.Generator(device="cpu").manual_seed(19)
+
+    def noisy(x):
+        return x * (1 + 0.01 * torch.randn(x.shape, generator=gen)
+                    .to(x.device))
+
+    for app, (h, w), bs, m, bh in BATCHES:
+        members = None
+        if app == "diffusion":
+            label = f"diffusion {h}x{w}"
+            sim = dif.DiffusionSimulation(h, w)
+            kern, regs = sim.kernel, (0.2,)
+            u0, _ = dif.sine_init(h, w)
+            members = [sim.state(noisy(u0)) for _ in range(max(bs))]
+        elif app == "cavity":
+            label = f"uLBM PE {h}x{w} cavity"
+            sim = lbm.LBMSimulation(lbm.LBMProblem(h, w, u_lid=0.05))
+            kern, regs = sim.stream_kernel(), sim.stream_regs()
+            f, attr = lbm.cavity_init(h, w)
+            members = [sim.stream_state(noisy(f), attr)
+                       for _ in range(max(bs))]
+        else:
+            label = f"uLBM PE {h}x{w} TGV"
+            sim = lbm.LBMSimulation(lbm.LBMProblem(h, w))
+            kern, regs = sim.stream_kernel(), sim.stream_regs()
+            f, attr, _ = lbm.taylor_green_init(h, w)
+        flops = sim.hardware_report.flops
+        prog = kern.program
+        for b in bs:
+            if members is None:
+                # made in place: 13 members of 671 MB at 4096^2
+                batch = torch.empty((b, 10, h, w), device=f.device)
+                for i in range(b):
+                    batch[i, :9] = f * (1 + 0.001 * i)
+                    batch[i, 9] = attr
+                one = [batch[i] for i in range(b)]
+            else:
+                batch = kern.pack_batch(members[:b])
+                one = members[:b]
+            _, p, h, w = batch.shape
+            nbytes, ops = 2 * batch.numel() * 4, flops * m * b * h * w
+            bound = max(nbytes / hbm, ops / fp32) * 1e3
+            lib_ms = None
+            if app == "diffusion":
+                a = 0.2
+                w5 = torch.tensor([[0, a, 0], [a, 1 - 4 * a, a], [0, a, 0]],
+                                  dtype=torch.float32,
+                                  device=batch.device).view(1, 1, 3, 3)
+
+                def conv_steps():
+                    x = batch
+                    for _ in range(m):
+                        x = F.conv2d(F.pad(x, (1, 1, 1, 1),
+                                           mode="circular"), w5)
+                    return x
+
+                lib_ms, _ = cuda_ms(conv_steps)
+            out = torch.empty_like(batch)
+            single = torch.empty_like(batch[0])
+            for fn in (spd_multistep_streamed, spd_multistep):
+                streamed = fn is spd_multistep_streamed
+                bw, db = kern.tile(w, bh, m, double_buffer=streamed,
+                                   streamed=streamed)
+                kw = {"double_buffer": db} if streamed else {}
+                ms, got = cuda_ms(lambda: fn(prog, batch, regs, m=m,
+                                             block_h=bh, block_w=bw,
+                                             out=out, **kw),
+                                  3 if b > 8 else 10)
+                for i in range(b):
+                    if not torch.equal(got[i], fn(prog, one[i], regs, m=m,
+                                                  block_h=bh, block_w=bw,
+                                                  out=single, **kw)):
+                        fail(f"{label} B {b} {fn.__name__}: member {i} != "
+                             "its own launch")
+                tag = f"{label} B {b} {fn.__name__} (block {bh}x{bw}, m {m})"
+                line = (f"  {tag}: {ms:.4f} ms/launch ({ms / b:.4f} per "
+                        f"member), bound {bound:.4f} ms ({bound / ms:.1%}), "
+                        f"every member == its own launch")
+                if b in (3, 8):
+                    plain_ms, want = cuda_ms(
+                        lambda: spd_multistep_plain(prog, batch, regs, m=m,
+                                                    block_h=bh, block_w=bw),
+                        1)
+                    check_equal(f"{tag} vs plain", got, want)
+                    line += f", plain {plain_ms:.2f} ms"
+                    del want
+                if lib_ms is not None:
+                    line += f", library {lib_ms:.4f} ms"
+                phase(line)
+            del batch, out, single, got, one
+            torch.cuda.empty_cache()
+        del members, sim, kern
+
+
+def sim_serving(record) -> None:
+    """Phase 9: the simulation-serving engine on the card (docs/port.md
+    §serve). The launch counts are set to 0 just before, and read just
+    after, each of: the cold engine (its tuning timings and its serving),
+    the warm engine's ``serve_traffic`` (the serving path: the kernels
+    line's streamed rows), the sync-debug tick, the CLI's serve and the
+    declarative twin (the kernels line's declarative rows; the serving
+    path never runs that launch). Each batched row is timed at the plans
+    the serving path pinned for its core, a full cohort of b members."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import cli
+    from repro_torch.core.codegen import StripeProgram
+    from repro_torch.kernels.spd_stream.spd_stream import (
+        spd_multistep,
+        spd_multistep_plain,
+    )
+    from repro_torch.kernels.spd_stream.streaming import (
+        spd_multistep_streamed,
+    )
+    from repro_torch.serve.sim import PlanResolver, SimEngine, SimRequest
+
+    phase("phase 9: simulation serving on the card: uLBM PE 300x720 cavity, "
+          "diffusion 2048^2 alpha 0.2 and 0.1; 8 requests x 64 steps each, "
+          "Poisson arrivals at 8 per tick")
+    t9 = time.perf_counter()
+    mix = cli.serve_mix("cuda", lbm_grid=(300, 720), lbm_init="cavity",
+                        diffusion=((2048, 2048, 0.2), (2048, 2048, 0.1)))
+    tmp = tempfile.mkdtemp(prefix="phase9-")
+
+    def resolver():
+        return PlanResolver(budget=4, b_values=(1, 2, 4, 8),
+                            bh_values=(8, 16, 32, 64),
+                            m_values=(1, 2, 4, 8), study_dir=tmp)
+
+    def group_of(eng, t):
+        _, kern, _, regs = mix[t]
+        return next(g for g in eng.groups.values() if g.kern is kern
+                    and g.ctx.regs == tuple(float(r) for r in regs))
+
+    def zero():
+        spd_multistep_streamed.launches = 0
+        spd_multistep.launches = 0
+        StripeProgram.launches.clear()
+
+    def taken(what: str) -> dict:
+        """``{wrapper[core]: launches}`` since :func:`zero`, printed."""
+        fns = [fn for fn in (spd_multistep_streamed, spd_multistep)
+               if fn.launches]
+        if len(fns) > 1:
+            fail(f"phase 9 {what}: both launches ran in one window")
+        got = {f"{fns[0].__name__}[{k}]": n
+               for k, n in sorted(StripeProgram.launches.items())} \
+            if fns else {}
+        phase(f"  launches {what}: {got}")
+        return got
+
+    runs = {}
+    try:
+        for run in ("cold", "warm"):
+            eng = SimEngine(resolver())
+            torch.cuda.synchronize()
+            zero()
+            done, owner = cli.serve_traffic(eng, mix, requests=8, steps=64,
+                                            rate=8.0, seed=0)
+            counts = taken("on the serving path (the warm engine's "
+                           "serve_traffic)" if run == "warm" else
+                           "by the cold engine (tuning timings and serving)")
+            cells = {rid: mix[t][2].shape[-2] * mix[t][2].shape[-1]
+                     for rid, t in owner.items()}
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                stats = cli.serve_report(eng, done, cells)
+            for line in text.getvalue().splitlines():
+                phase(f"  {run}: {line}")
+            kernel = sum(counts.values())
+            phase(f"  {run}: {kernel} kernel launches ({eng.launches} "
+                  "engine launches, the rest tuning timings)")
+            if stats["completed"] != 24 or stats["submitted"] != 24:
+                fail(f"phase 9 {run}: {stats['completed']}/"
+                     f"{stats['submitted']} completed")
+            if kernel < eng.launches or spd_multistep.launches:
+                fail(f"phase 9 {run}: {eng.launches} engine launches but "
+                     f"{kernel} kernel launches of spd_multistep_streamed: "
+                     "a launch ran the plain version")
+            runs[run] = (eng, done, owner, stats, counts)
+        cold, warm = runs["cold"], runs["warm"]
+        served = warm[4]
+        if max(int(k) for k in cold[3]["occupancy"]) < 2:
+            fail(f"phase 9: no launch wider than 1 ({cold[3]['occupancy']})")
+        if warm[3]["live_timings"] or sum(served.values()) != warm[0].launches:
+            fail(f"phase 9 warm: {warm[3]['live_timings']} live timings, "
+                 f"{sum(served.values())} kernel launches for "
+                 f"{warm[0].launches} engine launches (want 0 and equal)")
+        for key, plan in cold[3]["plans"].items():
+            got = warm[3]["plans"][key]
+            if any(got[k] != plan[k] for k in ("block_h", "m", "b",
+                                                "double_buffer")):
+                fail(f"phase 9: warm plan {got} != cold {plan} ({key})")
+
+        # One tick of a cohort in flight under set_sync_debug_mode: no
+        # admission, no dissolution, one launch and its synchronize.
+        eng = SimEngine(resolver())
+        _, kern, state, regs = mix[0]
+        zero()
+        for i in range(8):
+            eng.submit(SimRequest(rid=i, core=kern, state=state, steps=64,
+                                  regs=regs))
+        eng.step()
+        torch.cuda.synchronize()
+        n = eng.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = eng.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        width = len(group_of(eng, 0).cohort.members)
+        if eng.launches != n + 1 or out or eng.queue:
+            fail("phase 9: the sync-debug tick did not launch one cohort")
+        phase(f"  one tick under set_sync_debug_mode('error'): one launch "
+              f"of width {width}, no host sync but the launch's "
+              "synchronize")
+        eng.run_until_drained()
+        taken("by the sync-debug engine")
+
+        # The CLI's serve on the card, warm from the same studies.
+        text = io.StringIO()
+        zero()
+        with contextlib.redirect_stdout(text):
+            cstats = cli.main(["serve", "--study-dir", tmp,
+                               "--json", os.path.join(tmp, "serve.json")])
+        taken("by the CLI's serve")
+        for line in text.getvalue().splitlines()[-9:]:
+            phase(f"  cli serve: {line}")
+        if cstats["completed"] != 24 or cstats["live_timings"] != 0:
+            fail(f"phase 9 cli serve: {cstats['completed']} completed, "
+                 f"{cstats['live_timings']} live timings")
+
+        # The declarative twin, not on the serving path: one full cohort
+        # of each context (b members) through spd_multistep at the pinned
+        # plan.
+        eng = warm[0]
+        plans = {t: group_of(eng, t).plan for t in range(len(mix))}
+        twins = {}
+        zero()
+        for t, (name, kern, state, regs) in enumerate(mix):
+            batch = kern.pack_batch([state] * plans[t].b)
+            for _ in range(64 // plans[t].m):
+                batch = kern.multistep(batch, regs, m=plans[t].m,
+                                       block_h=plans[t].block_h)
+            twins[t] = batch
+        twin = taken("by the declarative twin (a full cohort of each "
+                     "context at its pinned plan)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # Every completion of both engines, and every member of the twin, ==
+    # its own run_blocked at the pinned plan from the same initial state,
+    # on the CPU: the plain version.
+    for t, (name, kern, state, regs) in enumerate(mix):
+        plan = plans[t]
+        ref = kern.run_blocked(
+            state.cpu(), regs, steps=64, m=plan.m, block_h=plan.block_h,
+            double_buffer=plan.double_buffer).numpy()
+        for i in range(plan.b):
+            if not np.array_equal(twins[t][i].cpu().numpy(), ref):
+                fail(f"phase 9 {name}: declarative twin member {i} != "
+                     "the plain run_blocked")
+        for run, (_, done, owner, _, _) in runs.items():
+            mine = [c for c in done if owner[c.rid] == t]
+            for c in mine:
+                if not np.array_equal(c.state, ref):
+                    fail(f"phase 9 {run}: request {c.rid} != its own "
+                         "run_blocked at the pinned plan")
+            phase(f"  {run} {name}: every completion ({len(mine)}) == its "
+                  f"own run_blocked on the CPU (the plain version) at the "
+                  f"pinned plan (b {plan.b}, m {plan.m}, block_h "
+                  f"{plan.block_h}): bitwise equal")
+    del twins
+
+    # The batched rows: each core's launches at the plans the serving
+    # path pinned for it, a full cohort of b members, beside the plain
+    # version and, for diffusion, m circular pads and conv2d with N = b.
+    cores = {}
+    for t, (name, kern, state, regs) in enumerate(mix):
+        cores.setdefault(kern.program.name, []).append(t)
+    for core, ts in cores.items():
+        for fn, counts in ((spd_multistep_streamed, served),
+                           (spd_multistep, twin)):
+            streamed = fn is spd_multistep_streamed
+            key = f"{fn.__name__}[{core}]"
+            if counts.get(key, 0) < 1:
+                fail(f"kernel {key} was not launched in phase 9")
+            times, labels = [], []
+            # the plans of the core's contexts, once each (the declarative
+            # launch does not prefetch)
+            pinned = {(plans[t].b, plans[t].m, plans[t].block_h,
+                       streamed and plans[t].double_buffer): t for t in ts}
+            for (b, m, bh, db), t in pinned.items():
+                name, kern, state, regs = mix[t]
+                prog = kern.program
+                batch = kern.pack_batch([state] * b)
+                _, _, h, w = batch.shape
+                bw, db = kern.tile(w, bh, m, double_buffer=db,
+                                   streamed=streamed)
+                kw = {"double_buffer": db} if streamed else {}
+                buf = torch.empty_like(batch)
+                ms, got = cuda_ms(lambda: fn(prog, batch, regs, m=m,
+                                             block_h=bh, block_w=bw,
+                                             out=buf, **kw))
+                plain_ms, want = cuda_ms(
+                    lambda: spd_multistep_plain(prog, batch, regs, m=m,
+                                                block_h=bh, block_w=bw), 1)
+                label = (f"{name} B {b} {fn.__name__} (m {m}, block "
+                         f"{bh}x{bw}" + (f", db {db}" if streamed else "")
+                         + ")")
+                check_equal(f"{label} vs plain", got, want)
+                lib_ms = None
+                if core == "Diff2D":
+                    a = regs[0]
+                    w5 = torch.tensor(
+                        [[0, a, 0], [a, 1 - 4 * a, a], [0, a, 0]],
+                        dtype=torch.float32, device=batch.device,
+                    ).view(1, 1, 3, 3)
+
+                    def conv_steps():
+                        x = batch
+                        for _ in range(m):
+                            x = F.conv2d(F.pad(x, (1, 1, 1, 1),
+                                               mode="circular"), w5)
+                        return x
+
+                    lib_ms, _ = cuda_ms(conv_steps)
+                times.append((ms, plain_ms, max_err(got, want),
+                              2 * batch.numel() * 4,
+                              kern.compiled.hardware_report.flops * m * b
+                              * h * w, lib_ms))
+                labels.append(f"B {b}, m {m}, block_h {bh}")
+                phase(f"  {label}: {ms:.4f} ms/launch, plain {plain_ms:.2f} "
+                      "ms" + (f", library {lib_ms:.4f} ms" if lib_ms else ""))
+                del batch, buf, got, want
+            # one row a core; contexts that pinned different plans are
+            # named in it and averaged
+            ms, plain_ms, _, nbytes, ops = (
+                sum(x[i] for x in times) / len(times) for i in range(5))
+            libs = [x[5] for x in times if x[5] is not None]
+            record(f"{key} ({' | '.join(labels)})",
+                   "src/repro_torch/csrc/spd_stream.cuh",
+                   "src/repro/kernels/spd_stream/streaming.py:180"
+                   if streamed
+                   else "src/repro/kernels/spd_stream/spd_stream.py:65",
+                   counts[key], ms, plain_ms, nbytes, ops,
+                   max(x[2] for x in times),
+                   sum(libs) / len(libs) if libs else None)
+    torch.cuda.empty_cache()
+    phase(f"  phase 9: {time.perf_counter() - t9:.1f} s")
 
 
 def lm_serving(cfg) -> dict:
@@ -957,6 +1372,17 @@ def stream_programs(sims, hbm: float, record) -> None:
                        kern.compiled.hardware_report.flops * m
                        * state.shape[1] * state.shape[2], err, lib_ms)
         del buf
+    # The collide+stream cluster's design choices at its main-path launch
+    # (m 1): its printing orders and owner layouts side by side.
+    from repro_torch.kernels.spd_stream import variants as spd_variants
+
+    f01 = tprog.cluster_kernel(0, 1).program
+    res = spd_variants.run(f01, tstate, tregs[tprog.reg_slice(0, 1)], m=1,
+                           block_h=LBM_PLAN[0])
+    for line in spd_variants.report(f"{f01.name} 4096^2 m 1", res):
+        phase(line)
+    if not all(r["bitwise"] for r in res.values()):
+        fail(f"{f01.name}: a variant differs from the shipped launch")
     del tstate, astate, singles
     torch.cuda.empty_cache()
     phase(f"  phase 8: {time.perf_counter() - t8:.1f} s")
@@ -1179,6 +1605,7 @@ def main() -> None:
     phase("  legalizer's shared-memory pricing == kernel's allocation")
     del plain, a, a1, b, c, fb, h, hp, state
     torch.cuda.empty_cache()
+    batched_launches(hbm, fp32)
 
     # ---- 3. the main path at real size --------------------------------
     phase("phase 3: main path at real size")
@@ -1642,6 +2069,7 @@ def main() -> None:
     phase(f"  mesh runs: {json.dumps(mesh)}")
     dse_loop(kind, hbm, fp32)
     stream_programs(psims, hbm, record)
+    sim_serving(record)
     phase(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,9 @@
-"""Console entry points of the port: ``python -m repro_torch.cli explore``.
+"""Console entry points of the port: ``python -m repro_torch.cli explore``
+and ``python -m repro_torch.cli serve``.
 
 The port of the JAX package's ``cli.py`` ``explore_main`` (docs/port.md
-§dse); its ``serve_main`` waits for the simulation service. The
+§dse) and ``serve_main`` (:func:`serve_main`, docs/port.md §serve).
+``explore`` is the
 design-space-exploration walkthrough, end to end: compile SPD cores, sweep
 both target models in batched NumPy (including the device axis ``d``),
 extract Pareto frontiers, and execute GPU lattice points through the
@@ -386,8 +388,235 @@ def explore_main(argv: list[str] | None = None) -> dict:
     return report
 
 
+def _grid(text: str) -> tuple[int, int]:
+    h, _, w = text.lower().partition("x")
+    return int(h), int(w)
+
+
+def serve_mix(device, *, lbm_grid=(32, 32), lbm_init: str = "tgv",
+              diffusion=((32, 32, 0.2), (64, 64, 0.1))) -> list:
+    """The tenant mix of ``serve``: ``[(name, kernel, state, regs)]``, one
+    diffusion tenant per ``(h, w, alpha)`` of ``diffusion``, then the uLBM
+    PE at ``lbm_grid``, periodic Taylor-Green (``"tgv"``, the reference's
+    32×32 tenant) or the lid-driven cavity (``"cavity"``, u_lid 0.05, the
+    paper's 300×720 grid on the card), on ``device``."""
+    from repro_torch.apps import diffusion as dif
+    from repro_torch.apps import lbm
+
+    mix = []
+    for h, w, alpha in diffusion:
+        sim = dif.DiffusionSimulation(h, w, alpha=alpha, device=device)
+        u0, _ = dif.sine_init(h, w, device=device)
+        mix.append((f"diffusion-{h}x{w}-a{alpha:g}", sim.kernel,
+                    sim.state(u0), (sim.alpha,)))
+    h, w = lbm_grid
+    if lbm_init == "cavity":
+        lsim = lbm.LBMSimulation(lbm.LBMProblem(h, w, u_lid=0.05),
+                                 device=device)
+        f0, attr = lbm.cavity_init(h, w, device=device)
+    else:
+        lsim = lbm.LBMSimulation(lbm.LBMProblem(h, w, mode="wrap"),
+                                 device=device)
+        f0, attr, _ = lbm.taylor_green_init(h, w, device=device)
+    mix.append((f"lbm-{lbm_init}-{h}x{w}", lsim.stream_kernel(),
+                lsim.stream_state(f0, attr), lsim.stream_regs()))
+    return mix
+
+
+def serve_traffic(engine, tenants, *, requests: int, steps: int,
+                  rate: float, seed: int = 0):
+    """Drive ``engine`` with ``requests`` jobs per tenant of ``steps``
+    steps each, arriving open loop as a Poisson process of ``rate``
+    expected arrivals per tick (the reference's schedule, from ``seed``),
+    until every accepted job retires. Returns ``(completions, {rid:
+    tenant index})``."""
+    import numpy as np
+
+    from repro_torch.serve.sim import SimRequest
+
+    rng = np.random.default_rng(seed)
+    total = requests * len(tenants)
+    ticks = np.floor(np.cumsum(
+        rng.exponential(1.0 / rate, size=total)
+    )).astype(int)
+    order = rng.permutation(np.repeat(np.arange(len(tenants)), requests))
+    schedule = list(zip(ticks.tolist(), order.tolist()))
+    completions, owner = [], {}
+    rid = i = 0
+    while i < len(schedule) or engine.queue or engine._active_count():
+        while i < len(schedule) and schedule[i][0] <= engine.tick_count:
+            _, core, state, regs = tenants[schedule[i][1]]
+            if engine.submit(SimRequest(rid=rid, core=core, state=state,
+                                        steps=steps, regs=regs)):
+                owner[rid] = schedule[i][1]
+            rid += 1
+            i += 1
+        completions.extend(engine.step())
+    return completions, owner
+
+
+def serve_report(engine, completions, cells: dict) -> dict:
+    """Print the ``serve`` summary of a drained engine and return its
+    stats with the latency percentiles, ``served_s`` (the host wall from
+    the first arrival to the last retirement), ``mlups`` (the lattice
+    updates of the completed requests, ``cells``: rid → H·W, over
+    ``served_s``: the end-to-end served rate, tuning, admission, cohort
+    dissolution and host gaps included) and ``launch_mlups`` (the same
+    updates over the launches' wall alone, a per-layer figure)."""
+    stats = engine.stats()
+    lat = sorted(c.latency_s for c in completions)
+
+    def pct(p):
+        return lat[min(len(lat) - 1, int(p / 100 * len(lat)))] if lat else 0.0
+
+    updates = sum(c.steps * cells[c.rid] for c in completions)
+    served = (max(c.finished_s for c in completions)
+              - min(c.submitted_s for c in completions)
+              if completions else 0.0)
+    wall = stats["launch_wall_s"]
+    stats["served_s"] = served
+    stats["mlups"] = updates / served / 1e6 if served > 0 else 0.0
+    stats["launch_mlups"] = updates / wall / 1e6 if wall > 0 else 0.0
+    stats["latency"] = {"p50_s": pct(50), "p95_s": pct(95),
+                        "p99_s": pct(99)}
+    print(f"{stats['completed']}/{stats['submitted']} completed "
+          f"({stats['rejected']} rejected with backpressure), "
+          f"{stats['launches']} launch(es) in {stats['ticks']} tick(s)")
+    print(f"steady-state {stats['steps_per_s']:.1f} member-steps/s; "
+          f"latency p50 {pct(50) * 1e3:.1f} ms / p95 {pct(95) * 1e3:.1f} "
+          f"ms / p99 {pct(99) * 1e3:.1f} ms")
+    print(f"served {updates} lattice updates in {served:.3f} s from first "
+          f"arrival to drained: {stats['mlups']:.1f} MLUPS end to end "
+          f"({stats['launch_mlups']:.1f} over the launches' wall alone)")
+    print("batch occupancy: " + ", ".join(
+        f"b={k}: {v}" for k, v in stats["occupancy"].items()))
+    print(f"tuning: {stats['live_timings']} live timing(s), "
+          f"{stats['tuning_ticks']} tuning tick(s)"
+          + (" — warm start" if stats["live_timings"] == 0 else ""))
+    for key, plan in sorted(stats["plans"].items()):
+        print(f"  {key}: block_h={plan['block_h']} m={plan['m']} "
+              f"b={plan['b']} db={plan['double_buffer']} "
+              f"[{plan['source']}, {plan['budget_spent']} timed, "
+              f"{plan['replayed']} replayed]")
+    return stats
+
+
+def serve_main(argv: list[str] | None = None) -> dict:
+    """``serve``: the multi-tenant simulation-serving engine (docs/port.md
+    §serve) under open-loop Poisson load. Returns the stats that
+    ``--json`` writes.
+
+    Builds a tenant mix (2-D diffusion at two grids or two alphas, plus
+    the uLBM PE), submits ``--requests`` jobs per tenant at
+    ``--arrival-rate`` expected arrivals per engine tick, and serves them
+    through :class:`repro_torch.serve.sim.SimEngine`: requests sharing a
+    trial context stack along the batch axis ``b``, each context
+    autotunes on first request under a hard ``--budget`` of live
+    measurements, and ``--study-dir`` makes the tuning durable — a second
+    invocation with the same directory warm-starts every plan with zero
+    live timings. ``--device cpu`` serves the reference's mix (diffusion
+    32×32 α 0.2 and 64×64 α 0.1, uLBM 32×32 Taylor-Green; 16 steps;
+    ``b`` ∈ {1, 2, 4}) through the plain versions; on the card (the
+    default) the mix is real-size: diffusion 2048² at α 0.2 and 0.1 (one
+    fingerprint and grid, two contexts) and the uLBM PE on the paper's
+    300×720 cavity, 64 steps, ``b`` ∈ {1, 2, 4, 8}. ``--diffusion-grid``
+    and ``--lbm-grid`` change the grids.
+    """
+    from repro_torch.interop import resolve_device
+    from repro_torch.serve.sim import PlanResolver, SimEngine
+
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.cli serve",
+                                 description=serve_main.__doc__)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the served kernels run: the card, or their "
+                         "plain torch versions on the CPU")
+    ap.add_argument("--tenants", type=int, default=3, metavar="N",
+                    help="tenant contexts in the mix, drawn cyclically "
+                         "from the built-in set (two diffusion tenants, "
+                         "then uLBM); each is a distinct trial context "
+                         "with its own autotuned plan")
+    ap.add_argument("--requests", type=int, default=8, metavar="N",
+                    help="requests submitted per tenant")
+    ap.add_argument("--steps", type=int, default=None, metavar="N",
+                    help="simulation steps per request (default 16 on the "
+                         "CPU, 64 on the card)")
+    ap.add_argument("--arrival-rate", type=float, default=8.0,
+                    metavar="R",
+                    help="open-loop Poisson intensity: expected "
+                         "arrivals per engine tick (saturating rates "
+                         "build the backlog that fills the batch axis)")
+    ap.add_argument("--budget", type=int, default=4, metavar="N",
+                    help="hard cap on live tuning measurements per "
+                         "trial context (autotune-on-first-request; "
+                         "exhaustion falls back to the model's plan)")
+    ap.add_argument("--study-dir", type=str, default=None, metavar="PATH",
+                    help="directory for the per-context tuning studies "
+                         "(default: $REPRO_TORCH_STUDY_DIR or "
+                         "build/repro_torch/studies); reuse it to "
+                         "warm-start with zero live timings")
+    ap.add_argument("--max-queue", type=int, default=64, metavar="N",
+                    help="admission queue bound — submissions beyond it "
+                         "are rejected with backpressure, never dropped "
+                         "silently")
+    ap.add_argument("--diffusion-grid", type=str, default=None,
+                    metavar="HxW,HxW",
+                    help="the two diffusion tenants' grids (default "
+                         "32x32,64x64 on the CPU, 2048x2048,2048x2048 on "
+                         "the card); alphas 0.2 and 0.1")
+    ap.add_argument("--lbm-grid", type=str, default=None, metavar="HxW",
+                    help="the uLBM tenant's grid (default 32x32 on the "
+                         "CPU, 300x720 on the card)")
+    ap.add_argument("--seed", type=int, default=0, metavar="N",
+                    help="RNG seed for the arrival schedule")
+    ap.add_argument("--json", type=str, default=None, metavar="PATH",
+                    help="write the engine stats as JSON")
+    args = ap.parse_args(argv)
+    try:
+        dev = resolve_device(args.device)
+    except RuntimeError as err:
+        ap.error(str(err))
+    card = dev.type == "cuda"
+    steps = args.steps or (64 if card else 16)
+    grids = [_grid(g) for g in (
+        args.diffusion_grid
+        or ("2048x2048,2048x2048" if card else "32x32,64x64")).split(",")]
+    mix = serve_mix(
+        dev, lbm_grid=_grid(args.lbm_grid or ("300x720" if card
+                                               else "32x32")),
+        lbm_init="cavity" if card else "tgv",
+        diffusion=[(h, w, a) for (h, w), a in zip(grids, (0.2, 0.1))],
+    )
+    tenants = [mix[i % len(mix)] for i in range(args.tenants)]
+    engine = SimEngine(
+        PlanResolver(budget=args.budget, study_dir=args.study_dir,
+                     b_values=(1, 2, 4, 8) if card else (1, 2, 4)),
+        max_queue=args.max_queue, device=dev,
+    )
+    total = args.requests * len(tenants)
+    print("=" * 72)
+    print(f"simulation-as-a-service on {dev}: {total} request(s) over "
+          f"{len(tenants)} tenant(s),")
+    print(f"rate {args.arrival_rate}/tick, {steps} steps/request, "
+          f"tuning budget {args.budget}")
+    print("   " + ", ".join(name for name, *_ in tenants))
+    print("=" * 72)
+    completions, owner = serve_traffic(
+        engine, tenants, requests=args.requests, steps=steps,
+        rate=args.arrival_rate, seed=args.seed,
+    )
+    cells = {rid: tenants[t][2].shape[-2] * tenants[t][2].shape[-1]
+             for rid, t in owner.items()}
+    stats = serve_report(engine, completions, cells)
+    stats["device"] = str(dev)
+    if args.json:
+        with open(args.json, "w", encoding="utf-8") as fh:
+            json.dump(stats, fh, indent=2, sort_keys=True)
+        print(f"\n[wrote {args.json}]")
+    return stats
+
+
 #: The subcommands of ``python -m repro_torch.cli``.
-COMMANDS = {"explore": explore_main}
+COMMANDS = {"explore": explore_main, "serve": serve_main}
 
 
 def main(argv: list[str] | None = None):

@@ -995,13 +995,17 @@ class StreamKernel:
 
     Obtained via :meth:`CompiledCore.stream_kernel`. The grid state is a
     stacked ``(P, H, W)`` f32 tensor with one channel per main-stream port
-    (in ``main_in`` order); ``Append_Reg`` values are passed as a scalar
-    tuple. One fused launch (:meth:`__call__`) advances ``m`` time steps
-    per HBM round trip; :meth:`run_for_point` legalizes and runs a DSE
-    design point (docs/pipeline.md §execute). The state tensor's device
-    picks the path: a CUDA tensor launches the generated kernel, a CPU
-    tensor runs its plain version. ``device`` is where :meth:`pack` puts
-    new state; ``"cuda"`` without a card raises.
+    (in ``main_in`` order), or a ``(B, P, H, W)`` batch of B independent
+    simulations (:meth:`pack_batch`) that :meth:`__call__`,
+    :meth:`multistep`, :meth:`run_blocked` and :meth:`run_for_point` run
+    in one launch each, every member bitwise as it runs alone
+    (docs/port.md §serve); ``Append_Reg`` values are passed as a scalar
+    tuple, shared by every member. One fused launch (:meth:`__call__`)
+    advances ``m`` time steps per HBM round trip; :meth:`run_for_point`
+    legalizes and runs a DSE design point (docs/pipeline.md §execute).
+    The state tensor's device picks the path: a CUDA tensor launches the
+    generated kernel, a CPU tensor runs its plain version. ``device`` is
+    where :meth:`pack` puts new state; ``"cuda"`` without a card raises.
     """
 
     def __init__(self, compiled: CompiledCore, device="cuda"):
@@ -1118,8 +1122,8 @@ class StreamKernel:
         single-buffer launch when no prefetching tile fits. Returns
         ``(result, (block_h, m, double_buffer))``.
         """
-        _check_state(state, len(self._ports))
-        _, h, w = state.shape
+        _check_state(state, len(self._ports), batch=True)
+        h, w = state.shape[-2:]
         block_h, m, nsteps, double_buffer = resolve_run_plan(
             h, point, steps, halo=self.halo, dx=1,
         )
@@ -1168,19 +1172,43 @@ class StreamKernel:
             )
         return torch.stack([from_numpy(a, self.device) for a in arrays])
 
+    def pack_batch(self, states: Sequence) -> torch.Tensor:
+        """Stack ``b`` packed ``(P, H, W)`` states (numpy or torch) into a
+        ``(B, P, H, W)`` f32 batch on this kernel's device.
 
-def _check_state(state, nports: int) -> None:
-    """The launches take one f32 ``(P, H, W)`` tensor."""
+        The batch axis groups independent simulations into one launch
+        (docs/port.md §serve); members must share one geometry.
+        """
+        from repro_torch.interop import from_numpy
+
+        if not states:
+            raise CodegenError("pack_batch needs at least one state")
+        arrs = [from_numpy(s, self.device) for s in states]
+        if any(a.shape != arrs[0].shape for a in arrs):
+            raise CodegenError(
+                "pack_batch members must share one (P, H, W) geometry; "
+                f"got {[tuple(a.shape) for a in arrs]}"
+            )
+        return torch.stack(arrs)
+
+
+def _check_state(state, nports: int, *, batch: bool = False) -> None:
+    """The launches take one f32 ``(P, H, W)`` tensor; with ``batch`` (the
+    two periodic launches and the runs over them) a ``(B, P, H, W)``
+    batch of B independent members too (docs/port.md §serve)."""
     if not isinstance(state, torch.Tensor):
         raise TypeError(f"state must be a torch.Tensor, got {type(state)}")
-    if state.dim() == 4:
+    if state.dim() == 4 and not batch:
         raise CodegenError(
-            "batched (B, P, H, W) states are not supported by the port yet; "
-            "launch each member's (P, H, W) state separately"
+            "batched (B, P, H, W) states run through the two periodic "
+            "launches only (the halo launches, the mesh and the reference "
+            "take one (P, H, W) member)"
         )
-    if state.dim() != 3 or state.shape[0] != nports:
+    if state.dim() not in (3, 4) or state.shape[-3] != nports or \
+            0 in state.shape[:-3]:
+        want = "([B,] " if batch else "("
         raise CodegenError(
-            f"state must be ({nports}, H, W), got {tuple(state.shape)}"
+            f"state must be {want}{nports}, H, W), got {tuple(state.shape)}"
         )
     if state.dtype != torch.float32:
         raise TypeError(f"state must be float32, got {state.dtype}")

@@ -670,9 +670,11 @@ def program_run_factory(program: StreamProgram, state, regs):
     protocol (docs/pipeline.md §search): the fusion partition selects the
     cached :class:`ProgramKernel`, everything else parameterizes its
     launch. The state's device picks the path. The factory declines
-    (returns ``None``) a batched plan (``b > 1``: the launches take no
-    batch axis) and a plan where some cluster's tile fits no thread
-    block, so a search never raises mid-run on an unlaunchable plan.
+    (returns ``None``) a batched plan (``b > 1``: as the reference's
+    program back end, ``src/repro/core/program.py``, does — the batch
+    axis is a single core's, docs/port.md §serve) and a plan where some
+    cluster's tile fits no thread block, so a search never raises mid-run
+    on an unlaunchable plan.
     """
     width = int(state.shape[-1])
 

@@ -210,23 +210,32 @@ def kernel_run_factory(kern, state, regs: Sequence):
     ``dx > 1`` runs the ``(d//dx, dx)`` device mesh (DESIGN.md §15) —
     over ``cuda:0 … cuda:d-1``, or the CPU d times for a CPU state (the
     counterpart of forced host devices); ``double_buffer`` selects the
-    streamed launch's buffer protocol (docs/pipeline.md §stream). The
-    factory declines (returns ``None``) a ``b > 1`` plan — the port's
-    launches take no batch axis yet — and a plan with no column tile that
-    fits a thread block's shared memory (docs/port.md §dse), so a search
-    never raises mid-run on an unlaunchable plan.
+    streamed launch's buffer protocol (docs/pipeline.md §stream).
+    ``b > 1`` plans stack ``[state] * b`` into a ``(b, P, H, W)`` batch
+    on the state's device and launch it once per fused step
+    (docs/port.md §serve). The factory declines (returns ``None``) a
+    ``b > 1`` plan with ``d > 1`` — batched sharded geometry does not
+    exist, as in the reference and the model — and a plan with no column
+    tile that fits a thread block's shared memory (docs/port.md §dse), so
+    a search never raises mid-run on an unlaunchable plan.
     """
     width = int(state.shape[-1])
     sharded: dict[tuple[int, int], object] = {}
 
     def run_factory(nsteps: int, m: int, block_h: int, d: int,
                     double_buffer: bool = True, b: int = 1, dx: int = 1):
-        if b > 1:
-            return None  # no batched launch in the port yet
+        if b > 1 and d > 1:
+            return None  # no batched sharded launch (see GPUModel)
         try:
             kern.tile(width, block_h, m, double_buffer=double_buffer)
         except ValueError:
             return None  # no column tile fits shared memory
+        if b > 1:
+            batched = torch.stack([state] * b)
+            return lambda: kern.run_blocked(
+                batched, regs, steps=nsteps, m=m, block_h=block_h,
+                double_buffer=double_buffer,
+            )
         if d == 1:
             return lambda: kern.run_blocked(
                 state, regs, steps=nsteps, m=m, block_h=block_h,

@@ -59,6 +59,23 @@
 // and writes row ranges of a larger guard-extended buffer in place of
 // copies (docs/port.md §distribute).
 //
+// Batch axis (the periodic launches; replaces the reference's leading
+// `*lead` axes, kernels/spd_stream/spd_stream.py and streaming.py): B
+// independent members of P x H x W floats each, one after another, share
+// one core, plan and register vector. B is a tile dimension, not a host
+// loop: the launch has B (H / bh) ntx tiles, tile t is (member, ty, tx),
+// and every load and store of the tile goes through its member's base,
+// member x P ips W floats in, P ops W out, in 64 bits (a 4096^2 uLBM batch
+// passes 2^31 floats by its 13th member); in-plane offsets stay 32-bit. A
+// block splits its first tile once (spd_at) and advances by the grid with
+// a carry per digit (spd_next): no index is divided per tile. The
+// persistent walk crosses members, so a block's prefetch may fetch the
+// next member's first tile. A member's
+// base is 16-byte aligned whenever the 16-byte path is taken (W % 4 ==
+// 0), so tile_vec4's test of the two bases covers every member. A block
+// holds one member's tile: shared memory does not grow with B. The halo
+// launches run one member (B = 1).
+//
 // Bound: HBM bytes per launch >= 4 P (in_rows + out_rows) W B (each input
 // word of a stripe row read once, each output word written once). The
 // design answers it with m fused steps per round trip, 16-byte copies in
@@ -77,6 +94,42 @@
 // registers (the rule of repro_torch StripeProgram.owned).
 __device__ __forceinline__ bool spd_owned(int RC) {
   return SpdCore::REG_STATE && RC <= SPD_OWNER_CELLS;
+}
+
+// Tile t of a launch of `per` tiles a member, ntx a row of tiles: t, its
+// member and its (ty, tx) within the member (no member division for a
+// tile of the first member: every tile of a one-member launch).
+struct SpdAt {
+  int t, member, ty, tx;
+};
+
+__device__ __forceinline__ SpdAt spd_at(int t, int per, int ntx) {
+  SpdAt a;
+  a.t = t;
+  a.member = t < per ? 0 : t / per;
+  const int r = t - a.member * per;
+  a.ty = r / ntx;
+  a.tx = r - a.ty * ntx;
+  return a;
+}
+
+// Tile a + d.t, from d = spd_at(d.t, per, ntx): each digit of d is below
+// its radix (ntx, nty = per / ntx), so each carry is at most one.
+__device__ __forceinline__ SpdAt spd_next(SpdAt a, const SpdAt& d, int nty,
+                                          int ntx) {
+  a.t += d.t;
+  a.member += d.member;
+  a.ty += d.ty;
+  a.tx += d.tx;
+  if (a.tx >= ntx) {
+    a.tx -= ntx;
+    ++a.ty;
+  }
+  if (a.ty >= nty) {
+    a.ty -= nty;
+    ++a.member;
+  }
+  return a;
 }
 
 // Every thread's walks, computed once per kernel: the stripe's load walk
@@ -130,15 +183,16 @@ __device__ __forceinline__ void spd_store(const float* __restrict__ buf,
 }
 
 // The register-state walk of a REG_STATE core over tiles b, b + grid, ...
-// (`issue(t)` copies tile t into `slot` as one cp.async group). GUARD only
-// makes the call from the kernel template dependent, so a core without
-// step_owned never instantiates it.
-template <class Core, bool GUARD, class Issue>
+// from `first` (`issue(a)` copies tile a into `slot` as one cp.async
+// group; `next(a)` is the block's tile after a; members lie `oms` output
+// floats apart). GUARD only makes the call from the kernel template
+// dependent, so a core without step_owned never instantiates it.
+template <class Core, bool GUARD, class Issue, class Next>
 __device__ __forceinline__ void spd_owned_walk(
     float* __restrict__ out, const float* slot, float* mat,
-    const SpdWalks& w, Issue issue, int W, int ops, int bh, int bw, int mh,
-    int mw, int m, int ntx, int ntiles, bool prefetch,
-    const SpdRegs& regs) {
+    const SpdWalks& w, Issue issue, Next next, SpdAt first, long long oms,
+    int W, int ops, int bh, int bw, int mh, int mw, int m, int ntiles,
+    bool prefetch, const SpdRegs& regs) {
   constexpr int N = Core::CPT;
   const int C = w.tile.C, RC = w.tile.RC;
   // (r, c) of each owned cell: the shipped step reads neither (each tap
@@ -159,9 +213,9 @@ __device__ __forceinline__ void spd_owned_walk(
     }
   }
   float s[N][Core::P];
-  if (prefetch && blockIdx.x < ntiles) issue(blockIdx.x);
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    if (!prefetch) issue(tile);
+  if (prefetch && first.t < ntiles) issue(first);
+  for (SpdAt a = first; a.t < ntiles; a = next(a)) {
+    if (!prefetch) issue(a);
     cp_async_wait<0>();
     __syncthreads();
 #pragma unroll
@@ -172,16 +226,19 @@ __device__ __forceinline__ void spd_owned_walk(
       for (int p = 0; p < Core::P; ++p) s[k][p] = slot[p * RC + cell];
     }
     __syncthreads();
-    if (prefetch && tile + (int)gridDim.x < ntiles) issue(tile + gridDim.x);
+    if (prefetch) {
+      const SpdAt n = next(a);
+      if (n.t < ntiles) issue(n);
+    }
     for (int step = 0; step < m; ++step) {
       Core::step_owned(s, own, mat, w.tile, regs);
     }
-    // The center cells out from the registers, (r, c) walked again by
-    // additions; columns at or past W (the ragged last tile) masked.
-    const int by = tile / ntx, bx = tile - by * ntx;
-    float* base = out + ((long long)by * bh - mh) * W +
-                  ((long long)bx * bw - mw);
-    const int cend = min(mw + bw, W - bx * bw + mw);
+    // The center cells out from the registers, through the member's
+    // base, (r, c) walked again by additions; columns at or past W (the
+    // ragged last tile) masked.
+    float* base = out + a.member * oms + ((long long)a.ty * bh - mh) * W +
+                  ((long long)a.tx * bw - mw);
+    const int cend = min(mw + bw, W - a.tx * bw + mw);
     int r = w.tile.r0, c = w.tile.c0;
 #pragma unroll
     for (int k = 0; k < N; ++k) {
@@ -203,8 +260,9 @@ __device__ __forceinline__ void spd_owned_walk(
 }
 
 // GUARD: the input is a guard-block-extended shard (the halo launches).
-// Block b takes tiles b, b + gridDim.x, ... (one tile per block in the
-// declarative launch, whose grid is the tile count). On shared state,
+// Block b takes tiles b, b + gridDim.x, ... of the ntiles (B members of
+// `per` tiles each; one tile per block in the declarative launch, whose
+// grid is the tile count). On shared state,
 // slot `cur` holds the current tile's stripe and is the state buffer of
 // its m steps (with `work` the other ping/pong buffer unless IN_PLACE).
 // With prefetch the ring has 2 slots: the next tile's copies are issued
@@ -215,8 +273,8 @@ template <bool GUARD>
 __global__ void __launch_bounds__(SPD_THREADS, SPD_MIN_BLOCKS)
 spd_multistep_kernel(const float* __restrict__ in, float* __restrict__ out,
                      int H, int W, int ips, int ops, int bh, int bw, int m,
-                     int ntx, int ntiles, int double_buffer, int vec,
-                     SpdRegs regs) {
+                     int ntx, int per, int ntiles, int double_buffer,
+                     int vec, SpdRegs regs) {
   extern __shared__ __align__(16) float smem[];
   const int mh = m * SpdCore::HALO, mw = m * SpdCore::HALO_X;
   const int R = bh + 2 * mh, C = bw + 2 * mw, RC = R * C;
@@ -226,36 +284,56 @@ spd_multistep_kernel(const float* __restrict__ in, float* __restrict__ out,
   float* mat = slot0 + BUFS * SpdCore::P * RC;
   float* slot1 = mat + SpdCore::K * RC;  // only with double_buffer
   const SpdWalks w = spd_walks(R, C, bh, bw, vec);
-  // Issue tile t's copies into buf, as one cp.async group.
-  auto issue_into = [&](int t, float* buf) {
-    const int ty = t / ntx, tx = t - ty * ntx;
-    spd_load<!GUARD>(in, buf, w, vec, H, W, ips, (ty + GUARD) * bh - mh,
-                     tx * bw - mw);
+  // A member's floats in the input and in the output.
+  const long long ims = (long long)SpdCore::P * ips * W;
+  const long long oms = (long long)SpdCore::P * ops * W;
+  // The block's tiles: its first split once, then a stride of the grid
+  // (split only where the block takes a second tile: the declarative
+  // launch's blocks take one).
+  const SpdAt first = spd_at(blockIdx.x, per, ntx);
+  SpdAt stride = {};
+  int nty = 0;
+  if (first.t + (int)gridDim.x < ntiles) {
+    stride = spd_at(gridDim.x, per, ntx);
+    nty = per / ntx;
+  }
+  auto next = [&](SpdAt a) {
+    if (stride.t == 0) {  // the block's only tile
+      a.t = ntiles;
+      return a;
+    }
+    return spd_next(a, stride, nty, ntx);
+  };
+  // Issue tile a's copies into buf, as one cp.async group.
+  auto issue_into = [&](const SpdAt& a, float* buf) {
+    spd_load<!GUARD>(in + a.member * ims, buf, w, vec, H, W, ips,
+                     (a.ty + GUARD) * bh - mh, a.tx * bw - mw);
     cp_async_commit();
   };
   if constexpr (SpdCore::REG_STATE) {
     if (spd_owned(RC)) {
       spd_owned_walk<SpdCore, GUARD>(
-          out, slot0, mat, w, [&](int t) { issue_into(t, slot0); }, W, ops,
-          bh, bw, mh, mw, m, ntx, ntiles, double_buffer != 0, regs);
+          out, slot0, mat, w, [&](const SpdAt& a) { issue_into(a, slot0); },
+          next, first, oms, W, ops, bh, bw, mh, mw, m, ntiles,
+          double_buffer != 0, regs);
       return;
     }
     double_buffer = 0;  // a larger tile: its state in the slot
   }
   float* cur = slot0;
   float* other = slot1;
-  if (double_buffer && blockIdx.x < ntiles) issue_into(blockIdx.x, cur);
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+  if (double_buffer && first.t < ntiles) issue_into(first, cur);
+  for (SpdAt t = first; t.t < ntiles; t = next(t)) {
     if (double_buffer) {
-      const int next = tile + gridDim.x;
-      if (next < ntiles) {
-        issue_into(next, other);
+      const SpdAt n = next(t);
+      if (n.t < ntiles) {
+        issue_into(n, other);
       } else {
         cp_async_commit();  // an empty group keeps the count
       }
       cp_async_wait<1>();
     } else {
-      issue_into(tile, cur);
+      issue_into(t, cur);
       cp_async_wait<0>();
     }
     __syncthreads();
@@ -267,8 +345,8 @@ spd_multistep_kernel(const float* __restrict__ in, float* __restrict__ out,
       a = b;
       b = x;
     }
-    const int by = tile / ntx, bx = tile - by * ntx;
-    spd_store(a, out, w, vec, W, ops, by * bh, bx * bw, bh, mh, mw);
+    spd_store(a, out + t.member * oms, w, vec, W, ops, t.ty * bh, t.tx * bw,
+              bh, mh, mw);
     __syncthreads();
     if (double_buffer) {
       float* x = cur;
@@ -282,7 +360,8 @@ spd_multistep_kernel(const float* __restrict__ in, float* __restrict__ out,
 // the device ordinal whose launch setup is cached, cudaGetLastError() (or
 // -1 for an under-priced shared-memory size) as the return value. H is
 // the input's row count; the output has H rows (periodic launches) or
-// H - 2 bh rows (halo launches).
+// H - 2 bh rows (halo launches). B is the periodic launches' member
+// count; the halo launches take one member.
 
 // Planes of a launch's tile (repro_torch StripeProgram.launch_planes): a
 // REG_STATE core's load slot and K planes, whichever walk the tile takes;
@@ -309,8 +388,8 @@ extern "C" long long spd_smem_bytes(int bh, int bw, int m, int planes) {
 }
 
 template <bool GUARD>
-static int spd_launch(const float* in, float* out, int H, int W, int ips,
-                      int ops, int bh, int bw, int m, int streamed,
+static int spd_launch(const float* in, float* out, int B, int H, int W,
+                      int ips, int ops, int bh, int bw, int m, int streamed,
                       int double_buffer, SpdRegs regs, long long smem,
                       int dev, void* stream) {
   if (!streamed) double_buffer = 0;
@@ -322,7 +401,12 @@ static int spd_launch(const float* in, float* out, int H, int W, int ips,
   if (bh < 1 || out_h < bh || out_h % bh) return (int)cudaErrorInvalidValue;
   const void* fn = (const void*)spd_multistep_kernel<GUARD>;
   const int ntx = (W + bw - 1) / bw;
-  const int ntiles = (out_h / bh) * ntx;
+  const int per = (out_h / bh) * ntx;
+  // tile indices (and a block's next, t + grid <= 2 ntiles) fit an int
+  if (B < 1 || (long long)B * per > 0x3fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int ntiles = B * per;
   int grid = ntiles;
   int e = launch_setup(fn, dev, smem, SPD_THREADS, streamed ? &grid : nullptr);
   if (e) return e;
@@ -330,39 +414,39 @@ static int spd_launch(const float* in, float* out, int H, int W, int ips,
   const int vec = tile_vec4(in, out, W, bw, m * SpdCore::HALO_X);
   spd_multistep_kernel<GUARD><<<grid, SPD_THREADS, (size_t)smem,
                                 (cudaStream_t)stream>>>(
-      in, out, H, W, ips, ops, bh, bw, m, ntx, ntiles, double_buffer, vec,
-      regs);
+      in, out, H, W, ips, ops, bh, bw, m, ntx, per, ntiles, double_buffer,
+      vec, regs);
   return (int)cudaGetLastError();
 }
 
-extern "C" int spd_multistep(const float* in, float* out, int H, int W,
-                             int bh, int bw, int m, SpdRegs regs,
+extern "C" int spd_multistep(const float* in, float* out, int B, int H,
+                             int W, int bh, int bw, int m, SpdRegs regs,
                              long long smem, int dev, void* stream) {
-  return spd_launch<false>(in, out, H, W, H, H, bh, bw, m, 0, 0, regs, smem,
-                           dev, stream);
+  return spd_launch<false>(in, out, B, H, W, H, H, bh, bw, m, 0, 0, regs,
+                           smem, dev, stream);
 }
 
-extern "C" int spd_multistep_streamed(const float* in, float* out, int H,
-                                      int W, int bh, int bw, int m,
+extern "C" int spd_multistep_streamed(const float* in, float* out, int B,
+                                      int H, int W, int bh, int bw, int m,
                                       int double_buffer, SpdRegs regs,
                                       long long smem, int dev,
                                       void* stream) {
-  return spd_launch<false>(in, out, H, W, H, H, bh, bw, m, 1, double_buffer,
-                           regs, smem, dev, stream);
+  return spd_launch<false>(in, out, B, H, W, H, H, bh, bw, m, 1,
+                           double_buffer, regs, smem, dev, stream);
 }
 
 extern "C" int spd_multistep_halo(const float* in, float* out, int rows,
                                   int W, int ips, int ops, int bh, int bw,
                                   int m, SpdRegs regs, long long smem,
                                   int dev, void* stream) {
-  return spd_launch<true>(in, out, rows, W, ips, ops, bh, bw, m, 0, 0, regs,
-                          smem, dev, stream);
+  return spd_launch<true>(in, out, 1, rows, W, ips, ops, bh, bw, m, 0, 0,
+                          regs, smem, dev, stream);
 }
 
 extern "C" int spd_multistep_halo_streamed(
     const float* in, float* out, int rows, int W, int ips, int ops, int bh,
     int bw, int m, int double_buffer, SpdRegs regs, long long smem, int dev,
     void* stream) {
-  return spd_launch<true>(in, out, rows, W, ips, ops, bh, bw, m, 1,
+  return spd_launch<true>(in, out, 1, rows, W, ips, ops, bh, bw, m, 1,
                           double_buffer, regs, smem, dev, stream);
 }

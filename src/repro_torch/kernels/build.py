@@ -186,11 +186,11 @@ def load_spd_library(program) -> ctypes.CDLL:
     """Build and bind a generated stream kernel's four launches (see
     ``csrc/spd_stream.cuh``)."""
     lib = load(f"spd_{program.name}", program.cuda_source())
-    lib.spd_multistep.argtypes = [_P, _P, _I, _I, _I, _I, _I, SpdRegs, _LL,
-                                  _I, _P]
+    lib.spd_multistep.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, SpdRegs,
+                                  _LL, _I, _P]
     lib.spd_multistep.restype = _I
     lib.spd_multistep_streamed.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I,
-                                           SpdRegs, _LL, _I, _P]
+                                           _I, SpdRegs, _LL, _I, _P]
     lib.spd_multistep_streamed.restype = _I
     lib.spd_multistep_halo.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I,
                                        SpdRegs, _LL, _I, _P]

@@ -25,6 +25,8 @@ def stream_run_blocked(program: StripeProgram, state, regs, *, steps: int,
 
     On the card the launches ping-pong between two preallocated state
     tensors (a launch never writes in place); the input is not modified.
+    A ``(B, P, H, W)`` batch ping-pongs two batches, one launch a fused
+    step for every member.
     """
     if steps % m:
         raise ValueError(f"steps={steps} must be a multiple of m={m}")

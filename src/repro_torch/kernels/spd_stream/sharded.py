@@ -34,7 +34,7 @@ CUDA tensor it launches the kernel or raises. The streamed twin
 
 from __future__ import annotations
 
-from repro_torch.core.codegen import StripeProgram
+from repro_torch.core.codegen import StripeProgram, _check_state
 
 from .spd_stream import (
     check_halo,
@@ -53,8 +53,10 @@ def spd_multistep_halo(program: StripeProgram, ext, regs, *, m: int,
     ``ext`` is ``(P, local_h + 2·block_h, W)``; returns the advanced
     ``(P, local_h, W)`` shard (into ``out`` when given). A core with no
     y reach (``m·halo == 0``) needs no guard blocks and takes the
-    periodic :func:`spd_multistep`.
+    periodic :func:`spd_multistep`. A shard is one member: a ``(B, P, H,
+    W)`` batch raises.
     """
+    _check_state(ext, program.P)
     if m * program.halo == 0:
         return spd_multistep(program, ext, regs, m=m, block_h=block_h,
                              block_w=block_w, out=out)

@@ -22,6 +22,12 @@ interpreter of the same IR over the same tiles; on a CUDA tensor it
 launches the kernel or raises. The streamed launch is held to this one
 bit for bit.
 
+Both periodic launches take a ``(B, P, H, W)`` batch too (the reference's
+leading axes, ``(*lead, block_h, W)`` blocks): B independent members in
+one launch of ``B·(H / block_h)·ceil(W / block_w)`` tiles, each member
+bitwise as it runs alone, one count on the wrapper (docs/port.md §serve).
+The bound is then ``2·B·P·H·W·4`` bytes.
+
 :func:`launch` is the one body of the four launches — periodic or over a
 guard-block-extended shard (``guard``), declarative or streamed — as the
 kernel source is one template: the contract checks, the column tile, the
@@ -47,10 +53,10 @@ from repro_torch.core.codegen import (
 
 
 def check_plan(program: StripeProgram, state, m: int, block_h: int) -> None:
-    """The launch contract of both periodic launches (ValueError
-    otherwise)."""
-    _check_state(state, program.P)
-    h = state.shape[1]
+    """The launch contract of both periodic launches, ``(P, H, W)`` or
+    ``(B, P, H, W)`` (ValueError otherwise)."""
+    _check_state(state, program.P, batch=True)
+    h = state.shape[-2]
     if m < 1:
         raise ValueError(f"m={m} must be >= 1")
     if h % block_h:
@@ -102,11 +108,12 @@ def _span(t) -> tuple[int, int]:
 def cuda_args(x, out, out_rows: int | None = None):
     """Device checks of a launch; returns the output tensor.
 
-    A periodic launch (``out_rows=None``) takes a contiguous ``x`` and
-    writes a tensor like it. A halo launch writes ``(P, out_rows, W)``;
-    there ``x`` and ``out`` need contiguous rows only, each plane a whole
-    number of rows apart, so each may be a row range of a larger ``(P,
-    rows', W)`` buffer (the kernels take each plane stride in rows).
+    A periodic launch (``out_rows=None``) takes a contiguous ``x``, one
+    member or a batch, and writes a tensor like it. A halo launch writes
+    ``(P, out_rows, W)``; there ``x`` and ``out`` need contiguous rows
+    only, each plane a whole number of rows apart, so each may be a row
+    range of a larger ``(P, rows', W)`` buffer (the kernels take each
+    plane stride in rows).
     """
     if x.device.type != "cuda":
         raise RuntimeError(
@@ -149,7 +156,13 @@ def deliver(res, out):
 def spd_multistep_plain(program: StripeProgram, state, regs, *, m: int,
                         block_h: int, block_w: int):
     """The kernel's plain version: the IR interpreted with torch over the
-    launch's ``(T, P, R, C)`` tiles, m steps, centers reassembled."""
+    launch's ``(T, P, R, C)`` tiles, m steps, centers reassembled; a
+    ``(B, P, H, W)`` batch member by member, each member the plain
+    version of its ``(P, H, W)`` state."""
+    if state.dim() == 4:
+        return torch.stack([
+            spd_multistep_plain(program, s, regs, m=m, block_h=block_h,
+                                block_w=block_w) for s in state])
     _, h, w = state.shape
     mh, mw = m * program.halo, m * program.halo_x
     tiles = gather_tiles(state, block_h, block_w, mh, mw)
@@ -216,7 +229,9 @@ def launch(fn, program: StripeProgram, x, regs, *, m: int, block_h: int,
     leaves room for two blocks on an SM — a streamed launch prefetching
     when that tile fits at that width and, for a register-state core,
     when the owners hold its stripe — and the one-block rule only when no
-    tile does.
+    tile does. The tile is one member's: a periodic launch of a ``(B,
+    P, H, W)`` batch has B times the tiles, each block's shared memory
+    that of one member's tile.
     """
     streamed = fn.__name__.endswith("_streamed")
     if guard:
@@ -224,7 +239,7 @@ def launch(fn, program: StripeProgram, x, regs, *, m: int, block_h: int,
     else:
         check_plan(program, x, m, block_h)
         out_rows = None
-    _, rows, w = x.shape
+    rows, w = x.shape[-2:]
     block_w, double_buffer = program.tile(w, block_h, m, block_w=block_w,
                                           double_buffer=double_buffer,
                                           streamed=streamed)
@@ -237,9 +252,11 @@ def launch(fn, program: StripeProgram, x, regs, *, m: int, block_h: int,
     out = cuda_args(x, out, out_rows)
     smem = program.smem_bytes(block_h, block_w, m, streamed=streamed,
                               double_buffer=double_buffer)
-    args = [x.data_ptr(), out.data_ptr(), rows, w]
+    args = [x.data_ptr(), out.data_ptr()]
     if guard:
-        args += [plane_rows(x), plane_rows(out)]
+        args += [rows, w, plane_rows(x), plane_rows(out)]
+    else:
+        args += [x.shape[0] if x.dim() == 4 else 1, rows, w]
     args += [block_h, block_w, m]
     if streamed:
         args.append(int(double_buffer))
@@ -256,7 +273,9 @@ def spd_multistep(program: StripeProgram, state, regs, *, m: int,
                   block_h: int, block_w: int | None = None, out=None):
     """Fused m-step launch, one thread block per tile.
 
-    ``regs`` are the Append_Reg values (floats, in ``core.regs`` order).
+    ``state`` is ``(P, H, W)`` or a ``(B, P, H, W)`` batch (one launch of
+    every member's tiles). ``regs`` are the Append_Reg values (floats, in
+    ``core.regs`` order), shared by every member.
     ``block_w=None`` takes the widest column tile whose two-buffer tile
     fits the block's shared memory.
     """

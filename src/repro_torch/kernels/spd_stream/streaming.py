@@ -30,7 +30,7 @@ the twin of :func:`repro_torch.kernels.spd_stream.sharded
 
 from __future__ import annotations
 
-from repro_torch.core.codegen import StripeProgram
+from repro_torch.core.codegen import StripeProgram, _check_state
 
 from .spd_stream import launch
 
@@ -40,7 +40,10 @@ def spd_multistep_streamed(program: StripeProgram, state, regs, *, m: int,
                            double_buffer: bool = True, out=None):
     """Streamed fused m-step launch, periodic in y and x.
 
-    Same contract and bitwise the same result as
+    ``state`` is ``(P, H, W)`` or a ``(B, P, H, W)`` batch: the persistent
+    blocks walk every member's tiles in one launch, the prefetch crossing
+    from one member to the next. Same contract and bitwise the same
+    result as
     :func:`repro_torch.kernels.spd_stream.spd_stream.spd_multistep`.
     With ``block_w=None``, ``double_buffer`` drops to the single-buffer
     protocol when the widest tile with room for two blocks per SM fits
@@ -71,8 +74,9 @@ def spd_multistep_halo_streamed(program: StripeProgram, ext, regs, *,
     tiles with the same ``cp.async`` prefetch as
     :func:`spd_multistep_streamed`. Same contract, errors and bits as the
     declarative launch; ``m·halo == 0`` takes the periodic streamed
-    launch.
+    launch. A shard is one member: a ``(B, P, H, W)`` batch raises.
     """
+    _check_state(ext, program.P)
     if m * program.halo == 0:
         return spd_multistep_streamed(
             program, ext, regs, m=m, block_h=block_h, block_w=block_w,

@@ -1,7 +1,8 @@
 """Time design choices of the generated SPD stream kernel side by side.
 
 On the main path's launches (the uLBM PE at 4096², m 4, block_h 16;
-diffusion at 8192², m 4, block_h 32), the shipped plan
+diffusion at 8192², m 4, block_h 32; the uLBM program's collide+stream
+cluster at 4096², m 1, block_h 16), the shipped plan
 (:meth:`StripeProgram.tile`) beside the variants that undo one of its
 choices:
 
@@ -27,8 +28,8 @@ Variants that do not apply to a core (the register-state ones to
 diffusion) or whose plan and source coincide with an earlier one are
 left out. Every variant is held bitwise to the shipped launch's output,
 and timed with CUDA events after a warm-up over three rounds, every
-second in reverse order. ``chip_smoke.py`` phase 5 runs :func:`run`;
-alone, on the machine with the card::
+second in reverse order. ``chip_smoke.py`` phases 5 and 8 run
+:func:`run`; alone, on the machine with the card::
 
     PYTHONPATH=src python -m repro_torch.kernels.spd_stream.variants
 """
@@ -140,7 +141,7 @@ def run(program, state, regs, *, m: int, block_h: int, rounds: int = 3,
     for name, (entry, bw, db, smem) in plans.items():
         lib = libs.get(name, lib0)
         out = outs[name] = torch.empty_like(state)
-        args = [h, w, block_h, bw, m] + (
+        args = [1, h, w, block_h, bw, m] + (
             [int(db)] if entry.endswith("_streamed") else [])
 
         def launch(fn=getattr(lib, entry), args=args, smem=smem, out=out,
@@ -192,6 +193,12 @@ def main() -> None:
     for line in report("uLBM PE 4096^2 m 4", run(
             kern.program, sim.stream_state(f, attr), sim.stream_regs(), m=4,
             block_h=16)):
+        print(line)
+    prog = sim.program()
+    f01 = prog.cluster_kernel(0, 1).program
+    for line in report(f"{f01.name} 4096^2 m 1", run(
+            f01, sim.stream_state(f, attr),
+            sim.stream_regs()[prog.reg_slice(0, 1)], m=1, block_h=16)):
         print(line)
     big = dif.DiffusionSimulation(8192, 8192)
     for line in report("diffusion 8192^2 m 4", run(

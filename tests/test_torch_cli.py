@@ -50,13 +50,15 @@ def test_no_execute_matches_the_reference(tmp_path, capsys):
 
 
 def test_without_a_card_cuda_is_refused(capsys):
-    """The default device is the card: without one the command exits
-    non-zero with the port's message, with or without ``--program``."""
+    """The default device is the card: without one ``explore`` (with or
+    without ``--program``) and ``serve`` exit non-zero with the port's
+    message."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device runs")
-    for extra in ([], ["--program"]):
+    for argv in (["explore", "--no-execute"],
+                 ["explore", "--no-execute", "--program"], ["serve"]):
         with pytest.raises(SystemExit) as exc:
-            cli.main(["explore", "--no-execute", *extra])
+            cli.main(argv)
         assert exc.value.code != 0
         assert "no CUDA device" in capsys.readouterr().err
 
@@ -113,3 +115,40 @@ def test_usage_without_a_subcommand(capsys):
         cli.main([])
     assert exc.value.code == 2
     assert "explore" in capsys.readouterr().err
+
+
+def test_serve_on_the_cpu_writes_its_json(tmp_path, capsys):
+    """``serve --device cpu``: the reference's tenant mix, every request
+    retired, the reference's stats keys (plus the served wall, the
+    end-to-end and launch-wall MLUPS and ``device``) in the JSON; a
+    second run on the same study directory takes 0 live timings and pins
+    the same plans."""
+    def serve(name):
+        path = tmp_path / name
+        stats = cli.main(["serve", "--device", "cpu", "--requests", "2",
+                          "--steps", "8", "--study-dir",
+                          str(tmp_path / "studies"), "--json", str(path)])
+        return stats, json.loads(path.read_text()), capsys.readouterr().out
+
+    stats, got, out = serve("cold.json")
+    assert set(got) == {
+        "ticks", "submitted", "rejected", "completed", "launches",
+        "member_steps", "launch_wall_s", "steps_per_s", "occupancy",
+        "tuning_ticks", "live_timings", "plans", "latency", "served_s",
+        "mlups", "launch_mlups", "device"}
+    assert got["completed"] == got["submitted"] == 6
+    assert got["rejected"] == 0 and got["device"] == "cpu"
+    assert set(got["latency"]) == {"p50_s", "p95_s", "p99_s"}
+    assert 0 < got["live_timings"] <= 12 and len(got["plans"]) == 3
+    assert got["member_steps"] == 6 * 8 and stats["plans"] == got["plans"]
+    # the end-to-end span holds every launch
+    assert got["served_s"] >= got["launch_wall_s"] > 0
+    assert "diffusion-32x32-a0.2, diffusion-64x64-a0.1, lbm-tgv-32x32" in out
+    assert "batch occupancy: b=" in out and "MLUPS end to end" in out
+    _, warm, out = serve("warm.json")
+    assert warm["live_timings"] == 0 and "warm start" in out
+    for key, plan in got["plans"].items():
+        assert {k: v for k, v in warm["plans"][key].items()
+                if k not in ("budget_spent", "replayed")} == \
+            {k: v for k, v in plan.items()
+             if k not in ("budget_spent", "replayed")}

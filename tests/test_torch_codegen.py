@@ -144,8 +144,25 @@ def test_kernel_rejects_illegal_plans_and_batches(dif_pair):
         tsim.kernel(state, (0.2,), m=16, block_h=8)  # m*halo > block_h
     with pytest.raises(CodegenError):
         tsim.kernel(state, (), m=1, block_h=8)  # wrong register count
+    # a batch runs through the periodic launches (test_torch_sim.py); the
+    # halo launches, the mesh and the reference take one member, and a
+    # batch of the wrong port count or rank is refused
+    from repro_torch.kernels.spd_stream.sharded import spd_multistep_halo
+
+    batch = torch.stack([state, state])
     with pytest.raises(CodegenError, match="batched"):
-        tsim.kernel(state[None], (0.2,), m=1, block_h=8)
+        spd_multistep_halo(tsim.kernel.program, batch, (0.2,), m=1,
+                           block_h=8)
+    with pytest.raises(CodegenError, match="batched"):
+        tsim.kernel.reference(batch, (0.2,), m=1)
+    with pytest.raises(CodegenError, match="batched"):
+        tsim.kernel.sharded(2, devices=["cpu"] * 2).run_blocked(
+            batch, (0.2,), steps=1, m=1, block_h=8)
+    with pytest.raises(CodegenError):
+        tsim.kernel(batch[None], (0.2,), m=1, block_h=8)
+    with pytest.raises(CodegenError):
+        tsim.kernel(torch.cat([batch, batch], dim=1), (0.2,), m=1,
+                    block_h=8)
 
 
 def test_x_offsets_beyond_row_width_wrap():
@@ -379,3 +396,24 @@ def test_stencil_chains_beyond_the_halo_are_refused():
             EQU N0, b = a * 2.0;
             HDL S2, 0, (v) = Stencil2D(b), dy=0, dx=-1, W=8, mode=wrap;
         """)
+
+
+def test_pack_batch_stacks_and_refuses(lbm_pair):
+    """``pack_batch`` stacks numpy or torch ``(P, H, W)`` states into a
+    ``(B, P, H, W)`` f32 batch on the kernel's device; an empty list or
+    mixed geometries raise, as in the reference."""
+    kern = lbm_pair[0]
+    f, attr, _ = _lbm_fields("tgv")
+    states = [np.concatenate([f * np.float32(1 + 0.001 * i),
+                              attr[None].astype(np.float32)])
+              for i in range(3)]
+    batch = kern.pack_batch([states[0], torch.from_numpy(states[1]),
+                             states[2]])
+    assert batch.shape == (3, 10, 16, 128) and batch.dtype == torch.float32
+    assert batch.device == kern.device
+    for i, s in enumerate(states):
+        assert np.array_equal(batch[i].numpy(), s)
+    with pytest.raises(CodegenError, match="at least one"):
+        kern.pack_batch([])
+    with pytest.raises(CodegenError, match="geometry"):
+        kern.pack_batch([states[0], states[1][:, :8]])

@@ -320,6 +320,97 @@ def test_mesh_on_one_card_equals_single(card, case):
                                         block_h=8))
 
 
+#: (H, W, block_h, block_w, m) of batched launches: the 16-byte path,
+#: the 4-byte path (a width that is not a multiple of 4: member bases off
+#: 16 bytes), a ragged last column tile, and fewer tiles a member than
+#: persistent blocks (the walk crosses members).
+BATCH_CASES = {
+    "vec4": (64, 96, 16, 32, 4),
+    "width98": (32, 98, 8, 32, 4),
+    "ragged": (64, 104, 16, 32, 2),
+    "few_tiles": (16, 32, 16, 32, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(BATCH_CASES))
+@pytest.mark.parametrize("app", ["diffusion", "ulbm"])
+def test_batched_launches_equal_members(card, app, case):
+    """A (B, P, H, W) batch runs in one launch of each periodic wrapper;
+    member i is bitwise its own 3-D launch, and B 3 equals its plain
+    version."""
+    from repro_torch.kernels.spd_stream import (
+        spd_multistep,
+        spd_multistep_streamed,
+    )
+
+    h, w, bh, bw, m = BATCH_CASES[case]
+    if app == "diffusion":
+        sim = dif.DiffusionSimulation(h, w)
+        kern, regs = sim.kernel, (0.2,)
+        members = [sim.state(_noisy(dif.sine_init(h, w)[0], i))
+                   for i in range(3)]
+    else:
+        sim, f, attr, regs = _pe(h, w)
+        kern = sim.stream_kernel()
+        members = [sim.stream_state(_noisy(f, i), attr) for i in range(3)]
+    prog = kern.program
+    for b in (1, 3):
+        batch = kern.pack_batch(members[:b])
+        want = spd_multistep_plain(prog, batch, regs, m=m, block_h=bh,
+                                   block_w=bw)
+        for fn, kw in ((spd_multistep_streamed, {"double_buffer": True}),
+                       (spd_multistep_streamed, {"double_buffer": False}),
+                       (spd_multistep, {})):
+            n = fn.launches
+            got = fn(prog, batch, regs, m=m, block_h=bh, block_w=bw, **kw)
+            assert fn.launches == n + 1  # one launch for the batch
+            assert torch.equal(got, want)
+            for i in range(b):
+                assert torch.equal(got[i], fn(prog, members[i], regs, m=m,
+                                              block_h=bh, block_w=bw, **kw))
+
+
+def test_batched_run_blocked_and_engine_on_the_card(card):
+    """run_blocked and run_for_point over a batch equal each member's own
+    run; a SimEngine on the card launches every cohort, width 1 included,
+    through the kernel (a host state is moved to the card at admission)."""
+    import numpy as np
+
+    from repro_torch.kernels.spd_stream import spd_multistep_streamed
+    from repro_torch.serve.sim import PlanResolver, SimEngine, SimRequest
+
+    sim = dif.DiffusionSimulation(64, 96)
+    u0, _ = dif.sine_init(64, 96)
+    members = [sim.state(_noisy(u0, i)) for i in range(3)]
+    batch = sim.kernel.pack_batch(members)
+    got = sim.kernel.run_blocked(batch, (0.2,), steps=8, m=4, block_h=16)
+    for i, s in enumerate(members):
+        assert torch.equal(got[i], sim.kernel.run_blocked(
+            s, (0.2,), steps=8, m=4, block_h=16))
+
+    # two requests from the host: one launch of width 2, then the
+    # survivor alone (back from the host after the cohort dissolved)
+    eng = SimEngine(PlanResolver(budget=0, b_values=(2,), bh_values=(16,),
+                                 m_values=(2,)))
+    n = spd_multistep_streamed.launches
+    for rid, steps in ((0, 2), (1, 6)):
+        eng.submit(SimRequest(rid=rid, core=sim.kernel,
+                              state=members[rid].cpu().numpy(), steps=steps,
+                              regs=(0.2,)))
+    done = {c.rid: c for c in eng.run_until_drained()}
+    assert eng.stats()["occupancy"] == {"1": 2, "2": 1}
+    assert spd_multistep_streamed.launches - n == eng.launches == 3
+    for rid, steps in ((0, 2), (1, 6)):
+        want = sim.kernel.run_blocked(members[rid], (0.2,), steps=steps,
+                                      m=2, block_h=16)
+        assert isinstance(done[rid].state, np.ndarray)
+        assert np.array_equal(done[rid].state, want.cpu().numpy())
+    with pytest.raises(ValueError, match="given to an engine on cpu"):
+        SimEngine(device="cpu").submit(SimRequest(
+            rid=2, core=sim.kernel, state=members[0], steps=2,
+            regs=(0.2,)))
+
+
 def test_launch_and_mesh_device_checks(card):
     """A halo launch writes into a row range of a larger buffer and
     refuses an output that overlaps its input; a CUDA state given to a

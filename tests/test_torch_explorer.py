@@ -119,13 +119,16 @@ def test_run_factory_output_equals_jax_run_blocked(apps, app):
 
 def test_run_factory_shards_on_the_cpu_and_declines(apps):
     """d > 1 runs on the CPU d times and equals one device bitwise; a
-    batch axis and a plan no tile fits are declined, never raised."""
+    batch axis runs b copies of the state in one batch, each member equal
+    to one run; a batch on a mesh and a plan no tile fits are declined,
+    never raised."""
     kern, state, *_ = apps["diffusion"]
     factory = kernel_run_factory(kern, state, (0.2,))
     one = factory(4, 2, 16, 1, True)()
     assert torch.equal(factory(4, 2, 16, 2, True)(), one)
     assert torch.equal(factory(4, 2, 16, 4, True, dx=2)(), one)
-    assert factory(4, 2, 16, 1, True, b=2) is None
+    assert torch.equal(factory(4, 2, 16, 1, True, b=2)(),
+                       torch.stack([one, one]))
     assert factory(4, 2, 16, 2, False, b=4) is None
     assert factory(200, 100, 64, 1, True) is None  # (64+200)·2·201·4 B
 

@@ -46,6 +46,7 @@ import repro_torch.core.search.study
 import repro_torch.cli
 import repro_torch.core.program
 import repro_torch.apps.advection_diffusion
+import repro_torch.serve.sim
 from repro_torch.apps import advection_diffusion as ad
 asim = ad.AdvectionDiffusionSimulation(16, 32, device="cpu")
 blob = ad.blob_init(16, 32, device="cpu")
@@ -61,6 +62,14 @@ ex = sim.explorer()
 res = ex.search(ex.sweep_gpu(bh_values=(8,), m_values=(1, 2), d_values=(1,)),
                 sim.state(u0), (0.2,), reps=1, calibrate=False)
 assert res.executed and res.best.interpret
+from repro_torch.serve.sim import PlanResolver, SimEngine, SimRequest
+eng = SimEngine(PlanResolver(budget=0, b_values=(2,), bh_values=(8,),
+                             m_values=(2,)), device="cpu")
+for rid in range(2):
+    eng.submit(SimRequest(rid=rid, core=sim.kernel, state=sim.state(u0),
+                          steps=4, regs=(0.2,)))
+assert [c.steps for c in eng.run_until_drained()] == [4, 4]
+assert eng.stats()["occupancy"] == {"2": 2}
 import torch
 from repro_torch.configs import get_arch
 from repro_torch.models import registry

@@ -354,3 +354,23 @@ def test_search_runs_the_plain_kernel_and_dedupes(tmp_path):
     assert [e.cached for e in again.executed] == [True] * len(again.executed)
     assert all(e.interpret and np.isfinite(e.measured_gflops)
                for e in first.executed)
+
+
+def test_kernel_run_factory_runs_batched_plans():
+    """``b > 1`` stacks ``[state] * b`` and launches once per fused step;
+    ``b > 1`` with ``d > 1`` is declined, as in the reference."""
+    from repro_torch.apps import diffusion as tdif
+    from repro_torch.core.search import kernel_run_factory
+
+    kern = tdif.DiffusionSimulation(32, 32, device="cpu").kernel
+    regs = (0.2,)
+    rng = np.random.default_rng(0)
+    state = torch.from_numpy(
+        rng.standard_normal((1, 32, 32)).astype(np.float32))
+    rf = kernel_run_factory(kern, state, regs)
+    out = rf(8, 4, 8, 1, True, b=2)()
+    alone = kern.run_blocked(state, regs, steps=8, m=4, block_h=8)
+    assert out.shape == (2, 1, 32, 32)
+    assert torch.equal(out[0], alone) and torch.equal(out[1], alone)
+    assert rf(8, 4, 8, 2, True, b=2) is None
+    assert rf(8, 4, 8, 2, True, b=1) is not None
