@@ -7,9 +7,11 @@ package. Phases, each printed as it ends; any failure exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions, the parallel ``nvcc`` build of every kernel, the
-   flash library's ptxas registers and spills and SASS census (wgmma,
-   TMA and mbarrier instructions), and the registers and spills of every
-   kernel of the two stream libraries (generated SPD, hand-written LBM);
+   flash library's ptxas registers and spills (the three Hopper
+   instantiations, D 64, 112 and 128, must spill nothing) and SASS
+   census (wgmma, TMA and mbarrier instructions), and the registers and
+   spills of every kernel of the two stream libraries (generated SPD,
+   hand-written LBM);
 2. each kernel against its plain torch version on the card at 512×1024,
    plus the bitwise invariances (streamed == declarative, double_buffer on
    == off, two tilings agree), the generated uLBM PE against the
@@ -40,20 +42,31 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    mode;
 6. LM serving (run before phase 5): (a) the flash-attention kernel
    against its plain version on the reference's test matrix at D 128 in
-   f32 and bf16, two block shapes, and the Qwen3-8B prefill shape; (b)
-   Qwen3-8B at full width in bf16 (random weights from a seeded
-   generator): the prefill step on 4 prompts of 2048 tokens, flash
-   launches counted from 0, next-token logits held to the same model with
-   plain attention; (c) the continuous-batching engine at full width, 8
-   requests on 4 slots; (d) greedy consistency at full width and 4
-   layers in f32: engine tokens == argmax of the kernel-run forward, and
+   f32 and bf16, two block shapes (bitwise equal), and the Qwen3-8B
+   prefill shape; (b) Qwen3-8B at full width in bf16 (random weights from
+   a seeded generator): the prefill step on 4 prompts of 2048 tokens,
+   flash launches counted from 0, next-token logits held to the same
+   model with plain attention; (c) the continuous-batching engine at full
+   width, 8 requests on 4 slots; (d) greedy consistency at full width and
+   4 layers in f32: two slots at one position and a third request in a
+   re-used slot, engine tokens == argmax of the kernel-run forward, and
    decode logits == forward logits;
+6h. hybrid LM serving (docs/port.md §hybrid), phase 6's four steps on
+   Zamba2-7B: (a) at D 112 (the Hopper kernel's padded instantiation in
+   bf16, the simple kernel in f32) and the shared block's prefill shape q
+   = kv = (4, 32, 2048, 112); (b) the prefill at full width and depth (81
+   Mamba2 layers, 6.75 B parameters, bf16), 13 flash launches (one per
+   site of the shared block), logits held to the plain-attention twin;
+   (c) the engine at full width; (d) 8 layers in f32 (one group and two
+   tail layers);
 5. at the main-path shapes, each kernel held to its plain version again
    and timed (CUDA events) against its bound, its plain version and, for
    diffusion and flash attention, one PyTorch call (``library_ms``); the
-   halo kernels at one shard of the phase-3b runs; flash attention on
-   contiguous q/k/v and on the prefill's head-split views, with TFLOP/s
-   and the share of its bound; then the two stencil kernels' design
+   halo kernels at one shard of the phase-3b runs; flash attention at
+   both prefills' launch shapes (D 128 and D 112), on contiguous q/k/v
+   and on the prefill's head-split views, with TFLOP/s, the share of its
+   bound and ``scaled_dot_product_attention``; then the two stencil
+   kernels' design
    choices side by side (``kernels/lbm_stream/variants.py``,
    ``kernels/spd_stream/variants.py``: three rounds after a warm-up);
 7. the model → measure → search loop on the card (docs/port.md §dse),
@@ -112,6 +125,7 @@ The last two lines are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -210,8 +224,8 @@ def card_peaks(name: str) -> tuple[float, float, float]:
 #: its 2e-2 (bf16 probabilities in P·V, bf16 output rounding).
 FLASH_TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
              "bfloat16": dict(rtol=2e-2, atol=2e-2)}
-#: The reference's flash test matrix (tests/test_kernels.py), at D 128:
-#: (B, Hq, Hkv, Sq, Sk, causal, window).
+#: The reference's flash test matrix (tests/test_kernels.py), run at D 128
+#: (phase 6) and D 112 (phase 6h): (B, Hq, Hkv, Sq, Sk, causal, window).
 FLASH_MATRIX = {
     "mha": (1, 2, 2, 128, 128, True, 0),
     "mqa": (2, 4, 1, 128, 128, True, 0),
@@ -219,13 +233,23 @@ FLASH_MATRIX = {
     "bidirectional": (1, 2, 2, 128, 128, False, 0),
     "window": (1, 2, 2, 256, 256, True, 64),
 }
-#: The Qwen3-8B prefill: prompts x tokens, and its attention launch shape.
+#: The Qwen3-8B and Zamba2-7B prefills: prompts x tokens, and their
+#: attention launch shape.
 PREFILL = (4, 2048)
 #: Full-width bf16 prefill through the kernel against the same model with
-#: plain attention: both round each layer's attention output to bf16 but
-#: at other places inside, and 36 layers carry the difference to the
-#: logits; held as a relative L2 error of the next-token logits.
+#: plain attention: both round each attention output to bf16 but at other
+#: places inside, and the layers after it (36 of Qwen3-8B; up to 81 of
+#: Zamba2-7B, whose 13 shared-block sites differ) carry the difference to
+#: the logits; held as a relative L2 error of the next-token logits.
 PREFILL_REL_L2 = 5e-2
+#: ... or, where the model's own bf16 rounding noise is larger than that,
+#: this many times the floor measured in the same run: the twin's logits
+#: moved by a rounding-level change of every attention output
+#: (:func:`rounding_noise`). Zamba2-7B's 81 bf16 layers put that floor
+#: near 0.12: once two runs differ in one bit, every later layer rounds
+#: differently (docs/port.md §hybrid). Each site's kernel output is held
+#: to its plain version on its own inputs at ``FLASH_TOL`` besides.
+FLOOR_FACTOR = 1.5
 #: Decode logits against forward logits (tests/test_archs.py).
 DECODE_TOL = dict(rtol=5e-2, atol=5e-2)
 
@@ -239,7 +263,7 @@ SPILL_ALLOWANCE: dict[str, int] = {}
 
 def flash_census(build) -> None:
     """Phase 1's view of the compiled flash library: ptxas's registers and
-    spill bytes for each bf16 kernel, and the SASS counts of the Hopper
+    spill bytes for each kernel, and the SASS counts of the Hopper
     instructions (HGMMA: wgmma, UTMALDG: TMA loads, SYNCS: mbarriers).
     Fails when the Hopper kernels spill or lack wgmma or TMA."""
     import re
@@ -264,17 +288,20 @@ def flash_census(build) -> None:
     for name, info in sorted(kernels.items()):
         m = re.search(r"(hopper|simple)12(flash|probe)_kernelI.*?Li(\d+)E",
                       name)
-        if not m or (m.group(1) == "simple" and "bfloat16" not in name):
+        if not m:
             continue
-        label = f"{m.group(1)}::{m.group(2)}_kernel<bf16, D {m.group(3)}>"
+        dtype = "f32" if "flash_kernelIfLi" in name else "bf16"
+        label = (f"{m.group(1)}::{m.group(2)}_kernel<{dtype}, "
+                 f"D {m.group(3)}>")
         phase(f"  ptxas {label}: {info.get('regs')} registers, "
               f"{info.get('spill')} spill bytes")
         if m.group(1) == "hopper" and m.group(2) == "flash":
             hopper += 1
             if info.get("spill") != 0:
                 fail(f"{label} spills {info.get('spill')} bytes")
-    if hopper != 2:
-        fail(f"ptxas log lists {hopper} Hopper flash kernels, expected 2")
+    if hopper != 3:
+        fail(f"ptxas log lists {hopper} Hopper flash kernels, expected 3 "
+             "(D 64, 112, 128)")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
                           text=True, timeout=120).stdout
@@ -535,11 +562,24 @@ def sim_serving(record) -> None:
             fail(f"phase 9 warm: {warm[3]['live_timings']} live timings, "
                  f"{sum(served.values())} kernel launches for "
                  f"{warm[0].launches} engine launches (want 0 and equal)")
-        for key, plan in cold[3]["plans"].items():
-            got = warm[3]["plans"][key]
-            if any(got[k] != plan[k] for k in ("block_h", "m", "b",
-                                                "double_buffer")):
-                fail(f"phase 9: warm plan {got} != cold {plan} ({key})")
+        # A warm plan is its journal's decision. Contexts of one core and
+        # grid (the two diffusion tenants) share one journal by design, so
+        # that offline sweeps warm serving: each cold context chose from
+        # the timings it saw, the warm ones replay the same journal and
+        # pin one plan. A context alone on its journal pins its cold plan.
+        studies: dict = {}
+        for ctx in warm[0].groups:
+            studies.setdefault(warm[0].resolver.study_name(ctx), []).append(
+                SimEngine._plan_key(ctx))
+        for keys in studies.values():
+            for key in keys:
+                got = warm[3]["plans"][key]
+                want = (cold[3]["plans"][key] if len(keys) == 1
+                        else warm[3]["plans"][keys[0]])
+                if any(got[k] != want[k] for k in ("block_h", "m", "b",
+                                                    "double_buffer")):
+                    fail(f"phase 9: warm plan {got} != {want} ({key}; "
+                         f"journal shared with {keys})")
 
         # One tick of a cohort in flight under set_sync_debug_mode: no
         # admission, no dissolution, one launch and its synchronize.
@@ -699,10 +739,88 @@ def sim_serving(record) -> None:
     phase(f"  phase 9: {time.perf_counter() - t9:.1f} s")
 
 
-def lm_serving(cfg) -> dict:
-    """Phase 6: the flash kernel against its plain version, the prefill
-    and the engine of ``cfg`` at full width, and the f32 greedy check.
-    Returns the numbers phase 5's flash row needs."""
+def rel_l2(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm())
+
+
+@contextlib.contextmanager
+def attention_through(fn):
+    """Route the models' attention (``models.layers._attention``, which
+    every ``attention_block`` calls) through ``fn(orig, q, k, v, **kw)``
+    while the block runs."""
+    from repro_torch.models import layers
+
+    orig = layers._attention
+    layers._attention = lambda q, k, v, **kw: fn(orig, q, k, v, **kw)
+    try:
+        yield
+    finally:
+        layers._attention = orig
+
+
+def rounding_noise(seed: int):
+    """An attention wrapper that moves each output at the level of its own
+    rounding: every value scaled by 1 + u 2^-8, u uniform in [-1, 1] from
+    one generator seeded by ``seed``, and rounded back to its dtype."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def moved(orig, q, k, v, **kw):
+        o = orig(q, k, v, **kw)
+        u = torch.rand(o.shape, generator=g, device=o.device) * 2 - 1
+        return (o.float() * (1 + u * 2.0 ** -8)).to(o.dtype)
+
+    return moved
+
+
+def flash_vs_plain(d: int, g) -> list:
+    """The flash kernel against its plain version at head dim ``d``: the
+    reference's test matrix in f32 and bf16, and two block shapes, bitwise
+    equal to each other. Returns the max abs errors."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    errs = []
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        for case, (b, hq, hkv, sq, sk, causal, window) in FLASH_MATRIX.items():
+            q, k, v = flash_inputs(g, b, hq, hkv, sq, sk, d, dtype)
+            kw = dict(causal=causal, window=window)
+            got = flash_attention(q, k, v, **kw)
+            want = flash_attention_plain(q, k, v, **kw)
+            errs.append(check_close(
+                f"flash D {d} {case} {dname}", got.float(), want.float(),
+                FLASH_TOL[dname]))
+        q, k, v = flash_inputs(g, 1, 2, 2, 128, 256, d, dtype)
+        a = flash_attention(q, k, v, block_q=64, block_k=64)
+        b = flash_attention(q, k, v, block_q=128, block_k=128)
+        check_equal(f"flash D {d} {dname} blocks 64x64 == 128x128", a, b)
+        errs.append(check_close(
+            f"flash D {d} {dname} blocks 64x64 vs plain", a.float(),
+            flash_attention_plain(q, k, v).float(), FLASH_TOL[dname]))
+    return errs
+
+
+def flash_inputs(g, b, hq, hkv, sq, sk, d, dtype):
+    """Seeded q (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D) on the card."""
+    import torch
+
+    mk = lambda h, s: torch.randn(  # noqa: E731
+        (b, h, s, d), generator=g, device="cuda").to(dtype)
+    return mk(hq, sq), mk(hkv, sk), mk(hkv, sk)
+
+
+def lm_serving(cfg, label: str, f32_layers: int) -> dict:
+    """Phase 6 (Qwen3-8B) and 6h (Zamba2-7B): the flash kernel against its
+    plain version at the model's head dim, the prefill and the engine of
+    ``cfg`` at full width, and the f32 greedy check at ``f32_layers``
+    layers. Returns the numbers phase 5's flash row needs."""
     import dataclasses
 
     import numpy as np
@@ -713,46 +831,29 @@ def lm_serving(cfg) -> dict:
         flash_attention_plain,
     )
     from repro_torch.models import registry
+    from repro_torch.models.zamba2 import schedule
     from repro_torch.serve.engine import Request, ServeEngine
 
-    phase("phase 6: LM serving")
+    t6 = time.perf_counter()
+    phase(f"{label}: LM serving, {cfg.name} ({cfg.family})")
     dev = "cuda"
-    out = {"errs": []}
     g = torch.Generator(device=dev).manual_seed(0)
+    # the prefill's attention launches: every layer, or each site of the
+    # hybrid's shared block
+    sites = schedule(cfg)[0] if cfg.family == "hybrid" else cfg.n_layers
 
-    def qkv(b, hq, hkv, sq, sk, d, dtype):
-        mk = lambda h, s: torch.randn(  # noqa: E731
-            (b, h, s, d), generator=g, device=dev).to(dtype)
-        return mk(hq, sq), mk(hkv, sk), mk(hkv, sk)
-
-    # 6a. the kernel against its plain version
-    for dname in ("float32", "bfloat16"):
-        dtype = getattr(torch, dname)
-        for case, (b, hq, hkv, sq, sk, causal, window) in FLASH_MATRIX.items():
-            q, k, v = qkv(b, hq, hkv, sq, sk, 128, dtype)
-            kw = dict(causal=causal, window=window)
-            got = flash_attention(q, k, v, **kw)
-            want = flash_attention_plain(q, k, v, **kw)
-            out["errs"].append(check_close(
-                f"flash {case} {dname}", got.float(), want.float(),
-                FLASH_TOL[dname]))
-        q, k, v = qkv(1, 2, 2, 128, 256, 128, dtype)
-        a = flash_attention(q, k, v, block_q=64, block_k=64)
-        b = flash_attention(q, k, v, block_q=128, block_k=128)
-        check_equal(f"flash {dname} blocks 64x64 == 128x128", a, b)
-        out["errs"].append(check_close(
-            f"flash {dname} blocks 64x64 vs plain", a.float(),
-            flash_attention_plain(q, k, v).float(), FLASH_TOL[dname]))
+    # (a) the kernel against its plain version
+    out = {"errs": flash_vs_plain(cfg.head_dim, g)}
     b, s = PREFILL
-    q, k, v = qkv(b, cfg.n_heads, cfg.n_kv_heads, s, s, cfg.head_dim,
-                  torch.bfloat16)
+    q, k, v = flash_inputs(g, b, cfg.n_heads, cfg.n_kv_heads, s, s,
+                           cfg.head_dim, torch.bfloat16)
     out["errs"].append(check_close(
         f"flash prefill shape q {tuple(q.shape)} kv {tuple(k.shape)} bf16",
         flash_attention(q, k, v).float(),
         flash_attention_plain(q, k, v).float(), FLASH_TOL["bfloat16"]))
     out["qkv"] = (q, k, v)
 
-    # 6b. the prefill step at full width, bf16
+    # (b) the prefill step at full width, bf16
     torch.cuda.reset_peak_memory_stats()
     bundle = registry.build(cfg, device=dev)
     plain = registry.build(cfg, device=dev, use_kernel=False)
@@ -769,27 +870,56 @@ def lm_serving(cfg) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     out["launches"] = flash_attention.launches
-    phase(f"  launches on the LM prefill path: "
+    phase(f"  launches on the {cfg.name} prefill path: "
           f"{{'flash_attention': {out['launches']}}}")
-    if out["launches"] != cfg.n_layers:
+    if out["launches"] != sites:
         fail(f"flash_attention launched {out['launches']} times in the "
-             f"prefill, expected {cfg.n_layers}")
+             f"{cfg.name} prefill, expected {sites}")
     if nxt.shape != (b, cfg.vocab) or not torch.isfinite(nxt).all():
         fail(f"prefill logits: shape {tuple(nxt.shape)} or non-finite")
-    want = plain.make_prefill_step()(model, {"tokens": tokens})
-    rel = float((nxt.float() - want.float()).norm() / want.float().norm())
-    agree = int((nxt.argmax(-1) == want.argmax(-1)).sum())
-    phase(f"  {cfg.name} prefill {b}x{s}: {wall * 1e3:.1f} ms, "
-          f"{b * s / wall:.0f} tokens/s, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; next-token "
-          f"logits vs plain attention: rel L2 {rel:.3e} (<= "
-          f"{PREFILL_REL_L2}), max abs err {max_err(nxt, want):.3e}, "
-          f"argmax agrees on {agree}/{b}")
-    if not rel <= PREFILL_REL_L2:
-        fail(f"prefill logits rel L2 {rel} vs plain attention")
-    del want
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # Each site's kernel output against the plain version on the same q,
+    # k and v: the prefill's own activations (a second, uncounted run).
+    seen = []
 
-    # 6c. the engine at full width, bf16
+    def capture(orig, q, k, v, **kw):
+        o = orig(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, causal=kw["causal"],
+                                     window=kw["window"])
+        seen.append((max_err(o, want), torch.allclose(
+            o.float(), want.float(), **FLASH_TOL["bfloat16"])))
+        return o
+
+    with attention_through(capture):
+        prefill(model, {"tokens": tokens})
+    phase(f"  each of the {len(seen)} sites' kernel output vs plain on its "
+          f"own q, k, v: max abs err {max(e for e, _ in seen):.3e} "
+          f"(rtol/atol {FLASH_TOL['bfloat16']['atol']})")
+    if len(seen) != sites or not all(ok for _, ok in seen):
+        fail(f"{cfg.name} prefill sites vs plain: {seen}")
+    out["errs"] += [e for e, _ in seen]
+    # The logits against the plain-attention twin, beside the twin moved
+    # by a rounding-level change of every attention output (the floor).
+    want = plain.make_prefill_step()(model, {"tokens": tokens})
+    with attention_through(rounding_noise(seed=3)):
+        moved = plain.make_prefill_step()(model, {"tokens": tokens})
+    rel = rel_l2(nxt, want)
+    floor = rel_l2(moved, want)
+    limit = max(PREFILL_REL_L2, FLOOR_FACTOR * floor)
+    agree = int((nxt.argmax(-1) == want.argmax(-1)).sum())
+    phase(f"  {cfg.name} prefill {b}x{s} ({cfg.n_layers} layers, "
+          f"{cfg.num_params():.0f} parameters): {wall * 1e3:.1f} ms, "
+          f"{b * s / wall:.0f} tokens/s, peak memory {peak:.2f} GiB; "
+          f"next-token logits vs plain attention: rel L2 {rel:.3e} (<= "
+          f"{limit:.3e}: the larger of {PREFILL_REL_L2} and "
+          f"{FLOOR_FACTOR} x the rounding floor {floor:.3e}), max abs err "
+          f"{max_err(nxt, want):.3e}, argmax agrees on {agree}/{b}")
+    if not rel <= limit:
+        fail(f"{cfg.name} prefill logits rel L2 {rel} vs plain attention "
+             f"(limit {limit})")
+    del want, moved
+
+    # (c) the engine at full width, bf16
     rng = np.random.default_rng(0)
     eng = ServeEngine(bundle, model, max_batch=4, max_seq=256)
     for rid in range(8):
@@ -827,11 +957,12 @@ def lm_serving(cfg) -> dict:
     del eng, model, bundle, plain
     torch.cuda.empty_cache()
 
-    # 6d. greedy consistency at full width, 4 layers, f32
-    f32 = dataclasses.replace(cfg, n_layers=4, dtype="float32")
+    # (d) greedy consistency at full width and reduced depth, f32: two
+    # slots at one position, then a third request in a re-used slot
+    f32 = dataclasses.replace(cfg, n_layers=f32_layers, dtype="float32")
     bundle = registry.build(f32, device=dev)
     model = bundle.init(torch.Generator(device=dev).manual_seed(2))
-    prompts = [rng.integers(1, cfg.vocab, 6).tolist() for _ in range(2)]
+    prompts = [rng.integers(1, cfg.vocab, 6).tolist() for _ in range(3)]
     eng = ServeEngine(bundle, model, max_batch=2, max_seq=64)
     for rid, p in enumerate(prompts):
         eng.submit(Request(rid=rid, prompt=list(p), max_new_tokens=8))
@@ -845,13 +976,13 @@ def lm_serving(cfg) -> dict:
                 fail(f"f32 engine request {rid}: token {t} != forward "
                      f"argmax after {seq}")
             seq.append(t)
-    phase(f"  f32 4-layer engine, 2 slots at one position: {done} == "
-          "argmax of the kernel-run forward")
-    toks = torch.tensor([prompts[0] + done[0], prompts[1] + done[1]],
+    phase(f"  f32 {f32_layers}-layer engine, 2 slots at one position and a "
+          f"re-used slot: {done} == argmax of the kernel-run forward")
+    toks = torch.tensor([p + done[rid] for rid, p in enumerate(prompts)],
                         device=dev)
     n = toks.shape[1]
     full = bundle.forward(model, {"tokens": toks})
-    cache = bundle.cache_init(2, n)
+    cache = bundle.cache_init(len(prompts), n)
     steps = []
     for t in range(n):
         lg, cache = bundle.decode(model, toks[:, t:t + 1], cache, t)
@@ -860,6 +991,7 @@ def lm_serving(cfg) -> dict:
                 torch.stack(steps, dim=1), full, DECODE_TOL)
     del model, bundle, cache, full
     torch.cuda.empty_cache()
+    phase(f"  {label}: {time.perf_counter() - t6:.1f} s")
     return out
 
 
@@ -1823,7 +1955,9 @@ def main() -> None:
     # ---- 6. LM serving (before phase 5, which times its kernel) ------
     from repro_torch.configs import get_arch
 
-    lm = lm_serving(get_arch("qwen3-8b"))
+    lm = lm_serving(get_arch("qwen3-8b"), "phase 6", f32_layers=4)
+    # one group of six Mamba2 layers and the shared block, two tail layers
+    hyb = lm_serving(get_arch("zamba2-7b"), "phase 6h", f32_layers=8)
 
     # ---- 5. timing at the main-path shapes ----------------------------
     phase("phase 5: timing (CUDA events) and kernel vs plain at the "
@@ -1997,43 +2131,46 @@ def main() -> None:
            19 * 4096 * 4096 * 4, 131 * 4 * 4096 * 4096,
            max(errs["hand"] + [err]))
 
-    # Flash attention at the Qwen3-8B prefill's launch shape (bf16, causal).
+    # Flash attention at each prefill's launch shape (bf16, causal): the
+    # Qwen3-8B prefill's (D 128) and the Zamba2-7B shared block's (D 112).
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention,
         flash_attention_plain,
     )
 
-    # Two layouts: contiguous (B, H, S, D), and the head-split views of
-    # (B, S, H, D) buffers that the prefill passes (read in place).
-    q, k, v = lm["qkv"]
-    b_, hq_, s_, d_ = q.shape
-    ops = 4 * b_ * hq_ * d_ * (s_ * (s_ + 1) // 2)  # causal, sq == sk
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    bound_ms = max(ops / bf16_peak, nbytes / hbm) * 1e3
-    plain_ms, want = cuda_ms(lambda: flash_attention_plain(q, k, v), 2)
-    views = tuple(x.transpose(1, 2).contiguous().transpose(1, 2)
-                  for x in (q, k, v))
-    flash_errs = []
-    for layout, (qq, kk, vv) in (("contiguous", (q, k, v)),
-                                 ("head-split views", views)):
-        ms, got = cuda_ms(lambda: flash_attention(qq, kk, vv), 20)
-        flash_errs.append(check_close(
-            f"flash prefill shape, {layout}, vs plain", got.float(),
-            want.float(), FLASH_TOL["bfloat16"]))
-        lib_ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qq, kk, vv, is_causal=True, enable_gqa=True), 20)
-        phase(f"  flash {layout}: {ms:.4f} ms, {ops / ms / 1e9:.1f} "
-              f"TFLOP/s, {bound_ms / ms:.1%} of the bound "
-              f"({bound_ms:.4f} ms); SDPA {lib_ms:.4f} ms "
-              f"({ops / lib_ms / 1e9:.1f} TFLOP/s)")
-    # The row holds the layout of the main path: the head-split views.
-    record("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-           "src/repro/kernels/flash_attention/flash_attention.py:106",
-           lm["launches"], ms, plain_ms, nbytes, ops,
-           max(lm["errs"] + flash_errs), lib_ms, peak=bf16_peak)
-
-    del q, k, v, views, want, got, lm
-    torch.cuda.empty_cache()
+    for name, run in (("flash_attention", lm), ("flash_attention[D 112]",
+                                                hyb)):
+        # Two layouts: contiguous (B, H, S, D), and the head-split views
+        # of (B, S, H, D) buffers that the prefill passes (read in place).
+        q, k, v = run.pop("qkv")
+        b_, hq_, s_, d_ = q.shape
+        ops = 4 * b_ * hq_ * d_ * (s_ * (s_ + 1) // 2)  # causal, sq == sk
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        bound_ms = max(ops / bf16_peak, nbytes / hbm) * 1e3
+        plain_ms, want = cuda_ms(lambda: flash_attention_plain(q, k, v), 2)
+        views = tuple(x.transpose(1, 2).contiguous().transpose(1, 2)
+                      for x in (q, k, v))
+        flash_errs = []
+        for layout, (qq, kk, vv) in (("contiguous", (q, k, v)),
+                                     ("head-split views", views)):
+            ms, got = cuda_ms(lambda: flash_attention(qq, kk, vv), 20)
+            flash_errs.append(check_close(
+                f"flash D {d_} prefill shape, {layout}, vs plain",
+                got.float(), want.float(), FLASH_TOL["bfloat16"]))
+            lib_ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qq, kk, vv, is_causal=True, enable_gqa=True), 20)
+            phase(f"  flash D {d_} {layout}: {ms:.4f} ms, "
+                  f"{ops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of "
+                  f"the bound ({bound_ms:.4f} ms); SDPA {lib_ms:.4f} ms "
+                  f"({ops / lib_ms / 1e9:.1f} TFLOP/s)")
+        # The row holds the layout of the main path: the head-split views.
+        record(name, "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention/flash_attention.py:106",
+               run["launches"], ms, plain_ms, nbytes, ops,
+               max(run["errs"] + flash_errs), lib_ms, peak=bf16_peak)
+        del q, k, v, views, want, got
+        torch.cuda.empty_cache()
+    del lm, hyb
 
     # The stencil kernels' design choices side by side, on the same
     # main-path inputs (three rounds after a warm-up).

@@ -2,8 +2,10 @@
 
 The port of the JAX package's ``configs/base.py``: the same dataclasses and
 analytic parameter counts, with ``param_dtype`` a ``torch.dtype``. The
-hybrid/SSM parameter count walks a real parameter tree there; those
-families are not ported yet (ROADMAP Queue 1, item 13), so it raises here.
+hybrid count walks the port's own ``Zamba2`` module, built on the meta
+device (nothing is allocated), as the reference walks its parameter tree
+through ``jax.eval_shape``; the SSM family (xLSTM) is not ported yet
+(ROADMAP Queue 1, item 8.4), so its count raises here.
 """
 
 from __future__ import annotations
@@ -99,12 +101,23 @@ class ArchConfig:
 
     def num_params(self) -> float:
         emb = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
-        if self.family in ("hybrid", "ssm"):
+        if self.family == "ssm":
             raise NotImplementedError(
                 f"num_params of the {self.family!r} family counts its real "
-                "parameter tree, and the hybrid/SSM models are not ported "
-                "yet (ROADMAP Queue 1, item 13)"
+                "parameter tree, and the xLSTM model is not ported yet "
+                "(ROADMAP Queue 1, item 8.4)"
             )
+        if self.family == "hybrid":
+            # count the real module once (meta tensors: no allocation)
+            # and cache on the instance, as the reference does
+            cached = getattr(self, "_np_cache", None)
+            if cached is None:
+                from repro_torch.models.zamba2 import Zamba2
+
+                model = Zamba2(self, device=torch.device("meta"))
+                cached = float(sum(p.numel() for p in model.parameters()))
+                object.__setattr__(self, "_np_cache", cached)
+            return cached
         if self.enc_dec:
             enc = self.attn_params() + self.mlp_params() + 2 * self.d_model
             dec = 2 * self.attn_params() + self.mlp_params() + 3 * self.d_model

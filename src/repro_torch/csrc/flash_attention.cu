@@ -12,8 +12,8 @@
 // GFLOP; q, k, v and o are 168 MB moved once (q 67.1, k 16.8, v 16.8, o
 // 67.1), about 820 flops per byte, above the card's ridge of ~295.
 //
-// bf16 at D 64 and D 128 (the model's path) runs hopper::flash_kernel, a
-// warp-specialised block of three warpgroups per 128 query rows:
+// bf16 at D 64, 112 and 128 (the models' path) runs hopper::flash_kernel,
+// a warp-specialised block of three warpgroups per 128 query rows:
 //   - a producer warpgroup, whose one elected thread issues TMA loads of
 //     the Q tile once and of each reachable 128-key K/V tile into a ring
 //     of two stages, each stage with a "full" mbarrier (transaction bytes)
@@ -33,6 +33,13 @@
 // wgmma chains, a 64-key one (32 + 64) does not. Causal launches take the
 // query tiles heaviest first; the mask runs only on steps that cross the
 // diagonal, the window's edge or Sk.
+//
+// D 112 (Zamba2's shared attention, 3584 / 32) is held in shared memory at
+// the 128-column layout of D 128: the tensor maps keep 112 as the global
+// extent, so TMA zero-fills the second box's 16 columns past D (and still
+// counts them in the transaction bytes); Q K^T runs only the 7 k-slices of
+// real columns, P V runs at n 128 (its last 16 columns stay 0) and the
+// epilogue stores 112 columns. The registers are D 128's.
 //
 // f32 (the tests' exact path) and bf16 at D 32 run simple::flash_kernel:
 // 4 warps, 64-row tiles loaded synchronously, f32 scalar FMAs or (bf16)
@@ -322,14 +329,18 @@ constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 static_assert(PRODUCER_REGS * 128 + 2 * CONSUMER_REGS * 128 <= 65536,
               "setmaxnreg split exceeds the SM's register file");
 
+// The columns a head dim takes in shared memory: whole 64-column boxes (D
+// 112 takes 128, its last 16 zero-filled by TMA and never stored).
+template <int D> constexpr int kCols = (D + BOX - 1) / BOX * BOX;
+
 // Shared memory: Q, the K ring, the V ring, then the barriers. A tile of R
-// rows is D / 64 boxes of R x 128 bytes, each 1024-byte aligned, as the
-// TMA's 128-byte swizzle and the wgmma descriptors expect.
+// rows is kCols<D> / 64 boxes of R x 128 bytes, each 1024-byte aligned, as
+// the TMA's 128-byte swizzle and the wgmma descriptors expect.
 template <int D> struct Smem {
   static constexpr int q = 0;
-  static constexpr int k = q + BQ * D * 2;
-  static constexpr int v = k + STAGES * BK * D * 2;
-  static constexpr int bar = v + STAGES * BK * D * 2;
+  static constexpr int k = q + BQ * kCols<D> * 2;
+  static constexpr int v = k + STAGES * BK * kCols<D> * 2;
+  static constexpr int bar = v + STAGES * BK * kCols<D> * 2;
   static constexpr int bytes = bar + 8 * (2 * STAGES + 1);
   static constexpr int alloc = bytes + 1024;  // slack to align the base
 };
@@ -553,18 +564,21 @@ __device__ __forceinline__ uint4 ld_shared16(uint32_t addr) {
   return v;
 }
 
-// One 16-key slice of O += P V: m64nDk16.
-template <int D>
-__device__ __forceinline__ void pv_product(float (&acc)[D / 2],
+// One 16-key slice of O += P V: m64nNk16 over the N = kCols<D> columns
+// held in shared memory.
+template <int N>
+__device__ __forceinline__ void pv_product(float (&acc)[N / 2],
                                            const uint32_t (&pa)[4],
                                            uint64_t db) {
-  if constexpr (D == 128) wgmma_rs_n128(acc, pa, db);
+  static_assert(N == 64 || N == 128, "P V runs at n 64 or n 128");
+  if constexpr (N == 128) wgmma_rs_n128(acc, pa, db);
   else wgmma_rs_n64(acc, pa, db);
 }
 
 // S = Q K^T over D for one warpgroup's 64 rows of q (R rows a box) and
 // BN keys from row k of a K tile (BK rows a box): D / 16 k-slices of 32
-// bytes, 4 to a 128-byte box. Issued and committed, not waited for.
+// bytes, 4 to a 128-byte box (the zero columns past D are not read).
+// Issued and committed, not waited for.
 template <int D, int R, int N = BN>
 __device__ __forceinline__ void qk_product(float (&sc)[N / 2], uint32_t q,
                                            uint32_t k) {
@@ -600,15 +614,15 @@ __device__ __forceinline__ void pack_p(const float (&sc)[BN / 2],
 
 // The A fragments stay live (their registers unused) until the products
 // that read them have retired.
-template <int D>
-__device__ __forceinline__ void pv_tile(float (&acc)[D / 2],
+template <int N>
+__device__ __forceinline__ void pv_tile(float (&acc)[N / 2],
                                         uint32_t (&pa)[BN / 16][4],
                                         uint32_t v) {
   fence_regs(acc);
   wg_fence();
 #pragma unroll
   for (int j = 0; j < BN / 16; ++j)  // 16 keys of 128 bytes a slice
-    pv_product<D>(acc, pa[j], mnmajor_desc<BK>(v + j * 16 * 128));
+    pv_product<N>(acc, pa[j], mnmajor_desc<BK>(v + j * 16 * 128));
   wg_commit();
   wg_wait0();
   fence_regs(acc);
@@ -656,10 +670,10 @@ template <int D> struct Buffers {
   __device__ explicit Buffers(const void* raw) : base(smem_base(raw)) {}
   __device__ uint32_t q() const { return base + Smem<D>::q; }
   __device__ uint32_t k(int s) const {
-    return base + Smem<D>::k + s * BK * D * 2;
+    return base + Smem<D>::k + s * BK * kCols<D> * 2;
   }
   __device__ uint32_t v(int s) const {
-    return base + Smem<D>::v + s * BK * D * 2;
+    return base + Smem<D>::v + s * BK * kCols<D> * 2;
   }
   __device__ uint32_t full(int s) const { return base + Smem<D>::bar + 8 * s; }
   __device__ uint32_t empty(int s) const {
@@ -670,20 +684,22 @@ template <int D> struct Buffers {
 
 // One elected thread issues every load: Q once, then K and V of each
 // reachable tile into the ring once the consumers have freed the stage.
+// Every box counts whole in the transaction bytes, its zero fill past D or
+// past the sequence included.
 template <int D>
 __device__ __forceinline__ void produce(const Buffers<D>& sm, const Tile& t,
                                         const CUtensorMap* tq,
                                         const CUtensorMap* tk,
                                         const CUtensorMap* tv) {
-  constexpr int NB = D / BOX;  // boxes in a row of a tile
-  mbar_expect_tx(sm.qbar(), BQ * D * 2);
+  constexpr int NB = kCols<D> / BOX;  // boxes in a row of a tile
+  mbar_expect_tx(sm.qbar(), BQ * kCols<D> * 2);
   for (int nb = 0; nb < NB; ++nb)
     tma_load(sm.q() + nb * BQ * 128, tq, sm.qbar(), nb * BOX, t.q0, t.h, t.b);
   for (int kt = t.kt_lo, n = 0; kt <= t.kt_hi; ++kt, ++n) {
     const int s = n % STAGES;
     // The first round passes at once: parity 1 of a fresh barrier.
     mbar_wait(sm.empty(s), ((n / STAGES) & 1) ^ 1);
-    mbar_expect_tx(sm.full(s), 2 * BK * D * 2);
+    mbar_expect_tx(sm.full(s), 2 * BK * kCols<D> * 2);
     for (int nb = 0; nb < NB; ++nb) {
       tma_load(sm.k(s) + nb * BK * 128, tk, sm.full(s), nb * BOX, kt * BK,
                t.kvh, t.b);
@@ -702,7 +718,7 @@ __device__ __forceinline__ void consume(const Buffers<D>& sm, const Tile& t,
                                         int wg, bf16* __restrict__ o, int sk,
                                         const FlashStrides& st, float scale2,
                                         int causal, int window) {
-  constexpr int ON = D / 2;  // O floats a consumer thread holds
+  constexpr int ON = kCols<D> / 2;  // O floats a consumer thread holds
   const int tid = threadIdx.x % 128, lane = tid % 32;
   const int rl = (tid / 32) * 16 + lane / 4;  // first of the thread's rows
   const int cq = 2 * (lane % 4);
@@ -768,13 +784,14 @@ __device__ __forceinline__ void consume(const Buffers<D>& sm, const Tile& t,
 
       uint32_t pa[BN / 16][4];
       pack_p(sc, pa);
-      pv_tile<D>(acc, pa, sm.v(s) + step * BN * 128);
+      pv_tile<kCols<D>>(acc, pa, sm.v(s) + step * BN * 128);
     }
     mbar_arrive(sm.empty(s));
   }
 
   // Epilogue: normalise, round to bf16 and stage this group's rows in its
-  // own rows of the Q tile (same 128-byte swizzle), then 16-byte stores.
+  // own rows of the Q tile (same 128-byte swizzle), then 16-byte stores of
+  // the D columns (the zero ones past D stay in registers).
   const float i0 = 1.0f / fmaxf(quad_sum(l0), 1e-30f);
   const float i1 = 1.0f / fmaxf(quad_sum(l1), 1e-30f);
   const uint32_t qb = sm.q();
@@ -844,11 +861,11 @@ probe_kernel(const __grid_constant__ CUtensorMap ta,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv, float* s_out,
              float* o_out) {
-  constexpr int NB = D / BOX;
+  constexpr int DC = kCols<D>, NB = DC / BOX;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sA = smem_base(smem_raw);
-  const uint32_t sK = sA + 64 * D * 2, sV = sK + BK * D * 2;
-  const uint32_t bar = sV + BK * D * 2;
+  const uint32_t sK = sA + 64 * DC * 2, sV = sK + BK * DC * 2;
+  const uint32_t bar = sV + BK * DC * 2;
   const int t = threadIdx.x, lane = t % 32;
   if (t == 0) {
     mbar_init(bar, 1);
@@ -856,7 +873,7 @@ probe_kernel(const __grid_constant__ CUtensorMap ta,
   }
   __syncthreads();
   if (t == 0) {
-    mbar_expect_tx(bar, (64 + 2 * BK) * D * 2);
+    mbar_expect_tx(bar, (64 + 2 * BK) * DC * 2);
     for (int nb = 0; nb < NB; ++nb) {
       tma_load(sA + nb * 64 * 128, &ta, bar, nb * BOX, 0, 0, 0);
       tma_load(sK + nb * BK * 128, &tk, bar, nb * BOX, 0, 0, 0);
@@ -865,9 +882,9 @@ probe_kernel(const __grid_constant__ CUtensorMap ta,
   }
   mbar_wait(bar, 0);
   const int row = (t / 32) * 16 + lane / 4, cq = 2 * (lane % 4);
-  float acc[D / 2];
+  float acc[DC / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < DC / 2; ++i) acc[i] = 0.0f;
   for (int step = 0; step < BK / BN; ++step) {
     float sc[BN / 2];
     qk_product<D, 64>(sc, sA, sK + step * BN * 128);
@@ -878,10 +895,10 @@ probe_kernel(const __grid_constant__ CUtensorMap ta,
             (i & 1)] = sc[i];
     uint32_t pa[BN / 16][4];
     pack_p(sc, pa);
-    pv_tile<D>(acc, pa, sV + step * BN * 128);
+    pv_tile<DC>(acc, pa, sV + step * BN * 128);
   }
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i)
+  for (int i = 0; i < D / 2; ++i)  // the n8 groups of the D columns
     o_out[(row + (i & 2 ? 8 : 0)) * D + 8 * (i / 4) + cq + (i & 1)] = acc[i];
 }
 
@@ -980,7 +997,7 @@ int launch_probe(const void* a, const void* k, const void* v, float* s,
       !make_map(&tk, k, D, BK, 1, 1, sb, BK) ||
       !make_map(&tv, v, D, BK, 1, 1, sb, BK))
     return -3;
-  constexpr int bytes = (64 + 2 * BK) * D * 2 + 8 + 1024;
+  constexpr int bytes = (64 + 2 * BK) * kCols<D> * 2 + 8 + 1024;
   cudaError_t err = cudaFuncSetAttribute(
       probe_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
@@ -992,8 +1009,8 @@ int launch_probe(const void* a, const void* k, const void* v, float* s,
 
 // dtype: 0 float32, 1 bfloat16. Returns cudaGetLastError(), -2 for a head
 // dim or dtype this file does not instantiate, -3 for a TMA descriptor
-// the driver refuses. bf16 at D 64 and 128 runs the Hopper kernel; f32
-// and bf16 at D 32 the simple one.
+// the CUDA driver refuses. bf16 at D 64, 112 and 128 runs the Hopper
+// kernel; f32 and bf16 at D 32 the simple one.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int dtype, int b,
                                    int hq, int hkv, int sq, int sk, int d,
@@ -1007,10 +1024,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (dtype == 0) {
     FLASH_CASE((launch_simple<float, 32>), 32)
     FLASH_CASE((launch_simple<float, 64>), 64)
+    FLASH_CASE((launch_simple<float, 112>), 112)
     FLASH_CASE((launch_simple<float, 128>), 128)
   } else if (dtype == 1) {
     FLASH_CASE((launch_simple<bf16, 32>), 32)
     FLASH_CASE(launch_hopper<64>, 64)
+    FLASH_CASE(launch_hopper<112>, 112)
     FLASH_CASE(launch_hopper<128>, 128)
   }
 #undef FLASH_CASE
@@ -1023,6 +1042,7 @@ extern "C" int flash_wgmma_probe(const void* a, const void* k, const void* v,
                                  float* s, float* o, int d, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch_probe<64>(a, k, v, s, o, st);
+  if (d == 112) return launch_probe<112>(a, k, v, s, o, st);
   if (d == 128) return launch_probe<128>(a, k, v, s, o, st);
   return -2;
 }

@@ -6,7 +6,7 @@ values and initial states; :func:`from_numpy` moves a state onto a device,
 and :func:`core_structure` renders a parsed ``Core`` as plain Python so
 the two packages' parsers can be compared without importing each other.
 The LM substrate's weights cross as numpy arrays: :func:`params_from_jax`
-loads a JAX parameter tree into the port's ``Transformer``.
+loads a JAX parameter tree into the port's ``Transformer`` or ``Zamba2``.
 """
 
 from __future__ import annotations
@@ -104,21 +104,26 @@ def core_structure(core) -> tuple:
 
 
 def params_from_jax(tree, cfg, device):
-    """The port's ``Transformer`` of ``cfg`` on ``device`` holding the
-    weights of a JAX parameter tree.
+    """The port's model of ``cfg`` on ``device`` holding the weights of a
+    JAX parameter tree: a ``Transformer`` for the dense family, a
+    ``Zamba2`` for the hybrid one.
 
     ``tree`` is the JAX package's ``init_params`` tree with every leaf a
-    numpy array: ``embed``, ``ln_f``, ``lm_head`` (unless tied) and
-    ``layers``, whose leaves carry the stacked ``L`` axis first. Matrices
-    are ``(d_in, d_out)`` in both packages, so nothing is transposed.
+    numpy array: ``embed``, ``ln_f``, ``lm_head`` (unless tied), and
+    either ``layers`` (dense) or ``mamba_layers`` and the one
+    ``shared_attn`` block (hybrid). Stacked leaves carry the ``L`` axis
+    first. Matrices are ``(d_in, d_out)`` in both packages, so nothing is
+    transposed. Other trees raise.
     """
     from repro_torch.models.transformer import Transformer
+    from repro_torch.models.zamba2 import Zamba2
 
     dev = resolve_device(device)
-    model = Transformer(cfg, device=dev)
-    if "moe_layers" in tree or "layers" not in tree:
+    if "moe_layers" in tree or not ("layers" in tree
+                                    or "mamba_layers" in tree):
         raise NotImplementedError("only the dense decoder-only tree "
-                                  "(``layers``) is ported")
+                                  "(``layers``) and the hybrid tree "
+                                  "(``mamba_layers``) are ported")
 
     def put(param, value):
         value = np.asarray(value)
@@ -127,16 +132,29 @@ def params_from_jax(tree, cfg, device):
         with torch.no_grad():
             param.copy_(torch.from_numpy(np.array(value, np.float32)))
 
+    def put_block(layer, block, i=None):
+        """A decoder block's norms, attention and MLP; ``i`` indexes a
+        stacked tree."""
+        pick = (lambda a: a) if i is None else (lambda a: a[i])
+        put(layer.ln1, pick(block["ln1"]))
+        put(layer.ln2, pick(block["ln2"]))
+        for name, value in block["attn"].items():
+            put(getattr(layer.attn, name), pick(value))
+        for name, value in block["mlp"].items():
+            put(getattr(layer.mlp, name), pick(value))
+
+    hybrid = "mamba_layers" in tree
+    model = (Zamba2 if hybrid else Transformer)(cfg, device=dev)
     put(model.embed, tree["embed"])
     put(model.ln_f, tree["ln_f"])
     if not cfg.tie_embeddings:
         put(model.lm_head, tree["lm_head"])
-    stacked = tree["layers"]
-    for i, layer in enumerate(model.layers):
-        put(layer.ln1, stacked["ln1"][i])
-        put(layer.ln2, stacked["ln2"][i])
-        for name, value in stacked["attn"].items():
-            put(getattr(layer.attn, name), value[i])
-        for name, value in stacked["mlp"].items():
-            put(getattr(layer.mlp, name), value[i])
+    if hybrid:
+        for i, layer in enumerate(model.layers):
+            for name, value in tree["mamba_layers"].items():
+                put(getattr(layer, name), value[i])
+        put_block(model.shared, tree["shared_attn"])
+    else:
+        for i, layer in enumerate(model.layers):
+            put_block(layer, tree["layers"], i)
     return model

@@ -9,11 +9,13 @@ accumulator in f32 (docs/port.md §lm).
 Bound on the card: operations. At the Qwen3-8B prefill launch (bf16, B 4,
 Hq 32, Hkv 8, S 2048, D 128, causal) the two products are 137.5 GFLOP
 against 168 MB that q, k, v and o move once, about 820 flops per byte,
-above the card's bf16 ridge of ~295. bf16 at D 64 and 128 therefore runs
-a warp-specialised kernel: TMA loads into a two-stage K/V ring, ``wgmma``
-for both products, the softmax and the accumulator in registers. f32 (the
-tests' exact path) and bf16 at D 32 run a simple kernel (scalar FMAs or
-WMMA fragments).
+above the card's bf16 ridge of ~295. bf16 at D 64, 112 and 128 therefore
+runs a warp-specialised kernel: TMA loads into a two-stage K/V ring,
+``wgmma`` for both products, the softmax and the accumulator in
+registers. D 112 (Zamba2's shared attention) is held at D 128's layout in
+shared memory, its 16 extra columns zero-filled by TMA and never stored
+(docs/port.md §hybrid). f32 (the tests' exact path) and bf16 at D 32 run
+a simple kernel (scalar FMAs or WMMA fragments).
 
 ``block_q`` and ``block_k`` are the reference's API and validation only:
 the CUDA tiles are the kernel's own, and the output does not depend on
@@ -32,7 +34,7 @@ DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 
 #: Head dims the CUDA file instantiates, and the dtypes it takes.
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -11,7 +11,7 @@ Conventions:
 
 The reference's sharding hints (``parallel.hints.constrain``) and remat
 names (``checkpoint_name``) are no-ops on one unmeshed card and are
-dropped. MoE waits for a later slice (ROADMAP Queue 1, item 13).
+dropped. MoE waits for a later slice (ROADMAP Queue 1, item 8.1).
 """
 
 from __future__ import annotations

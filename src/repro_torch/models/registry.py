@@ -1,11 +1,13 @@
 """Architecture registry: config -> (init, forward, cache, decode) bundle
 consumed by the serving launcher, the engine and the tests (the port of
-the JAX package's ``models/registry.py``, family ``"dense"``).
+the JAX package's ``models/registry.py``, families ``"dense"`` and
+``"hybrid"``).
 
 The bundle is bound to one device at :func:`build`; its ``init`` draws the
 weights from an explicit ``torch.Generator``. Training (``loss``,
-``make_train_step``) and the other families wait for later slices
-(ROADMAP Queue 1, item 13).
+``make_train_step``, ROADMAP Queue 1, item 8.5) and the other families
+(``"moe"``, ``"audio"``, ``"vlm"``: items 8.1–8.3; ``"ssm"``: item 8.4)
+wait for later slices.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.interop import resolve_device
 
 from . import transformer as tfm
+from . import zamba2 as zb
 
 
 @dataclass
@@ -49,12 +52,24 @@ def build(cfg: ArchConfig, *, device="cuda",
     """The bundle of ``cfg`` on ``device``. ``use_kernel`` selects the
     attention of ``forward`` as in ``ops.attention`` (``None``: the flash
     kernel on a CUDA device, the chunked version on the CPU)."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-            "port serves the dense family (ROADMAP Queue 1, item 13)"
+            "port serves the dense and hybrid families (ROADMAP Queue 1, "
+            "item 8)"
         )
     dev = resolve_device(device)
+    if cfg.family == "hybrid":
+        return ModelBundle(
+            cfg=cfg,
+            device=dev,
+            init=lambda generator: zb.init_params(cfg, generator, dev),
+            forward=lambda model, batch: zb.forward(
+                model, batch["tokens"], use_kernel=use_kernel),
+            cache_init=lambda b, s: zb.init_cache(cfg, b, s, dev),
+            decode=lambda model, tok, cache, pos, rows=None: zb.decode_step(
+                model, tok, cache, pos, rows),
+        )
 
     def fwd(model, batch):
         return tfm.forward(model, batch["tokens"], batch.get("embeds"),

@@ -13,7 +13,7 @@ are an ``nn.ModuleList`` walked by a Python loop, and no gradient is kept.
 The KV cache is a preallocated ``(L, B, Hkv, S, D)`` pair updated in place
 (docs/port.md §lm); ``decode_step`` returns the same tensors so that its
 signature stays the reference's. MoE layers, the encoder-decoder path and
-the frontends wait for later slices (ROADMAP Queue 1, item 13).
+the frontends wait for later slices (ROADMAP Queue 1, items 8.1–8.3).
 """
 
 from __future__ import annotations
@@ -68,7 +68,7 @@ class Transformer(nn.Module):
         if cfg.moe is not None or cfg.enc_dec:
             raise NotImplementedError(
                 f"{cfg.name}: MoE layers and the encoder-decoder path are "
-                "not ported yet (ROADMAP Queue 1, item 13)"
+                "not ported yet (ROADMAP Queue 1, items 8.1 and 8.2)"
             )
         self.cfg = cfg
         dt = cfg.param_dtype

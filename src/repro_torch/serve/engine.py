@@ -9,11 +9,13 @@ full-batch step per prompt position). Sampling is greedy, or at a
 temperature from a seeded ``torch.Generator``.
 
 One deliberate difference from the reference: every step passes the slots
-it steps as ``rows`` to ``decode_step``, so a call writes K/V only into
-those slots' cache rows. The reference's full-batch step writes every
-row at the stepped position, and with two slots at one position the
-second slot's step overwrites the first slot's entry with token 0's K/V
-(ROADMAP Queue 3).
+it steps as ``rows`` to ``decode_step``, so a call writes K/V (and a
+hybrid's SSM state) only into those slots' cache rows. The reference's
+full-batch step writes every row at the stepped position, and with two
+slots at one position the second slot's step overwrites the first slot's
+entry with token 0's K/V (ROADMAP Queue 3). A request's first step is at
+position 0, where the hybrid's ``decode_step`` starts the stepped rows
+from a zero SSM state (docs/port.md §hybrid).
 """
 
 from __future__ import annotations

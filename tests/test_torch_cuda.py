@@ -568,7 +568,7 @@ def test_flash_wgmma_descriptors(card):
 
     lib = load_flash_library()
     g = torch.Generator(device="cuda").manual_seed(3)
-    for d in (64, 128):
+    for d in (64, 112, 128):
         a, k, v = (torch.randn((r, d), generator=g, device="cuda").to(
             torch.bfloat16) for r in (64, 128, 128))
         s = torch.empty((64, 128), device="cuda")
@@ -660,6 +660,98 @@ def test_flash_qwen3_launch_at_prefill_strides(card):
     want = flash_attention_plain(q, k, v)
     torch.testing.assert_close(got.float(), want.float(),
                                **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_head_dim_112_equals_plain(card, case, dtype):
+    """D 112 (Zamba2's shared attention): bf16 through the Hopper
+    kernel's padded instantiation, f32 through the simple kernel; the 128
+    query rows of 64x64 and 128x128 blocks give the same bits."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    _, _, _, _, _, causal, window = FLASH_CASES[case]
+    q, k, v = _flash_inputs(case, 112, dtype, seed=7)
+    kw = dict(causal=causal, window=window)
+    got = flash_attention(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+    if q.shape[2] % 64 == 0 and k.shape[2] % 64 == 0:
+        small = flash_attention(q, k, v, block_q=64, block_k=64, **kw)
+        assert torch.equal(small, got)
+
+
+def test_flash_zamba2_launch_at_prefill_strides(card):
+    """The Zamba2-7B shared block's prefill launch (q = kv 4x32x2048x112,
+    bf16, causal) on the head-split views the prefill passes: strides of
+    224 B (head), 7,168 B (sequence), read in place."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        _kernel_operand,
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v = (torch.randn((4, 2048, 32 * 112), generator=g, device="cuda")
+               .bfloat16().view(4, 2048, 32, 112).transpose(1, 2)
+               for _ in range(3))
+    assert q.stride()[1:3] == (112, 32 * 112)
+    assert all(_kernel_operand(x) is x for x in (q, k, v))
+    got = flash_attention(q, k, v)
+    want = flash_attention_plain(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zamba2_prefill_and_engine_on_the_card(card, dtype):
+    """A narrow Zamba2 at D 112 (d_model 448, 4 heads; two groups and a
+    tail layer) on the card: the prefill through the kernel (one launch
+    per site of the shared block) equals the plain-attention twin, and
+    in f32 the engine's greedy tokens at max_batch 2, with a re-used
+    slot, equal the argmax of the forward."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+    )
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_arch("zamba2-7b").reduced(), d_model=448,
+                              n_heads=4, n_kv_heads=4, head_dim=112,
+                              n_layers=5, dtype=dtype)
+    bundle = registry.build(cfg, device="cuda")
+    plain = registry.build(cfg, device="cuda", use_kernel=False)
+    model = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 64), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(1))
+    n = flash_attention.launches
+    got = bundle.make_prefill_step()(model, {"tokens": tokens})
+    assert flash_attention.launches == n + 2
+    want = plain.make_prefill_step()(model, {"tokens": tokens})
+    tol = (dict(rtol=2e-3, atol=2e-3) if dtype == "float32"
+           else dict(rtol=5e-2, atol=5e-2))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    if dtype != "float32":
+        return
+    prompts = [[5, 17, 31], [7, 2, 44], [9, 3]]
+    eng = ServeEngine(bundle, model, max_batch=2, max_seq=32)
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=list(p), max_new_tokens=5))
+    done = {c.rid: c.tokens for c in eng.run_until_drained()}
+    for rid, p in enumerate(prompts):
+        seq = list(p)
+        for t in done[rid]:
+            logits = bundle.forward(model, {"tokens": torch.tensor(
+                [seq], device="cuda")})
+            assert t == int(logits[0, -1].argmax())
+            seq.append(t)
 
 
 def test_flash_launch_faults_raise(card):

@@ -101,6 +101,24 @@ def test_bf16_matches_jax_kernel():
     np.testing.assert_allclose(got.float().numpy(), want, **BF16_TOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["mha", "gqa_prefix", "window"])
+def test_head_dim_112_matches_jax_kernel(case, dtype):
+    """D 112, Zamba2's shared attention (3584 / 32): the JAX kernel takes
+    any D whole; the port's kernel pads it to 128 in shared memory, and
+    its plain version (the CPU path) is held to the JAX kernel here."""
+    b, hq, hkv, sq, sk, causal, window = CASES[case]
+    q, k, v = _qkv(11, b, hq, hkv, sq, sk, 112)
+    jq, jk, jv = (x.astype(dtype) for x in _j(q, k, v))
+    tq, tk, tv = (x.to(getattr(torch, dtype)) for x in _t(q, k, v))
+    kw = dict(causal=causal, window=window, block_q=64, block_k=64)
+    want = np.asarray(jax_flash(jq, jk, jv, **kw), np.float32)
+    got = flash_attention(tq, tk, tv, **kw)
+    assert got.shape == (b, hq, sq, 112) and got.dtype == tq.dtype
+    tol = KERNEL_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(got.float().numpy(), want, **tol)
+
+
 def test_dispatcher_cpu_path_equals_jax_dispatcher():
     """``use_kernel=None`` on the CPU is the chunked version with the
     reference's chunk rule (512 when it divides Sk)."""
@@ -150,3 +168,20 @@ def test_kernel_operand_reads_head_split_views_in_place():
 
     one = torch.randn((1, 64, 4 * 128)).to(torch.bfloat16)
     assert _strides(_split_heads(one, 4)) == [4 * 64 * 128, 128, 4 * 128]
+
+
+def test_kernel_operand_reads_zamba2_head_split_views_in_place():
+    """Zamba2's shared block at D 112 (32 heads of 3584): the head-split
+    view's strides are 224 B (head) and 7,168 B (sequence), multiples of
+    16 bytes, so TMA reads q, k and v in place."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        _kernel_operand,
+        _strides,
+    )
+    from repro_torch.models.layers import _split_heads
+
+    x = torch.zeros((2, 16, 32 * 112), dtype=torch.bfloat16)
+    q = _split_heads(x, 32)
+    assert q.shape == (2, 32, 16, 112)
+    assert [2 * s for s in _strides(q)] == [2 * 16 * 3584, 224, 7168]
+    assert _kernel_operand(q) is q

@@ -31,6 +31,8 @@ import repro_torch.kernels.spd_stream
 import repro_torch.kernels.lbm_stream.ops
 import repro_torch.core.distribute
 import repro_torch.models.registry
+import repro_torch.models.mamba2
+import repro_torch.models.zamba2
 import repro_torch.serve.engine
 import repro_torch.kernels.flash_attention.ops
 import repro_torch.launch.serve
@@ -74,6 +76,12 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.models import registry
 bundle = registry.build(get_arch("qwen3-8b").reduced(), device="cpu")
+model = bundle.init(torch.Generator().manual_seed(0))
+nxt = bundle.make_prefill_step()(model, {"tokens": torch.tensor([[1, 2, 3]])})
+assert nxt.shape == (1, 512) and bool(torch.isfinite(nxt).all())
+hyb = get_arch("zamba2-7b").reduced()
+assert hyb.num_params() == 720064
+bundle = registry.build(hyb, device="cpu")
 model = bundle.init(torch.Generator().manual_seed(0))
 nxt = bundle.make_prefill_step()(model, {"tokens": torch.tensor([[1, 2, 3]])})
 assert nxt.shape == (1, 512) and bool(torch.isfinite(nxt).all())
