@@ -45,12 +45,13 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    f32 and bf16, two block shapes (bitwise equal), and the Qwen3-8B
    prefill shape; (b) Qwen3-8B at full width in bf16 (random weights from
    a seeded generator): the prefill step on 4 prompts of 2048 tokens,
-   flash launches counted from 0, next-token logits held to the same
-   model with plain attention; (c) the continuous-batching engine at full
-   width, 8 requests on 4 slots; (d) greedy consistency at full width and
-   4 layers in f32: two slots at one position and a third request in a
-   re-used slot, engine tokens == argmax of the kernel-run forward, and
-   decode logits == forward logits;
+   flash launches counted from 0, the logits at every position held to
+   the same model with plain attention beside its rounding floor; (c)
+   the continuous-batching engine at full width, 8 requests on 4 slots;
+   (d) greedy consistency at full width and 4 layers in f32: two slots
+   at one position and a third request in a re-used slot, engine tokens
+   == argmax of the kernel-run forward, and decode logits == forward
+   logits;
 6h. hybrid LM serving (docs/port.md §hybrid), phase 6's four steps on
    Zamba2-7B: (a) at D 112 (the Hopper kernel's padded instantiation in
    bf16, the simple kernel in f32) and the shared block's prefill shape q
@@ -59,13 +60,27 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    site of the shared block), logits held to the plain-attention twin;
    (c) the engine at full width; (d) 8 layers in f32 (one group and two
    tail layers);
+6m. MoE serving (docs/port.md §moe), Mixtral-8x7B at full width and 16
+   of its 32 layers, bf16: (a) the kernel at both prefills' launch shapes
+   with the window of 4096; (b) the prefills 4x2048 and 1x8192 (where
+   the window binds), 16 flash launches each, every site held to its
+   plain version on its own q, k, v, the logits at every position and
+   past the window to the plain-attention twin, the tokens whose top-k
+   experts differ from the twin's counted; (c) the engine; (d) 2 layers
+   in f32 at the no-drop capacity factor E/k;
+6k. Kimi K2 at full width and 2 layers (the dense first layer, one MoE
+   layer of 384 experts and the shared expert), bf16: (a) and (b) of 6m
+   at its 4x2048 prefill, D 112 with GQA 64:8, 2 flash launches;
 5. at the main-path shapes, each kernel held to its plain version again
    and timed (CUDA events) against its bound, its plain version and, for
    diffusion and flash attention, one PyTorch call (``library_ms``); the
    halo kernels at one shard of the phase-3b runs; flash attention at
-   both prefills' launch shapes (D 128 and D 112), on contiguous q/k/v
-   and on the prefill's head-split views, with TFLOP/s, the share of its
-   bound and ``scaled_dot_product_attention``; then the two stencil
+   the prefills' launch shapes (D 128 causal, D 112 MHA, Mixtral's D 128
+   at 1x8192 with the window binding, Kimi's D 112 with GQA 8), on
+   contiguous q/k/v and on the prefill's head-split views, with TFLOP/s,
+   the share of its bound (the (query, key) pairs the mask keeps) and
+   ``scaled_dot_product_attention`` (the window as a boolean mask, on the
+   fastest backend that takes it, named); then the two stencil
    kernels' design
    choices side by side (``kernels/lbm_stream/variants.py``,
    ``kernels/spd_stream/variants.py``: three rounds after a warm-up);
@@ -119,7 +134,15 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    on the CPU (the plain version) at the pinned plan; and both launches
    timed on a full cohort (b members) at the pinned plans, against the
    plain version and, for diffusion, ``conv2d`` with N = b — the kernels
-   line's batched rows, with the serving path's and the twin's counts.
+   line's batched rows, with the serving path's and the twin's counts;
+10. the paper's flow (docs/port.md §examples): the port's three examples
+   on the card — ``examples/torch_quickstart.py`` against numpy f32,
+   ``torch_dse_explore.py --topk 1``, and ``torch_lbm_simulation.py`` on
+   a 2048² cavity (m 4, 400 steps, a checkpoint every 100) in a temporary
+   directory, then again from scratch to 200 steps and to 400, restoring
+   at 200: the final ``f`` bitwise equal to the unbroken run's, a saved
+   checkpoint restored bitwise, with MLUPS and the seconds per save and
+   for the restore.
 
 The last two lines are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -132,6 +155,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -157,8 +181,18 @@ def phase(msg: str) -> None:
     print(msg, flush=True)
 
 
+def _row_chunks(a, b, rows: int = 1024):
+    """``a`` and ``b`` as f64 pieces of at most ``rows`` rows of their last
+    dimension, so that a comparison of two logits tensors never holds a
+    whole f64 copy."""
+    a = a.reshape(-1, a.shape[-1]) if a.dim() else a.reshape(1, 1)
+    b = b.reshape(-1, b.shape[-1]) if b.dim() else b.reshape(1, 1)
+    for x, y in zip(a.split(rows), b.split(rows)):
+        yield x.double(), y.double()
+
+
 def max_err(a, b) -> float:
-    return float((a.double() - b.double()).abs().max())
+    return max(float((x - y).abs().max()) for x, y in _row_chunks(a, b))
 
 
 def check_close(name, got, want, tol) -> float:
@@ -233,14 +267,24 @@ FLASH_MATRIX = {
     "bidirectional": (1, 2, 2, 128, 128, False, 0),
     "window": (1, 2, 2, 256, 256, True, 64),
 }
-#: The Qwen3-8B and Zamba2-7B prefills: prompts x tokens, and their
-#: attention launch shape.
+#: The Qwen3-8B, Zamba2-7B, Mixtral-8x7B and Kimi K2 prefills: prompts x
+#: tokens, and their attention launch shape.
 PREFILL = (4, 2048)
+#: Mixtral-8x7B's second prefill: one prompt past its window of 4096, so
+#: the kernel skips every key tile older than the window.
+LONG_PREFILL = (1, 8192)
+#: Mixtral-8x7B's depth on one card: 16 of its 32 layers (~43.8 GiB in
+#: bf16; all 32 are 87.0 GiB), at full width.
+MIXTRAL_LAYERS = 16
+#: Kimi K2's depth on one card: its first (dense) layer and one MoE layer
+#: of 384 experts and the shared expert (~36.5 GiB in bf16).
+KIMI_LAYERS = 2
 #: Full-width bf16 prefill through the kernel against the same model with
 #: plain attention: both round each attention output to bf16 but at other
 #: places inside, and the layers after it (36 of Qwen3-8B; up to 81 of
 #: Zamba2-7B, whose 13 shared-block sites differ) carry the difference to
-#: the logits; held as a relative L2 error of the next-token logits.
+#: the logits; held as a relative L2 error of the logits at every
+#: position, and apart on the positions past the window where it binds.
 PREFILL_REL_L2 = 5e-2
 #: ... or, where the model's own bf16 rounding noise is larger than that,
 #: this many times the floor measured in the same run: the twin's logits
@@ -250,6 +294,9 @@ PREFILL_REL_L2 = 5e-2
 #: differently (docs/port.md §hybrid). Each site's kernel output is held
 #: to its plain version on its own inputs at ``FLASH_TOL`` besides.
 FLOOR_FACTOR = 1.5
+#: The noise runs' seeds: the first sets the floor, the others print its
+#: spread.
+NOISE_SEEDS = (3, 4, 5)
 #: Decode logits against forward logits (tests/test_archs.py).
 DECODE_TOL = dict(rtol=5e-2, atol=5e-2)
 
@@ -740,8 +787,11 @@ def sim_serving(record) -> None:
 
 
 def rel_l2(got, want) -> float:
-    got, want = got.double(), want.double()
-    return float((got - want).norm() / want.norm())
+    num = den = 0.0
+    for x, y in _row_chunks(got, want):
+        num += float(((x - y) ** 2).sum())
+        den += float((y * y).sum())
+    return math.sqrt(num / den)
 
 
 @contextlib.contextmanager
@@ -757,6 +807,26 @@ def attention_through(fn):
         yield
     finally:
         layers._attention = orig
+
+
+@contextlib.contextmanager
+def routing_recorded(sink: list):
+    """Append each MoE layer's top-k experts (``(N, k)``, sorted per
+    token) to ``sink`` while the block runs."""
+    from repro_torch.models import layers
+
+    orig = layers.moe_route
+
+    def record(p, xt, cfg):
+        plan = orig(p, xt, cfg)
+        sink.append(plan[1].sort(-1).values)
+        return plan
+
+    layers.moe_route = record
+    try:
+        yield
+    finally:
+        layers.moe_route = orig
 
 
 def rounding_noise(seed: int):
@@ -816,11 +886,167 @@ def flash_inputs(g, b, hq, hkv, sq, sk, d, dtype):
     return mk(hq, sq), mk(hkv, sk), mk(hkv, sk)
 
 
-def lm_serving(cfg, label: str, f32_layers: int) -> dict:
-    """Phase 6 (Qwen3-8B) and 6h (Zamba2-7B): the flash kernel against its
-    plain version at the model's head dim, the prefill and the engine of
-    ``cfg`` at full width, and the f32 greedy check at ``f32_layers``
-    layers. Returns the numbers phase 5's flash row needs."""
+def kept_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a head attends to: the mask of ``_mask`` in
+    ``kernels/flash_attention/ref.py`` (diagonal at ``sk - sq``)."""
+    total = 0
+    for i in range(sk - sq, sk):
+        hi = i + 1 if causal else sk
+        lo = max(0, i - window + 1) if window > 0 else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def prefill_check(cfg, bundle, plain, model, shape, sites: int,
+                  seed: int) -> dict:
+    """The prefill step of ``model`` on ``shape`` (prompts x tokens, seeded
+    tokens): its wall, tokens/s and peak memory, the flash launches
+    counted from 0 (``sites`` expected), each site's kernel output against
+    its plain version on that site's own q, k and v, and the logits
+    against the plain-attention twin ``plain`` beside the twin's own
+    rounding floor: at every position, and apart past the window where it
+    binds; for an MoE model also the tokens whose top-k experts differ
+    from the twin's."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    dev = "cuda"
+    b, s = shape
+    prefill = bundle.make_prefill_step()
+    tok_gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(1, cfg.vocab, shape, generator=tok_gen,
+                           device=dev)
+    prefill(model, {"tokens": tokens[:1, :128]})  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    nxt = prefill(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"launches": flash_attention.launches, "wall": wall}
+    phase(f"  launches on the {cfg.name} prefill path ({b}x{s}): "
+          f"{{'flash_attention': {out['launches']}}}")
+    if out["launches"] != sites:
+        fail(f"flash_attention launched {out['launches']} times in the "
+             f"{cfg.name} prefill {b}x{s}, expected {sites}")
+    if nxt.shape != (b, cfg.vocab) or not torch.isfinite(nxt).all():
+        fail(f"prefill logits: shape {tuple(nxt.shape)} or non-finite")
+    out["peak"] = torch.cuda.max_memory_allocated() / 2**30
+    # Each site's kernel output against the plain version on the same q,
+    # k and v: the prefill's own activations (a second, uncounted run).
+    seen = []
+
+    def capture(orig, q, k, v, **kw):
+        o = orig(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, causal=kw["causal"],
+                                     window=kw["window"])
+        seen.append((max_err(o, want), torch.allclose(
+            o.float(), want.float(), **FLASH_TOL["bfloat16"])))
+        return o
+
+    kernel_routes = []
+    with attention_through(capture), routing_recorded(kernel_routes):
+        full = bundle.forward(model, {"tokens": tokens})
+    phase(f"  each of the {len(seen)} sites' kernel output vs plain on its "
+          f"own q, k, v: max abs err {max(e for e, _ in seen):.3e} "
+          f"(rtol/atol {FLASH_TOL['bfloat16']['atol']})")
+    if len(seen) != sites or not all(ok for _, ok in seen):
+        fail(f"{cfg.name} prefill sites vs plain: {seen}")
+    out["errs"] = [e for e, _ in seen]
+    # The timed prefill's next-token logits are the forward's last row.
+    last = (slice(None), -1)
+    if not torch.equal(full[last], nxt):
+        fail(f"{cfg.name} prefill {b}x{s}: the timed prefill's next-token "
+             f"logits != the forward's last row (max abs err "
+             f"{max_err(full[last], nxt)})")
+    # The logits against the plain-attention twin at every position, and
+    # apart on the rows past the window where it binds, each beside the
+    # twin moved by a rounding-level change of every attention output
+    # (the floor, seed NOISE_SEEDS[0]; the others print its spread). The
+    # next token is printed but not gated: in an MoE model such a change
+    # flips some tokens' top-k experts, and a flipped token's logits move
+    # by a step, so one row's floor is a coin toss (the flips are counted
+    # below; docs/port.md §moe).
+    regions = {"every position": (slice(None), slice(None))}
+    w = cfg.sliding_window
+    if w and s > w:
+        regions[f"positions >= {w}"] = (slice(None), slice(w, None))
+    plain_routes = []
+    with routing_recorded(plain_routes):
+        want = plain.forward(model, {"tokens": tokens})
+    floors = {r: [] for r in [*regions, "next token"]}
+    noise_routes = []
+    for noise_seed in NOISE_SEEDS:
+        noise_routes.append([])
+        with attention_through(rounding_noise(noise_seed)), \
+                routing_recorded(noise_routes[-1]):
+            moved = plain.forward(model, {"tokens": tokens})
+        for r, ix in [*regions.items(), ("next token", last)]:
+            floors[r].append(rel_l2(moved[ix], want[ix]))
+        del moved
+    spread = lambda fl: ", ".join(  # noqa: E731
+        f"{x:.3e}" for x in fl)
+    phase(f"  {cfg.name} prefill {b}x{s} ({cfg.n_layers} layers, "
+          f"{cfg.num_params():.0f} parameters"
+          f"{f', window {w}' if w else ''}): {wall * 1e3:.1f} ms, "
+          f"{b * s / wall:.0f} tokens/s, peak memory {out['peak']:.2f} GiB "
+          f"(from after the warm-up, weights included)")
+    bad = []
+    for r, ix in regions.items():
+        rel = rel_l2(full[ix], want[ix])
+        limit = max(PREFILL_REL_L2, FLOOR_FACTOR * floors[r][0])
+        phase(f"    logits vs plain attention, {r}: rel L2 {rel:.3e} (<= "
+              f"{limit:.3e}: the larger of {PREFILL_REL_L2} and "
+              f"{FLOOR_FACTOR} x the rounding floor; floors at seeds "
+              f"{NOISE_SEEDS}: {spread(floors[r])}), max abs err "
+              f"{max_err(full[ix], want[ix]):.3e}")
+        if not rel <= limit:
+            bad.append(f"{r}: rel L2 {rel} (limit {limit})")
+    agree = int((nxt.argmax(-1) == want[last].argmax(-1)).sum())
+    phase(f"    next token (== the forward's last row, bitwise): rel L2 "
+          f"{rel_l2(nxt, want[last]):.3e}, floors "
+          f"{spread(floors['next token'])} (not gated), argmax agrees on "
+          f"{agree}/{b}")
+    if plain_routes:
+        # Tokens whose top-k experts differ from the plain run's, over all
+        # MoE layers, and among them the prompts' last positions.
+        def flips(routes):
+            tok = pos = 0
+            for x, y in zip(routes, plain_routes):
+                diff = (x != y).any(-1)
+                tok += int(diff.sum())
+                pos += int(diff.view(b, s)[:, -1].sum())
+            return tok, pos
+
+        runs = {"kernel run": flips(kernel_routes)} | {
+            f"noise seed {n}": flips(r)
+            for n, r in zip(NOISE_SEEDS, noise_routes)}
+        phase(f"    top-k experts != the plain run's, of {b * s} tokens x "
+              f"{len(plain_routes)} MoE layers (last positions: of "
+              f"{b} x {len(plain_routes)}): " + "; ".join(
+                  f"{run} {t} ({p})" for run, (t, p) in runs.items()))
+    if bad:
+        fail(f"{cfg.name} prefill {b}x{s} logits vs plain attention: "
+             + "; ".join(bad))
+    return out
+
+
+def lm_serving(cfg, label: str, f32_layers: int, *,
+               prefills=(PREFILL,), matrix: bool = True,
+               engine: bool = True, f32_changes: dict | None = None) -> dict:
+    """Phases 6 (Qwen3-8B), 6h (Zamba2-7B), 6m (Mixtral-8x7B) and 6k
+    (Kimi K2): (a) the flash kernel against its plain version at the
+    model's head dim (the reference's matrix with ``matrix``) and at each
+    prefill's launch shape; (b) each prefill of ``cfg`` at full width
+    (:func:`prefill_check`); (c) with ``engine``, the engine at full
+    width; (d) with ``f32_layers``, the f32 greedy check at that depth,
+    its config changed by ``f32_changes``. Returns, per prefill shape,
+    the numbers phase 5's flash rows need."""
     import dataclasses
 
     import numpy as np
@@ -843,81 +1069,42 @@ def lm_serving(cfg, label: str, f32_layers: int) -> dict:
     sites = schedule(cfg)[0] if cfg.family == "hybrid" else cfg.n_layers
 
     # (a) the kernel against its plain version
-    out = {"errs": flash_vs_plain(cfg.head_dim, g)}
-    b, s = PREFILL
-    q, k, v = flash_inputs(g, b, cfg.n_heads, cfg.n_kv_heads, s, s,
-                           cfg.head_dim, torch.bfloat16)
-    out["errs"].append(check_close(
-        f"flash prefill shape q {tuple(q.shape)} kv {tuple(k.shape)} bf16",
-        flash_attention(q, k, v).float(),
-        flash_attention_plain(q, k, v).float(), FLASH_TOL["bfloat16"]))
-    out["qkv"] = (q, k, v)
+    errs = flash_vs_plain(cfg.head_dim, g) if matrix else []
+    out = {}
+    for b, s in prefills:
+        q, k, v = flash_inputs(g, b, cfg.n_heads, cfg.n_kv_heads, s, s,
+                               cfg.head_dim, torch.bfloat16)
+        kw = dict(window=cfg.sliding_window)
+        window = (f" window {cfg.sliding_window}" if cfg.sliding_window
+                  else "")
+        err = check_close(
+            f"flash prefill shape q {tuple(q.shape)} kv {tuple(k.shape)} "
+            f"bf16{window}", flash_attention(q, k, v, **kw).float(),
+            flash_attention_plain(q, k, v, **kw).float(),
+            FLASH_TOL["bfloat16"])
+        out[(b, s)] = {"qkv": (q, k, v), "window": cfg.sliding_window,
+                       "errs": errs + [err]}
 
-    # (b) the prefill step at full width, bf16
-    torch.cuda.reset_peak_memory_stats()
+    # (b) the prefill steps at full width, bf16
     bundle = registry.build(cfg, device=dev)
     plain = registry.build(cfg, device=dev, use_kernel=False)
-    model = bundle.init(torch.Generator(device=dev).manual_seed(0))
-    prefill = bundle.make_prefill_step()
-    tok_gen = torch.Generator(device=dev).manual_seed(1)
-    tokens = torch.randint(1, cfg.vocab, PREFILL, generator=tok_gen,
-                           device=dev)
-    prefill(model, {"tokens": tokens[:1, :128]})  # warm-up
-    torch.cuda.synchronize()
-    flash_attention.launches = 0
     t0 = time.perf_counter()
-    nxt = prefill(model, {"tokens": tokens})
+    model = bundle.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    out["launches"] = flash_attention.launches
-    phase(f"  launches on the {cfg.name} prefill path: "
-          f"{{'flash_attention': {out['launches']}}}")
-    if out["launches"] != sites:
-        fail(f"flash_attention launched {out['launches']} times in the "
-             f"{cfg.name} prefill, expected {sites}")
-    if nxt.shape != (b, cfg.vocab) or not torch.isfinite(nxt).all():
-        fail(f"prefill logits: shape {tuple(nxt.shape)} or non-finite")
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    # Each site's kernel output against the plain version on the same q,
-    # k and v: the prefill's own activations (a second, uncounted run).
-    seen = []
-
-    def capture(orig, q, k, v, **kw):
-        o = orig(q, k, v, **kw)
-        want = flash_attention_plain(q, k, v, causal=kw["causal"],
-                                     window=kw["window"])
-        seen.append((max_err(o, want), torch.allclose(
-            o.float(), want.float(), **FLASH_TOL["bfloat16"])))
-        return o
-
-    with attention_through(capture):
-        prefill(model, {"tokens": tokens})
-    phase(f"  each of the {len(seen)} sites' kernel output vs plain on its "
-          f"own q, k, v: max abs err {max(e for e, _ in seen):.3e} "
-          f"(rtol/atol {FLASH_TOL['bfloat16']['atol']})")
-    if len(seen) != sites or not all(ok for _, ok in seen):
-        fail(f"{cfg.name} prefill sites vs plain: {seen}")
-    out["errs"] += [e for e, _ in seen]
-    # The logits against the plain-attention twin, beside the twin moved
-    # by a rounding-level change of every attention output (the floor).
-    want = plain.make_prefill_step()(model, {"tokens": tokens})
-    with attention_through(rounding_noise(seed=3)):
-        moved = plain.make_prefill_step()(model, {"tokens": tokens})
-    rel = rel_l2(nxt, want)
-    floor = rel_l2(moved, want)
-    limit = max(PREFILL_REL_L2, FLOOR_FACTOR * floor)
-    agree = int((nxt.argmax(-1) == want.argmax(-1)).sum())
-    phase(f"  {cfg.name} prefill {b}x{s} ({cfg.n_layers} layers, "
-          f"{cfg.num_params():.0f} parameters): {wall * 1e3:.1f} ms, "
-          f"{b * s / wall:.0f} tokens/s, peak memory {peak:.2f} GiB; "
-          f"next-token logits vs plain attention: rel L2 {rel:.3e} (<= "
-          f"{limit:.3e}: the larger of {PREFILL_REL_L2} and "
-          f"{FLOOR_FACTOR} x the rounding floor {floor:.3e}), max abs err "
-          f"{max_err(nxt, want):.3e}, argmax agrees on {agree}/{b}")
-    if not rel <= limit:
-        fail(f"{cfg.name} prefill logits rel L2 {rel} vs plain attention "
-             f"(limit {limit})")
-    del want, moved
+    phase(f"  {cfg.name} at {cfg.n_layers} layers: {cfg.num_params():.0f} "
+          f"parameters built on the card from a seeded generator in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    for i, shape in enumerate(prefills):
+        got = prefill_check(cfg, bundle, plain, model, shape, sites,
+                            seed=1 + i)
+        out[shape]["launches"] = got["launches"]
+        out[shape]["errs"] += got["errs"]
+    if not engine:
+        del model, bundle, plain
+        torch.cuda.empty_cache()
+        phase(f"  {label}: {time.perf_counter() - t6:.1f} s")
+        return out
 
     # (c) the engine at full width, bf16
     rng = np.random.default_rng(0)
@@ -959,7 +1146,8 @@ def lm_serving(cfg, label: str, f32_layers: int) -> dict:
 
     # (d) greedy consistency at full width and reduced depth, f32: two
     # slots at one position, then a third request in a re-used slot
-    f32 = dataclasses.replace(cfg, n_layers=f32_layers, dtype="float32")
+    f32 = dataclasses.replace(cfg, n_layers=f32_layers, dtype="float32",
+                              **(f32_changes or {}))
     bundle = registry.build(f32, device=dev)
     model = bundle.init(torch.Generator(device=dev).manual_seed(2))
     prompts = [rng.integers(1, cfg.vocab, 6).tolist() for _ in range(3)]
@@ -976,8 +1164,11 @@ def lm_serving(cfg, label: str, f32_layers: int) -> dict:
                 fail(f"f32 engine request {rid}: token {t} != forward "
                      f"argmax after {seq}")
             seq.append(t)
-    phase(f"  f32 {f32_layers}-layer engine, 2 slots at one position and a "
-          f"re-used slot: {done} == argmax of the kernel-run forward")
+    extra = (f", capacity factor {f32.moe.capacity_factor}" if f32.moe
+             else "")
+    phase(f"  f32 {f32_layers}-layer engine{extra}, 2 slots at one "
+          f"position and a re-used slot: {done} == argmax of the "
+          f"kernel-run forward")
     toks = torch.tensor([p + done[rid] for rid, p in enumerate(prompts)],
                         device=dev)
     n = toks.shape[1]
@@ -993,6 +1184,194 @@ def lm_serving(cfg, label: str, f32_layers: int) -> dict:
     torch.cuda.empty_cache()
     phase(f"  {label}: {time.perf_counter() - t6:.1f} s")
     return out
+
+
+def moe_serving():
+    """Phases 6m (Mixtral-8x7B) and 6k (Kimi K2), the MoE family at full
+    width and cut depth, bf16, seeded weights built on the card: the
+    prefills (Mixtral's 4x2048 and 1x8192, where its window of 4096
+    binds; Kimi's 4x2048 at D 112 with GQA 8), each flash site held to
+    its plain version on its own q, k, v; Mixtral's engine and its f32
+    greedy check at 2 layers with the no-drop capacity factor E/k
+    (docs/port.md §moe). Mixtral is freed before Kimi is built."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    mixtral = dataclasses.replace(get_arch("mixtral-8x7b"),
+                                  n_layers=MIXTRAL_LAYERS)
+    moe = mixtral.moe
+    mix = lm_serving(
+        mixtral, "phase 6m", f32_layers=2, prefills=(PREFILL, LONG_PREFILL),
+        matrix=False, f32_changes={"moe": dataclasses.replace(
+            moe, capacity_factor=moe.n_experts / moe.top_k)})
+    kimi = lm_serving(
+        dataclasses.replace(get_arch("kimi-k2-1t-a32b"),
+                            n_layers=KIMI_LAYERS),
+        "phase 6k", f32_layers=0, matrix=False, engine=False)
+    return mix, kimi
+
+
+def sdpa_ms(q, k, v, window: int) -> tuple[float, str]:
+    """CUDA-event ms of one ``scaled_dot_product_attention`` call on the
+    kernel's inputs (causal, GQA), and the backend that ran. SDPA has no
+    window argument: a window is given as an explicit boolean mask, and
+    each backend is tried in turn (cuDNN, memory-efficient, math); the
+    fastest that takes the call is reported."""
+    import torch
+    import torch.nn.functional as F
+
+    if not window:
+        ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 20)
+        return ms, "is_causal, enable_gqa, default dispatch"
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sq, sk = q.shape[2], k.shape[2]
+    qi = torch.arange(sk - sq, sk, device=q.device)[:, None]
+    ki = torch.arange(sk, device=q.device)[None, :]
+    mask = (qi >= ki) & (qi - ki < window)
+    best = None
+    for backend in (SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:  # a backend that cannot take the call warns, then raises
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True), 5)
+        except RuntimeError:
+            continue
+        if best is None or ms < best[0]:
+            best = (ms, f"boolean attn_mask, enable_gqa, {backend.name}")
+    if best is None:
+        fail("scaled_dot_product_attention took the windowed call on no "
+             "backend")
+    return best
+
+
+def example(name: str):
+    """``examples/<name>.py`` of this checkout, imported as a module."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured: (result, text)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+#: The LBM example on the card: a 2048² cavity (9 f32 planes, 151 MB of
+#: state per checkpoint), m 4, a checkpoint every 100 steps.
+LBM_EXAMPLE = ["--height", "2048", "--width", "2048", "--m", "4",
+               "--ckpt-every", "100"]
+
+
+def paper_flow() -> None:
+    """Phase 10: the paper's flow as a user runs it, the port's three
+    examples on the card (docs/port.md §examples): the quickstart, the
+    DSE walkthrough (``--topk 1``) and the LBM cavity with checkpoint and
+    restart, the restarted run bitwise equal to the unbroken one."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.train import checkpoint as ckpt
+
+    t10 = time.perf_counter()
+    phase("phase 10: the paper's flow: the port's examples on the card")
+    tmp = tempfile.mkdtemp(prefix="phase10-")
+    saved_env = {k: os.environ.get(k) for k in
+                 ("REPRO_TORCH_MEASURE_CACHE", "REPRO_TORCH_STUDY_DIR")}
+    try:
+        # (a) the quickstart, against the same f32 operations in numpy
+        got, text = run_quiet(example("torch_quickstart").main, [])
+        t = np.arange(8, dtype=np.float32)
+        t1, t2 = t * (t + 1), (t + 2) + (t + 3)
+        want = {"z1": t1 - t2, "z2": t1 / t2 + np.float32(123.456),
+                "bout1": t2}
+        for key, value in want.items():
+            if not np.allclose(got[key], value, rtol=1e-6, atol=0):
+                fail(f"torch_quickstart {key} {got[key]} != {value}")
+        if not got["cascade_equal"] or "(n=1, m=4)" not in text:
+            fail(f"torch_quickstart output: {text}")
+        phase(f"  torch_quickstart on the card: z1, z2, bout1 == numpy f32 "
+              f"(rtol 1e-6), cascade == 4 sequential applications; "
+              f"{len(text.splitlines())} lines printed")
+
+        # (b) the DSE walkthrough, its cache and studies in a scratch dir
+        os.environ["REPRO_TORCH_MEASURE_CACHE"] = os.path.join(tmp, "mc.json")
+        os.environ["REPRO_TORCH_STUDY_DIR"] = os.path.join(tmp, "studies")
+        t0 = time.perf_counter()
+        report, text = run_quiet(example("torch_dse_explore").main,
+                                 ["--topk", "1"])
+        wall = time.perf_counter() - t0
+        if "-> best configuration: (n, m) = (1, 4)" not in text:
+            fail("torch_dse_explore: section 1 did not pick (1, 4)")
+        for app in ("lbm", "diffusion"):
+            ex = report[app]["executed"]
+            if not ex or any(e["interpret"] for e in ex):
+                fail(f"torch_dse_explore {app}: nothing executed on the card")
+            for e in ex:
+                phase(f"  torch_dse_explore {app}: block_h {e['block_h']}, "
+                      f"m {e['m']}, d {e['d']}: "
+                      f"{e['measured_gflops']:.1f} GF/s measured, "
+                      f"{e['measured_mlups']:.0f} MLUPS, calibrated "
+                      f"rel_error {e['rel_error']:+.3f}")
+        phase(f"  torch_dse_explore --topk 1: {wall:.2f} s (the calibration "
+              "and kernels of phase 7 are reused in this process)")
+
+        # (c) the LBM cavity: unbroken, then broken at 200 and resumed
+        lbm = example("torch_lbm_simulation")
+        runs = {}
+        for key, steps, where in (("whole", 400, "a"), ("first", 200, "b"),
+                                  ("resumed", 400, "b")):
+            runs[key], text = run_quiet(lbm.main, LBM_EXAMPLE + [
+                "--steps", str(steps), "--ckpt-dir", os.path.join(tmp, where)])
+            for line in text.splitlines():
+                if line.startswith("[lbm]") and ("steps" in line
+                                                 or "restored" in line):
+                    phase(f"  torch_lbm_simulation {key}: {line}")
+        whole, resumed = runs["whole"], runs["resumed"]
+        if resumed["start"] != 200 or resumed["done"] != 400:
+            fail(f"the LBM restart did not resume at 200: {resumed['start']}")
+        check_equal("LBM 2048^2 restarted at step 200, f at step 400 vs the "
+                    "unbroken run", resumed["f"], whole["f"])
+        t0 = time.perf_counter()
+        step, tree, _ = ckpt.restore_latest(os.path.join(tmp, "a"),
+                                            {"f": whole["f"]})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if step != 400 or not tree["f"].is_cuda:
+            fail(f"restore_latest: step {step}, device {tree['f'].device}")
+        check_equal("the step-400 checkpoint restored vs the saved f",
+                    tree["f"], whole["f"])
+        saves = whole["save_s"] + runs["first"]["save_s"] + resumed["save_s"]
+        mb = whole["f"].numel() * whole["f"].element_size() / 1e6
+        phase(f"  LBM 2048^2 m 4: {whole['mlups']:.1f} MLUPS over 400 steps "
+              f"with 4 saves; {len(saves)} saves of {mb:.0f} MB, "
+              f"{sum(saves) / len(saves):.3f} s each (max "
+              f"{max(saves):.3f}); restore {resumed['restore_s']:.3f} s in "
+              f"the example, {restore_s:.3f} s here")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase(f"  phase 10: {time.perf_counter() - t10:.1f} s")
 
 
 def dse_loop(kind: str, hbm: float, fp32: float) -> None:
@@ -1958,6 +2337,7 @@ def main() -> None:
     lm = lm_serving(get_arch("qwen3-8b"), "phase 6", f32_layers=4)
     # one group of six Mamba2 layers and the shared block, two tail layers
     hyb = lm_serving(get_arch("zamba2-7b"), "phase 6h", f32_layers=8)
+    mix, kimi = moe_serving()
 
     # ---- 5. timing at the main-path shapes ----------------------------
     phase("phase 5: timing (CUDA events) and kernel vs plain at the "
@@ -2138,31 +2518,43 @@ def main() -> None:
         flash_attention_plain,
     )
 
-    for name, run in (("flash_attention", lm), ("flash_attention[D 112]",
-                                                hyb)):
+    # Flash attention at each prefill's launch shape (bf16, causal): the
+    # Qwen3-8B prefill's (D 128; Mixtral's 4x2048 is the same launch), the
+    # Zamba2-7B shared block's (D 112), Mixtral's 1x8192 with its window
+    # of 4096 binding, and Kimi K2's (D 112, GQA 8).
+    flash_rows = (("flash_attention", lm[PREFILL]),
+                  ("flash_attention[D 112]", hyb[PREFILL]),
+                  ("flash_attention[D 128, window 4096]", mix[LONG_PREFILL]),
+                  ("flash_attention[D 112, GQA 8]", kimi[PREFILL]))
+    for name, run in flash_rows:
         # Two layouts: contiguous (B, H, S, D), and the head-split views
         # of (B, S, H, D) buffers that the prefill passes (read in place).
         q, k, v = run.pop("qkv")
+        window = run["window"]
         b_, hq_, s_, d_ = q.shape
-        ops = 4 * b_ * hq_ * d_ * (s_ * (s_ + 1) // 2)  # causal, sq == sk
+        ops = 4 * b_ * hq_ * d_ * kept_pairs(s_, s_, True, window)
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
         bound_ms = max(ops / bf16_peak, nbytes / hbm) * 1e3
-        plain_ms, want = cuda_ms(lambda: flash_attention_plain(q, k, v), 2)
+        plain_ms, want = cuda_ms(
+            lambda: flash_attention_plain(q, k, v, window=window), 2)
         views = tuple(x.transpose(1, 2).contiguous().transpose(1, 2)
                       for x in (q, k, v))
         flash_errs = []
+        label = f"D {d_}, Hq {hq_}, Hkv {k.shape[1]}, {b_}x{s_}" + (
+            f", window {window}" if window else "")
         for layout, (qq, kk, vv) in (("contiguous", (q, k, v)),
                                      ("head-split views", views)):
-            ms, got = cuda_ms(lambda: flash_attention(qq, kk, vv), 20)
+            ms, got = cuda_ms(
+                lambda: flash_attention(qq, kk, vv, window=window), 20)
             flash_errs.append(check_close(
-                f"flash D {d_} prefill shape, {layout}, vs plain",
+                f"flash {label} prefill shape, {layout}, vs plain",
                 got.float(), want.float(), FLASH_TOL["bfloat16"]))
-            lib_ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qq, kk, vv, is_causal=True, enable_gqa=True), 20)
-            phase(f"  flash D {d_} {layout}: {ms:.4f} ms, "
+            lib_ms, backend = sdpa_ms(qq, kk, vv, window)
+            phase(f"  flash {label} {layout}: {ms:.4f} ms, "
                   f"{ops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of "
                   f"the bound ({bound_ms:.4f} ms); SDPA {lib_ms:.4f} ms "
-                  f"({ops / lib_ms / 1e9:.1f} TFLOP/s)")
+                  f"({ops / lib_ms / 1e9:.1f} TFLOP/s, {backend}); plain "
+                  f"{plain_ms:.2f} ms")
         # The row holds the layout of the main path: the head-split views.
         record(name, "src/repro_torch/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention/flash_attention.py:106",
@@ -2170,7 +2562,7 @@ def main() -> None:
                max(run["errs"] + flash_errs), lib_ms, peak=bf16_peak)
         del q, k, v, views, want, got
         torch.cuda.empty_cache()
-    del lm, hyb
+    del lm, hyb, mix, kimi, flash_rows
 
     # The stencil kernels' design choices side by side, on the same
     # main-path inputs (three rounds after a warm-up).
@@ -2207,6 +2599,7 @@ def main() -> None:
     dse_loop(kind, hbm, fp32)
     stream_programs(psims, hbm, record)
     sim_serving(record)
+    paper_flow()
     phase(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line)
     print(json.dumps({"kernels": kernels}))

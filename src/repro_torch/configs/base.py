@@ -5,7 +5,7 @@ analytic parameter counts, with ``param_dtype`` a ``torch.dtype``. The
 hybrid count walks the port's own ``Zamba2`` module, built on the meta
 device (nothing is allocated), as the reference walks its parameter tree
 through ``jax.eval_shape``; the SSM family (xLSTM) is not ported yet
-(ROADMAP Queue 1, item 8.4), so its count raises here.
+(ROADMAP Queue 1, item 5), so its count raises here.
 """
 
 from __future__ import annotations
@@ -105,7 +105,7 @@ class ArchConfig:
             raise NotImplementedError(
                 f"num_params of the {self.family!r} family counts its real "
                 "parameter tree, and the xLSTM model is not ported yet "
-                "(ROADMAP Queue 1, item 8.4)"
+                "(ROADMAP Queue 1, item 5)"
             )
         if self.family == "hybrid":
             # count the real module once (meta tensors: no allocation)

@@ -110,19 +110,21 @@ def params_from_jax(tree, cfg, device):
 
     ``tree`` is the JAX package's ``init_params`` tree with every leaf a
     numpy array: ``embed``, ``ln_f``, ``lm_head`` (unless tied), and
-    either ``layers`` (dense) or ``mamba_layers`` and the one
-    ``shared_attn`` block (hybrid). Stacked leaves carry the ``L`` axis
-    first. Matrices are ``(d_in, d_out)`` in both packages, so nothing is
-    transposed. Other trees raise.
+    ``layers`` (dense), ``moe_layers`` after the dense head ``layers``,
+    if any (MoE: ``moe.router``, ``moe.w_gate``, ``moe.w_up``,
+    ``moe.w_down`` and an optional ``moe.shared``), or ``mamba_layers``
+    and the one ``shared_attn`` block (hybrid). Stacked leaves carry the
+    ``L`` axis first. Matrices are ``(d_in, d_out)`` in both packages, so
+    nothing is transposed. Other trees raise.
     """
     from repro_torch.models.transformer import Transformer
     from repro_torch.models.zamba2 import Zamba2
 
     dev = resolve_device(device)
-    if "moe_layers" in tree or not ("layers" in tree
-                                    or "mamba_layers" in tree):
-        raise NotImplementedError("only the dense decoder-only tree "
-                                  "(``layers``) and the hybrid tree "
+    if not ("layers" in tree or "moe_layers" in tree
+            or "mamba_layers" in tree):
+        raise NotImplementedError("only the decoder-only trees (``layers``, "
+                                  "``moe_layers``) and the hybrid tree "
                                   "(``mamba_layers``) are ported")
 
     def put(param, value):
@@ -132,16 +134,15 @@ def params_from_jax(tree, cfg, device):
         with torch.no_grad():
             param.copy_(torch.from_numpy(np.array(value, np.float32)))
 
-    def put_block(layer, block, i=None):
-        """A decoder block's norms, attention and MLP; ``i`` indexes a
-        stacked tree."""
-        pick = (lambda a: a) if i is None else (lambda a: a[i])
-        put(layer.ln1, pick(block["ln1"]))
-        put(layer.ln2, pick(block["ln2"]))
-        for name, value in block["attn"].items():
-            put(getattr(layer.attn, name), pick(value))
-        for name, value in block["mlp"].items():
-            put(getattr(layer.mlp, name), pick(value))
+    def put_block(module, block, i=None):
+        """A (nested) block of the tree into the module whose attributes
+        carry its keys (a decoder block: norms, ``attn``, ``mlp`` or
+        ``moe``); ``i`` indexes a stacked tree."""
+        for name, value in block.items():
+            if isinstance(value, dict):
+                put_block(getattr(module, name), value, i)
+            else:
+                put(getattr(module, name), value if i is None else value[i])
 
     hybrid = "mamba_layers" in tree
     model = (Zamba2 if hybrid else Transformer)(cfg, device=dev)
@@ -155,6 +156,10 @@ def params_from_jax(tree, cfg, device):
                 put(getattr(layer, name), value[i])
         put_block(model.shared, tree["shared_attn"])
     else:
+        n_dense = len(tree["layers"]["ln1"]) if "layers" in tree else 0
         for i, layer in enumerate(model.layers):
-            put_block(layer, tree["layers"], i)
+            if i < n_dense:
+                put_block(layer, tree["layers"], i)
+            else:
+                put_block(layer, tree["moe_layers"], i - n_dense)
     return model

@@ -1,5 +1,5 @@
-"""Shared neural layers, the dense subset (the port of the JAX package's
-``models/layers.py``).
+"""Shared neural layers (the port of the JAX package's ``models/layers.py``):
+norms, rope, attention, the MLPs and the mixture of experts.
 
 Conventions:
 * parameters live in ``nn.Module``s (:class:`Attention`, :class:`MLP`) as
@@ -11,7 +11,9 @@ Conventions:
 
 The reference's sharding hints (``parallel.hints.constrain``) and remat
 names (``checkpoint_name``) are no-ops on one unmeshed card and are
-dropped. MoE waits for a later slice (ROADMAP Queue 1, item 8.1).
+dropped. So is the MoE's all-to-all branch (``parallel/moe_ep.py``, which
+prices capacity per rank): the port's dispatch is the reference's at one
+block (``dp_size`` 1), docs/port.md §moe.
 """
 
 from __future__ import annotations
@@ -234,6 +236,89 @@ def mlp_apply(p: MLP, x, cfg):
     else:  # gelu, tanh-approximated as jax.nn.gelu's default
         h = F.gelu(h, approximate="tanh")
     return h @ p.w_down
+
+
+# --------------------------------------------------------------------------
+# Mixture of Experts (token-choice top-k with capacity, one block)
+# --------------------------------------------------------------------------
+
+
+class MoE(nn.Module):
+    """The experts of one MoE block (``moe_init``): an f32 router
+    ``(d, E)``, stacked swiglu experts ``w_gate``/``w_up`` ``(E, d, f)``
+    and ``w_down`` ``(E, f, d)``, and the optional shared expert, an
+    :class:`MLP` of width ``f * n_shared``."""
+
+    def __init__(self, cfg, *, device=None):
+        super().__init__()
+        m, dt = cfg.moe, cfg.param_dtype
+        e, d, f = m.n_experts, cfg.d_model, m.d_ff
+        self.router = _param((d, e), torch.float32, device)
+        self.w_gate = _param((e, d, f), dt, device)
+        self.w_up = _param((e, d, f), dt, device)
+        self.w_down = _param((e, f, d), dt, device)
+        if m.n_shared:
+            self.shared = MLP(cfg, d_ff=m.d_ff * m.n_shared, device=device)
+
+    @torch.no_grad()
+    def init_weights(self, cfg, generator: torch.Generator) -> None:
+        """The reference's distributions: router N(0, 0.02²), experts
+        N(0, 1/d_in), drawn one expert at a time so that the f32
+        temporaries stay one matrix on the weights' device."""
+        normal_(self.router, 0.02, generator)
+        for w in (self.w_gate, self.w_up, self.w_down):
+            for i in range(w.shape[0]):
+                normal_(w[i], 1.0 / math.sqrt(w.shape[1]), generator)
+        if hasattr(self, "shared"):
+            self.shared.init_weights(cfg, generator)
+
+
+def moe_route(p: MoE, xt, cfg):
+    """The reference's dispatch plan for the ``(N, d)`` tokens ``xt``:
+    ``(gates, idx, pos, keep, cap)``.
+
+    Softmax of the f32 router logits, the top ``k`` experts per token
+    (``idx``, ``(N, k)``) with their gates renormalised over the ``k``;
+    the ``N·k`` assignments flattened token-major; ``pos`` is each
+    assignment's place in its expert, a running one-hot count, and
+    ``keep`` is ``pos < cap`` with ``cap = int(max(k, cf·N·k/E))``."""
+    m = cfg.moe
+    n = xt.shape[0]
+    logits = xt.float() @ p.router  # (N, E)
+    gates, idx = torch.topk(torch.softmax(logits, dim=-1), m.top_k, dim=-1)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    cap = int(max(m.top_k, m.capacity_factor * n * m.top_k / m.n_experts))
+    onehot = F.one_hot(idx.reshape(-1), m.n_experts)  # (N·k, E), int64
+    pos = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1
+    return gates, idx, pos, pos < cap, cap
+
+
+def moe_apply(p: MoE, x, cfg):
+    """Token-choice top-k MoE with capacity over the ``B·S`` tokens of
+    ``x`` (the reference's ``moe_apply`` at one block): each kept
+    assignment is scattered into its expert's ``(cap, d)`` buffer, the
+    experts run as batched products over the ``(E, cap, d)`` buffer, and
+    each token sums its kept experts' outputs times their gates in
+    ``x.dtype``; a dropped assignment contributes 0. Nothing here waits
+    for the card: a dropped assignment is written to a spare row past the
+    buffer, which the experts never read."""
+    m = cfg.moe
+    b, s, d = x.shape
+    n, k, e = b * s, m.top_k, m.n_experts
+    xt = x.reshape(n, d)
+    gates, idx, pos, keep, cap = moe_route(p, xt, cfg)
+    slot = idx.reshape(-1) * cap + pos.clamp(max=cap - 1)  # (N·k,)
+    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf.index_copy_(0, torch.where(keep, slot, e * cap),
+                    xt.repeat_interleave(k, dim=0))
+    buf = buf[:-1].view(e, cap, d)
+    h = F.silu(torch.bmm(buf, p.w_gate)) * torch.bmm(buf, p.w_up)
+    y = torch.bmm(h, p.w_down).view(e * cap, d)
+    gathered = torch.where(keep[:, None], y[slot], 0)
+    out = (gathered.view(n, k, d) * gates[..., None].to(x.dtype)).sum(1)
+    if m.n_shared:
+        out = out + mlp_apply(p.shared, xt, cfg)
+    return out.reshape(b, s, d)
 
 
 # --------------------------------------------------------------------------

@@ -1,13 +1,13 @@
 """Architecture registry: config -> (init, forward, cache, decode) bundle
 consumed by the serving launcher, the engine and the tests (the port of
-the JAX package's ``models/registry.py``, families ``"dense"`` and
-``"hybrid"``).
+the JAX package's ``models/registry.py``, families ``"dense"``, ``"moe"``
+and ``"hybrid"``).
 
 The bundle is bound to one device at :func:`build`; its ``init`` draws the
 weights from an explicit ``torch.Generator``. Training (``loss``,
-``make_train_step``, ROADMAP Queue 1, item 8.5) and the other families
-(``"moe"``, ``"audio"``, ``"vlm"``: items 8.1–8.3; ``"ssm"``: item 8.4)
-wait for later slices.
+``make_train_step``, ROADMAP Queue 1, item 6) and the other families
+(``"audio"``: item 3; ``"vlm"``: item 4; ``"ssm"``: item 5) wait for
+later slices.
 """
 
 from __future__ import annotations
@@ -52,11 +52,11 @@ def build(cfg: ArchConfig, *, device="cuda",
     """The bundle of ``cfg`` on ``device``. ``use_kernel`` selects the
     attention of ``forward`` as in ``ops.attention`` (``None``: the flash
     kernel on a CUDA device, the chunked version on the CPU)."""
-    if cfg.family not in ("dense", "hybrid"):
+    if cfg.family not in ("dense", "moe", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-            "port serves the dense and hybrid families (ROADMAP Queue 1, "
-            "item 8)"
+            "port serves the dense, moe and hybrid families (ROADMAP "
+            "Queue 1: audio item 3, vlm item 4, ssm item 5)"
         )
     dev = resolve_device(device)
     if cfg.family == "hybrid":

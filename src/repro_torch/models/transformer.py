@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, the dense subset (the port of the JAX
+"""Decoder-only transformer LM, dense and MoE (the port of the JAX
 package's ``models/transformer.py``).
 
 Entry points:
@@ -12,8 +12,11 @@ The JAX package scans a stacked ``L`` axis under remat; here the layers
 are an ``nn.ModuleList`` walked by a Python loop, and no gradient is kept.
 The KV cache is a preallocated ``(L, B, Hkv, S, D)`` pair updated in place
 (docs/port.md §lm); ``decode_step`` returns the same tensors so that its
-signature stays the reference's. MoE layers, the encoder-decoder path and
-the frontends wait for later slices (ROADMAP Queue 1, items 8.1–8.3).
+signature stays the reference's. An MoE config's first
+``moe_start_layer`` layers are dense and the rest MoE (the reference's
+``layers`` and ``moe_layers`` groups, in that order in the cache;
+docs/port.md §moe). The encoder-decoder path and the VLM frontend's
+inputs wait for later slices (ROADMAP Queue 1, items 3 and 4).
 """
 
 from __future__ import annotations
@@ -26,49 +29,69 @@ from repro_torch.interop import resolve_device
 from .layers import (
     MLP,
     Attention,
+    MoE,
     _param,
     attention_block,
     decode_attention,
     mlp_apply,
+    moe_apply,
     normal_,
     rms_norm,
 )
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm attention + MLP block (``_init_layer`` / ``_layer_apply``)."""
+    """Pre-norm attention + MLP block, or + MoE block with ``moe=True``
+    (``_init_layer`` / ``_layer_apply``)."""
 
-    def __init__(self, cfg, *, device=None):
+    def __init__(self, cfg, *, moe: bool = False, device=None):
         super().__init__()
         self.ln1 = _param((cfg.d_model,), cfg.param_dtype, device)
         self.ln2 = _param((cfg.d_model,), cfg.param_dtype, device)
         self.attn = Attention(cfg, device=device)
-        self.mlp = MLP(cfg, device=device)
+        if moe:
+            self.moe = MoE(cfg, device=device)
+        else:
+            self.mlp = MLP(cfg, device=device)
 
     @torch.no_grad()
     def init_weights(self, cfg, generator: torch.Generator) -> None:
         self.ln1.fill_(1.0)
         self.ln2.fill_(1.0)
         self.attn.init_weights(cfg, generator)
-        self.mlp.init_weights(cfg, generator)
+        (self.moe if hasattr(self, "moe") else self.mlp).init_weights(
+            cfg, generator)
+
+    def feed_forward(self, h, cfg, rows=None):
+        """The MLP, or the MoE over ``h``'s tokens. With ``rows`` (decode
+        only) the MoE dispatches the listed batch rows alone, so its
+        capacity counts those rows' tokens; the other rows get 0."""
+        if not hasattr(self, "moe"):
+            return mlp_apply(self.mlp, h, cfg)
+        if rows is None:
+            return moe_apply(self.moe, h, cfg)
+        out = torch.zeros_like(h)
+        out[rows] = moe_apply(self.moe, h[rows], cfg)
+        return out
 
     def forward(self, x, cfg, positions, *, causal: bool = True,
                 use_kernel: bool | None = None):
         x = x + attention_block(self.attn, rms_norm(x, self.ln1), cfg,
                                 positions, causal=causal,
                                 use_kernel=use_kernel)
-        return x + mlp_apply(self.mlp, rms_norm(x, self.ln2), cfg)
+        return x + self.feed_forward(rms_norm(x, self.ln2), cfg)
 
 
 class Transformer(nn.Module):
-    """Embedding, ``n_layers`` decoder layers, final norm and head."""
+    """Embedding, ``n_layers`` decoder layers (MoE from
+    ``moe_start_layer`` on, for an MoE config), final norm and head."""
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
-        if cfg.moe is not None or cfg.enc_dec:
+        if cfg.enc_dec:
             raise NotImplementedError(
-                f"{cfg.name}: MoE layers and the encoder-decoder path are "
-                "not ported yet (ROADMAP Queue 1, items 8.1 and 8.2)"
+                f"{cfg.name}: the encoder-decoder path is not ported yet "
+                "(ROADMAP Queue 1, item 3)"
             )
         self.cfg = cfg
         dt = cfg.param_dtype
@@ -76,8 +99,10 @@ class Transformer(nn.Module):
         self.ln_f = _param((cfg.d_model,), dt, device)
         if not cfg.tie_embeddings:
             self.lm_head = _param((cfg.d_model, cfg.vocab), dt, device)
+        moe_start = cfg.moe.moe_start_layer if cfg.moe else cfg.n_layers
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, device=device) for _ in range(cfg.n_layers)
+            DecoderLayer(cfg, moe=i >= moe_start, device=device)
+            for i in range(cfg.n_layers)
         )
 
     @torch.no_grad()
@@ -145,7 +170,9 @@ def decode_step(model: Transformer, token, cache: dict, pos: int,
 
     Writes each layer's new K/V at ``pos`` into ``cache`` in place: into
     every batch row (``rows=None``, exactly the reference's step), or only
-    into the batch rows listed in ``rows``."""
+    into the batch rows listed in ``rows``. With ``rows`` an MoE layer
+    dispatches those rows alone (its capacity counts ``len(rows)``
+    tokens), and only their logits are defined (docs/port.md §moe)."""
     cfg = model.cfg
     x = model.embed[token]
     if rows is not None:  # one host-to-device copy per step, not per layer
@@ -155,6 +182,6 @@ def decode_step(model: Transformer, token, cache: dict, pos: int,
         o, _, _ = decode_attention(layer.attn, h, cfg, cache["k"][i],
                                    cache["v"][i], pos, rows)
         x = x + o
-        x = x + mlp_apply(layer.mlp, rms_norm(x, layer.ln2), cfg)
+        x = x + layer.feed_forward(rms_norm(x, layer.ln2), cfg, rows)
     x = rms_norm(x, model.ln_f)
     return x @ model.head(), cache

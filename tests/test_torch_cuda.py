@@ -958,3 +958,146 @@ def test_pipelined_run_makes_no_host_sync(card):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(got, want)
+
+
+# ------------------------- MoE, GQA at D 112, binding windows -------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ["gqa8_d112", "window256_d128"])
+def test_flash_gqa_d112_and_binding_window_equal_plain(card, shape, dtype):
+    """Kimi K2's attention, D 112 with 8 query heads per KV head, and a
+    window that skips key tiles (Sk 1024, window 256, Mixtral's D 128 and
+    GQA 4), each against the plain version."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    b, hq, hkv, s, d, window = {"gqa8_d112": (2, 16, 2, 384, 112, 0),
+                                "window256_d128": (1, 8, 2, 1024, 128, 256)
+                                }[shape]
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q = torch.randn((b, hq, s, d), generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn((b, hkv, s, d), generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    got = flash_attention(q, k, v, window=window)
+    want = flash_attention_plain(q, k, v, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+def test_flash_kimi_launch_at_prefill_strides(card):
+    """The Kimi K2 prefill launch (q 4x64x2048x112, kv 4x8x2048x112, bf16,
+    causal) on the head-split views the prefill passes, read in place."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        _kernel_operand,
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    q = torch.randn((4, 2048, 64 * 112), generator=g, device="cuda")
+    kx, vx = (torch.randn((4, 2048, 8 * 112), generator=g, device="cuda")
+              for _ in range(2))
+    q = q.bfloat16().view(4, 2048, 64, 112).transpose(1, 2)
+    k = kx.bfloat16().view(4, 2048, 8, 112).transpose(1, 2)
+    v = vx.bfloat16().view(4, 2048, 8, 112).transpose(1, 2)
+    assert all(_kernel_operand(x) is x for x in (q, k, v))
+    got = flash_attention(q, k, v)
+    want = flash_attention_plain(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **FLASH_TOL[torch.bfloat16])
+
+
+def _moe_cfg(name, cf=None, **changes):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch(name).reduced(), **changes)
+    if cf is not None:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+    return cfg
+
+
+@pytest.mark.parametrize("cf", [None, 0.75])
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "kimi-k2-1t-a32b"])
+def test_moe_apply_on_the_card_equals_its_cpu_twin(card, name, cf):
+    """The MoE block on the card against the same weights and tokens on
+    the CPU, f32 (cuBLAS against the CPU's products: rtol/atol 1e-5); the
+    same assignments kept, drops included at capacity factor 0.75."""
+    from repro_torch.models import layers as tl
+
+    cfg = _moe_cfg(name, cf)
+    moe = tl.MoE(cfg, device="cpu")
+    moe.init_weights(cfg, torch.Generator().manual_seed(0))
+    x = torch.randn((4, 16, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    want = tl.moe_apply(moe, x, cfg)
+    keep = tl.moe_route(moe, x.reshape(-1, cfg.d_model), cfg)[3]
+    moe.to("cuda")
+    got = tl.moe_apply(moe, x.cuda(), cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    got_keep = tl.moe_route(moe, x.cuda().reshape(-1, cfg.d_model), cfg)[3]
+    assert torch.equal(got_keep.cpu(), keep)
+    assert keep.all() == (cf is None)
+
+
+def test_moe_prefill_and_engine_on_the_card(card):
+    """A narrow Mixtral (2 MoE layers, window 16, f32) on the card: the
+    prefill through the kernel equals the plain-attention twin, and with
+    the no-drop capacity E/k the engine's greedy tokens at max_batch 2,
+    with a re-used slot, equal the argmax of the forward."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+    )
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = _moe_cfg("mixtral-8x7b", cf=2.0, head_dim=64)
+    bundle = registry.build(cfg, device="cuda")
+    plain = registry.build(cfg, device="cuda", use_kernel=False)
+    model = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 64), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(1))
+    n = flash_attention.launches
+    got = bundle.make_prefill_step()(model, {"tokens": tokens})
+    assert flash_attention.launches == n + cfg.n_layers
+    want = plain.make_prefill_step()(model, {"tokens": tokens})
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+    prompts = [[5, 17, 31], [7, 2, 44], [9, 3]]
+    eng = ServeEngine(bundle, model, max_batch=2, max_seq=32)
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=list(p), max_new_tokens=5))
+    done = {c.rid: c.tokens for c in eng.run_until_drained()}
+    for rid, p in enumerate(prompts):
+        seq = list(p)
+        for t in done[rid]:
+            logits = bundle.forward(model, {"tokens": torch.tensor(
+                [seq], device="cuda")})
+            assert t == int(logits[0, -1].argmax())
+            seq.append(t)
+
+
+def test_async_checkpoint_snapshots_cuda_tensors(card, tmp_path):
+    """``AsyncCheckpointer.save`` copies CUDA leaves to the host before
+    its thread starts: launches issued right after it overwrite the
+    tensors in place, and the checkpoint holds the values at the call;
+    a restore lands on the ``like`` leaves' card, in their dtype."""
+    from repro_torch.train import checkpoint as ckpt
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    f = torch.randn((9, 512, 512), generator=g, device="cuda")
+    b16 = torch.randn(1000, generator=g, device="cuda").bfloat16()
+    want = (f.cpu(), b16.cpu())
+    saver = ckpt.AsyncCheckpointer(str(tmp_path))
+    saver.save(1, {"f": f, "b16": b16})
+    for _ in range(20):
+        f.mul_(1.5).add_(1.0)
+    b16.zero_()
+    saver.wait()
+    _, tree, _ = ckpt.restore_latest(str(tmp_path), {"f": f, "b16": b16})
+    assert tree["f"].is_cuda and tree["b16"].dtype == torch.bfloat16
+    assert torch.equal(tree["f"].cpu(), want[0])
+    assert torch.equal(tree["b16"].cpu(), want[1])

@@ -49,6 +49,16 @@ import repro_torch.cli
 import repro_torch.core.program
 import repro_torch.apps.advection_diffusion
 import repro_torch.serve.sim
+import repro_torch.train.checkpoint
+import importlib.util, os
+examples = os.path.join(os.path.dirname(repro_torch.__file__), "..", "..",
+                        "examples")
+for name in ("torch_quickstart", "torch_lbm_simulation", "torch_dse_explore"):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(examples, name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert callable(mod.main)
 from repro_torch.apps import advection_diffusion as ad
 asim = ad.AdvectionDiffusionSimulation(16, 32, device="cpu")
 blob = ad.blob_init(16, 32, device="cpu")
@@ -85,6 +95,19 @@ bundle = registry.build(hyb, device="cpu")
 model = bundle.init(torch.Generator().manual_seed(0))
 nxt = bundle.make_prefill_step()(model, {"tokens": torch.tensor([[1, 2, 3]])})
 assert nxt.shape == (1, 512) and bool(torch.isfinite(nxt).all())
+for name in ("mixtral-8x7b", "kimi-k2-1t-a32b"):
+    bundle = registry.build(get_arch(name).reduced(), device="cpu")
+    model = bundle.init(torch.Generator().manual_seed(0))
+    nxt = bundle.make_prefill_step()(model,
+                                     {"tokens": torch.tensor([[1, 2, 3]])})
+    assert nxt.shape == (1, 512) and bool(torch.isfinite(nxt).all())
+import tempfile
+from repro_torch.train import checkpoint as ckpt
+with tempfile.TemporaryDirectory() as d:
+    tree = {"w": torch.ones(3, dtype=torch.bfloat16), "s": [torch.zeros(2)]}
+    ckpt.save(d, 1, tree)
+    step, got, _ = ckpt.restore_latest(d, tree)
+    assert step == 1 and torch.equal(got["w"], tree["w"])
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 assert not bad, bad
 print("ok")
@@ -102,6 +125,9 @@ def test_port_imports_without_jax_or_repro():
 def test_no_import_lines_name_jax_or_repro():
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
     files = [os.path.join(ROOT, "chip_smoke.py")]
+    files += [os.path.join(ROOT, "examples", n)
+              for n in os.listdir(os.path.join(ROOT, "examples"))
+              if n.startswith("torch_") and n.endswith(".py")]
     for d, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     hits = []
