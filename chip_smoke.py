@@ -71,13 +71,32 @@ package. Phases, each printed as it ends; any failure exits non-zero:
 6k. Kimi K2 at full width and 2 layers (the dense first layer, one MoE
    layer of 384 experts and the shared expert), bf16: (a) and (b) of 6m
    at its 4x2048 prefill, D 112 with GQA 64:8, 2 flash launches;
+6w. encoder-decoder serving (docs/port.md §encdec), whisper-medium at
+   full width and depth (24 + 24 layers, D 64), 8 clips of 1500 frames
+   and 375 tokens, ragged against the kernel's tiles: (a) the reference's
+   matrix at D 64 and the path's four launch shapes through the
+   dispatcher (encoder and cross-attention non-causal, Sq 375 against
+   Sk 1500, the decoder causal, the decode step's cross-attention at
+   Sq 1); (b) ``forward_enc_dec`` in bf16, 72 flash launches (24 of each
+   prefill shape), each site held to its plain version, the logits to
+   the plain-attention twin by the floor rule; (d) ``encode``,
+   ``prime_cross_cache`` and a decode step timed (24 launches a step);
+   then in f32 at full depth the logits against the twin within
+   ``ENC_DEC_REL_L2`` and (c) 32 teacher-forced decode steps against the
+   forward's rows, argmax equal at every position;
+6v. the VLM (docs/port.md §vlm), LLaVA-NeXT-34B at full width and the
+   deepest depth of its 60 layers that fits (printed), bf16: (a) and (b)
+   of 6m at its 1x4096 prefill (2,880 seeded frontend embeds and 1,216
+   tokens from ``make_batch``), D 128 with GQA 56:8; (c) the engine on
+   text prompts; (d) 4 layers in f32;
 5. at the main-path shapes, each kernel held to its plain version again
    and timed (CUDA events) against its bound, its plain version and, for
    diffusion and flash attention, one PyTorch call (``library_ms``); the
    halo kernels at one shard of the phase-3b runs; flash attention at
-   the prefills' launch shapes (D 128 causal, D 112 MHA, Mixtral's D 128
-   at 1x8192 with the window binding, Kimi's D 112 with GQA 8), on
-   contiguous q/k/v and on the prefill's head-split views, with TFLOP/s,
+   the LM phases' launch shapes (D 128 causal, D 112 MHA, Mixtral's D 128
+   at 1x8192 with the window binding, Kimi's D 112 with GQA 8,
+   whisper's four at D 64, LLaVA's D 128 with GQA 7), through the
+   dispatcher, on contiguous q/k/v and on the head-split views, with TFLOP/s,
    the share of its bound (the (query, key) pairs the mask keeps) and
    ``scaled_dot_product_attention`` (the window as a boolean mask, on the
    fastest backend that takes it, named); then the two stencil
@@ -234,6 +253,22 @@ def cuda_ms(fn, iters: int = 10):
     return start.elapsed_time(end) / iters, out
 
 
+def enqueue_ms(fn, iters: int = 20) -> float:
+    """Mean host ms to issue one call, the card idle before: where it
+    reaches :func:`cuda_ms` of the same call, the events timed how fast
+    the host issues the launches, not the kernel."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
 def timed_pair(name, kernel_fn, plain_fn, plain_iters=2, iters=10):
     """Time a kernel and its plain version on the same main-path inputs
     and hold the kernel's result to the plain one."""
@@ -299,6 +334,26 @@ FLOOR_FACTOR = 1.5
 NOISE_SEEDS = (3, 4, 5)
 #: Decode logits against forward logits (tests/test_archs.py).
 DECODE_TOL = dict(rtol=5e-2, atol=5e-2)
+#: whisper-medium's prefill: clips x encoder frames (Whisper's 30-s
+#: window), and a decoder of frames / 4 tokens (DESIGN.md §Shapes); both
+#: lengths ragged against the kernel's tiles on purpose.
+WHISPER = (8, 1500)
+#: Teacher-forced f32 decode steps after prime_cross_cache, held to the
+#: forward's first rows.
+WHISPER_DECODE_STEPS = 32
+#: f32 at full depth (24 + 24 layers): the kernel and its plain version
+#: round the same f32 operations in another order, so the logits of the
+#: two models, and the decode steps against the forward, agree far inside
+#: this relative L2; no rounding floor is taken.
+ENC_DEC_REL_L2 = 1e-3
+#: LLaVA-NeXT-34B's prefill: one prompt of 2,880 frontend embeds
+#: (n_frontend_tokens) and 1,216 tokens, at q 1x56x4096x128, kv
+#: 1x8x4096x128 (GQA 7).
+VLM_PREFILL = (1, 4096)
+#: Memory kept free beside LLaVA-NeXT-34B's weights when its depth is
+#: chosen: the prefill's activations, three (1, 4096, 64000) logits
+#: tensors and the plain twin's f32 score chunks.
+VLM_HEADROOM = 8 * 2**30
 
 
 #: ptxas spill bytes allowed per kernel instantiation, by stream library:
@@ -899,38 +954,60 @@ def kept_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
 
 def prefill_check(cfg, bundle, plain, model, shape, sites: int,
                   seed: int) -> dict:
-    """The prefill step of ``model`` on ``shape`` (prompts x tokens, seeded
-    tokens): its wall, tokens/s and peak memory, the flash launches
-    counted from 0 (``sites`` expected), each site's kernel output against
-    its plain version on that site's own q, k and v, and the logits
-    against the plain-attention twin ``plain`` beside the twin's own
-    rounding floor: at every position, and apart past the window where it
-    binds; for an MoE model also the tokens whose top-k experts differ
-    from the twin's."""
+    """The prefill step of ``model`` on ``shape`` (prompts x positions,
+    seeded tokens; a VLM's frontend embeds and an audio model's frames,
+    ``shape[1]`` of them, and its ``shape[1] / 4`` tokens, from
+    ``registry.make_batch``): its wall, tokens/s and peak memory, the
+    flash launches counted from 0 (``sites`` expected) and apart by launch
+    shape, each site's kernel output against its plain version on that
+    site's own q, k and v, and the logits against the plain-attention
+    twin ``plain`` beside the twin's own rounding floor: at every
+    position, and apart past the window where it binds; for an MoE model
+    also the tokens whose top-k experts differ from the twin's."""
     import torch
 
+    from repro_torch.configs import ShapeConfig
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention,
         flash_attention_plain,
     )
+    from repro_torch.models import registry
 
     dev = "cuda"
     b, s = shape
     prefill = bundle.make_prefill_step()
-    tok_gen = torch.Generator(device=dev).manual_seed(seed)
-    tokens = torch.randint(1, cfg.vocab, shape, generator=tok_gen,
-                           device=dev)
-    prefill(model, {"tokens": tokens[:1, :128]})  # warm-up
+    if cfg.family in ("vlm", "audio"):
+        batch = registry.make_batch(cfg, ShapeConfig("prefill", s, b,
+                                                     "prefill"), seed, dev)
+    else:
+        tok_gen = torch.Generator(device=dev).manual_seed(seed)
+        batch = {"tokens": torch.randint(1, cfg.vocab, shape,
+                                         generator=tok_gen, device=dev)}
+    prefill(model, {k: x[:1, :128] for k, x in batch.items()})  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # The launches apart by (Sq, Sk, causal): the kernel's own count
+    # before and after each site.
+    by_shape: dict = {}
+
+    def tally(orig, q, k, v, **kw):
+        n = flash_attention.launches
+        o = orig(q, k, v, **kw)
+        key = (q.shape[2], k.shape[2], kw["causal"])
+        by_shape[key] = by_shape.get(key, 0) + flash_attention.launches - n
+        return o
+
     flash_attention.launches = 0
-    t0 = time.perf_counter()
-    nxt = prefill(model, {"tokens": tokens})
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    out = {"launches": flash_attention.launches, "wall": wall}
+    with attention_through(tally):
+        t0 = time.perf_counter()
+        nxt = prefill(model, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = {"launches": flash_attention.launches, "wall": wall,
+           "by_shape": by_shape, "batch": batch}
     phase(f"  launches on the {cfg.name} prefill path ({b}x{s}): "
-          f"{{'flash_attention': {out['launches']}}}")
+          f"{{'flash_attention': {out['launches']}}}, by (Sq, Sk, causal) "
+          f"{by_shape}")
     if out["launches"] != sites:
         fail(f"flash_attention launched {out['launches']} times in the "
              f"{cfg.name} prefill {b}x{s}, expected {sites}")
@@ -951,7 +1028,7 @@ def prefill_check(cfg, bundle, plain, model, shape, sites: int,
 
     kernel_routes = []
     with attention_through(capture), routing_recorded(kernel_routes):
-        full = bundle.forward(model, {"tokens": tokens})
+        full = bundle.forward(model, batch)
     phase(f"  each of the {len(seen)} sites' kernel output vs plain on its "
           f"own q, k, v: max abs err {max(e for e, _ in seen):.3e} "
           f"(rtol/atol {FLASH_TOL['bfloat16']['atol']})")
@@ -978,23 +1055,28 @@ def prefill_check(cfg, bundle, plain, model, shape, sites: int,
         regions[f"positions >= {w}"] = (slice(None), slice(w, None))
     plain_routes = []
     with routing_recorded(plain_routes):
-        want = plain.forward(model, {"tokens": tokens})
+        want = plain.forward(model, batch)
     floors = {r: [] for r in [*regions, "next token"]}
     noise_routes = []
     for noise_seed in NOISE_SEEDS:
         noise_routes.append([])
         with attention_through(rounding_noise(noise_seed)), \
                 routing_recorded(noise_routes[-1]):
-            moved = plain.forward(model, {"tokens": tokens})
+            moved = plain.forward(model, batch)
         for r, ix in [*regions.items(), ("next token", last)]:
             floors[r].append(rel_l2(moved[ix], want[ix]))
         del moved
     spread = lambda fl: ", ".join(  # noqa: E731
         f"{x:.3e}" for x in fl)
-    phase(f"  {cfg.name} prefill {b}x{s} ({cfg.n_layers} layers, "
+    rate = (f"{b * s / wall:.0f} frames/s and {b * (s // 4) / wall:.0f} "
+            "tokens/s" if "frames" in batch else f"{b * s / wall:.0f} "
+            "tokens/s")
+    depth = (f"{cfg.n_layers} + {cfg.n_layers}" if cfg.enc_dec
+             else cfg.n_layers)
+    phase(f"  {cfg.name} prefill {b}x{s} ({depth} layers, "
           f"{cfg.num_params():.0f} parameters"
           f"{f', window {w}' if w else ''}): {wall * 1e3:.1f} ms, "
-          f"{b * s / wall:.0f} tokens/s, peak memory {out['peak']:.2f} GiB "
+          f"{rate}, peak memory {out['peak']:.2f} GiB "
           f"(from after the warm-up, weights included)")
     bad = []
     for r, ix in regions.items():
@@ -1100,6 +1182,7 @@ def lm_serving(cfg, label: str, f32_layers: int, *,
                             seed=1 + i)
         out[shape]["launches"] = got["launches"]
         out[shape]["errs"] += got["errs"]
+        del got
     if not engine:
         del model, bundle, plain
         torch.cuda.empty_cache()
@@ -1212,19 +1295,209 @@ def moe_serving():
     return mix, kimi
 
 
-def sdpa_ms(q, k, v, window: int) -> tuple[float, str]:
+def whisper_serving() -> dict:
+    """Phase 6w, whisper-medium at full width and depth (24 + 24 layers, d
+    1024, 16 heads at D 64), 8 clips of 1500 frames and 375 tokens:
+    (a) the kernel against its plain version at D 64 (the reference's
+    matrix) and at the path's four launch shapes; (b) ``forward_enc_dec``
+    in bf16 (72 launches, each site and the logits held as in
+    :func:`prefill_check`); (d) the times of ``encode``,
+    ``prime_cross_cache`` and a bf16 decode step; then, the bf16 model
+    freed, (b) in f32 against the plain-attention twin and (c) 32
+    teacher-forced f32 decode steps against the forward. Returns the
+    phase-5 rows' numbers by launch shape (docs/port.md §encdec)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tfm
+
+    t6 = time.perf_counter()
+    cfg = get_arch("whisper-medium")
+    dev = "cuda"
+    b, t = WHISPER
+    n = t // 4
+    phase(f"phase 6w: encoder-decoder serving, {cfg.name} ({cfg.family}), "
+          f"{b} clips x {t} frames, {n} tokens")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    # (a) the kernel against its plain version: the matrix at D 64, then
+    # each launch shape of the path, through the dispatcher
+    errs = flash_vs_plain(cfg.head_dim, g)
+    shapes = {"encoder self": (t, t, False), "cross": (n, t, False),
+              "decoder self": (n, n, True), "decode cross": (1, t, False)}
+    out = {}
+    for name, (sq, sk, causal) in shapes.items():
+        qkv = flash_inputs(g, b, cfg.n_heads, cfg.n_kv_heads, sq, sk,
+                           cfg.head_dim, torch.bfloat16)
+        err = check_close(
+            f"flash whisper {name} q {tuple(qkv[0].shape)} kv "
+            f"{tuple(qkv[1].shape)} bf16{'' if causal else ' non-causal'}",
+            attention(*qkv, causal=causal).float(),
+            flash_attention_plain(*qkv, causal=causal).float(),
+            FLASH_TOL["bfloat16"])
+        out[name] = {"qkv": qkv, "window": 0, "causal": causal,
+                     "errs": errs + [err]}
+
+    # (b) the prefill at full width and depth, bf16
+    bundle = registry.build(cfg, device=dev)
+    plain = registry.build(cfg, device=dev, use_kernel=False)
+    t0 = time.perf_counter()
+    model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    phase(f"  {cfg.name} at {cfg.n_layers} + {cfg.n_layers} layers: "
+          f"{cfg.num_params():.0f} parameters built on the card from a "
+          f"seeded generator in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    got = prefill_check(cfg, bundle, plain, model, WHISPER,
+                        3 * cfg.n_layers, seed=1)
+    want = {(t, t, False): cfg.n_layers, (n, t, False): cfg.n_layers,
+            (n, n, True): cfg.n_layers}
+    if got["by_shape"] != want:
+        fail(f"whisper prefill launches by shape {got['by_shape']} != "
+             f"{want}")
+    for name, (sq, sk, causal) in shapes.items():
+        if name != "decode cross":
+            out[name]["launches"] = got["by_shape"][(sq, sk, causal)]
+            out[name]["errs"] += got["errs"]
+    frames, tokens = got["batch"]["frames"], got["batch"]["tokens"]
+    del got
+
+    # (d) encode, prime_cross_cache and one bf16 decode step
+    def wall_of(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            res = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps, res
+
+    enc_s, enc = wall_of(lambda: tfm.encode(model, frames))
+    cache = bundle.cache_init(b, n)
+    prime_s, cache = wall_of(lambda: tfm.prime_cross_cache(model, cache,
+                                                           enc))
+    tok = tokens[:, :1]
+    bundle.decode(model, tok, cache, 0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    for i in range(10):
+        bundle.decode(model, tokens[:, i:i + 1], cache, i)
+    enqueue = (time.perf_counter() - t0) / 10
+    torch.cuda.synchronize()
+    step = (time.perf_counter() - t0) / 10
+    out["decode cross"]["launches"] = flash_attention.launches
+    phase(f"  launches on the {cfg.name} decode path (10 steps, {b} clips, "
+          f"cross K/V over {t} frames): {{'flash_attention': "
+          f"{flash_attention.launches}}}")
+    if flash_attention.launches != 10 * cfg.n_layers:
+        fail(f"whisper decode: {flash_attention.launches} launches in 10 "
+             f"steps, expected {10 * cfg.n_layers}")
+    phase(f"  encode {b}x{t}: {enc_s * 1e3:.1f} ms ({b * t / enc_s:.0f} "
+          f"frames/s); prime_cross_cache: {prime_s * 1e3:.2f} ms; one "
+          f"decode step ({b} clips): {step * 1e3:.2f} ms, host enqueue "
+          f"{enqueue * 1e3:.2f} ms; peak memory over the decode steps "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, bundle, plain, cache, enc
+    torch.cuda.empty_cache()
+
+    # (b) and (c) in f32 at full depth: the forward against the
+    # plain-attention twin, and teacher-forced decode against the forward
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    bundle = registry.build(f32, device=dev)
+    plain = registry.build(f32, device=dev, use_kernel=False)
+    model = bundle.init(torch.Generator(device=dev).manual_seed(2))
+    frames = frames.float()
+    flash_attention.launches = 0
+    full = bundle.forward(model, {"frames": frames, "tokens": tokens})
+    if flash_attention.launches != 3 * cfg.n_layers:
+        fail(f"whisper f32 forward: {flash_attention.launches} launches")
+    ref = plain.forward(model, {"frames": frames, "tokens": tokens})
+    rel = rel_l2(full, ref)
+    phase(f"  f32 {cfg.n_layers} + {cfg.n_layers} layers, logits vs plain "
+          f"attention, every position: rel L2 {rel:.3e} (<= "
+          f"{ENC_DEC_REL_L2}), max abs err {max_err(full, ref):.3e}")
+    if not rel <= ENC_DEC_REL_L2:
+        fail(f"whisper f32 forward vs plain: rel L2 {rel}")
+    del ref
+    cache = tfm.prime_cross_cache(
+        model, bundle.cache_init(b, WHISPER_DECODE_STEPS),
+        tfm.encode(model, frames))
+    flash_attention.launches = 0
+    steps = []
+    for i in range(WHISPER_DECODE_STEPS):
+        lg, cache = bundle.decode(model, tokens[:, i:i + 1], cache, i)
+        steps.append(lg[:, 0])
+    steps = torch.stack(steps, dim=1)
+    head = full[:, :WHISPER_DECODE_STEPS]
+    rel = rel_l2(steps, head)
+    agree = int((steps.argmax(-1) == head.argmax(-1)).sum())
+    phase(f"  f32 {WHISPER_DECODE_STEPS} teacher-forced decode steps after "
+          f"prime_cross_cache ({flash_attention.launches} launches at Sq 1) "
+          f"vs the forward's rows: rel L2 {rel:.3e} (<= {ENC_DEC_REL_L2}), "
+          f"argmax equal at {agree}/{steps.shape[0] * steps.shape[1]}")
+    if (flash_attention.launches != WHISPER_DECODE_STEPS * cfg.n_layers
+            or not rel <= ENC_DEC_REL_L2
+            or agree != steps.shape[0] * steps.shape[1]):
+        fail("whisper f32 decode vs forward")
+    del model, bundle, plain, cache, full, steps, head
+    torch.cuda.empty_cache()
+    phase(f"  phase 6w: {time.perf_counter() - t6:.1f} s")
+    return out
+
+
+def vlm_serving():
+    """Phase 6v, LLaVA-NeXT-34B at full width (d 7168, 56 : 8 heads at
+    D 128) and the deepest depth of its 60 layers that fits beside
+    ``VLM_HEADROOM``, bf16: (a) the kernel at the prefill's launch shape
+    (GQA 7), (b) the prefill of 2,880 frontend embeds and 1,216 tokens
+    through ``make_batch``, (c) the engine on text prompts, (d) 4 layers
+    in f32 (docs/port.md §vlm). Returns phase 5's numbers."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("llava-next-34b")
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    per_layer = 2 * cfg.layer_params()
+    fixed = 2 * cfg.num_params() - cfg.n_layers * per_layer
+    depth = min(cfg.n_layers, int((free - fixed - VLM_HEADROOM)
+                                  // per_layer))
+    phase(f"phase 6v: {cfg.name} at {depth} of {cfg.n_layers} layers: "
+          f"{free / 2**30:.2f} GiB free, the weights of all "
+          f"{cfg.n_layers} {2 * cfg.num_params() / 2**30:.2f} GiB, "
+          f"{VLM_HEADROOM / 2**30:.0f} GiB kept for the prefill"
+          + ("" if depth == cfg.n_layers else " (the depth is cut)"))
+    return lm_serving(dataclasses.replace(cfg, n_layers=depth), "phase 6v",
+                      f32_layers=4, prefills=(VLM_PREFILL,), matrix=False)
+
+
+def sdpa_ms(q, k, v, window: int, causal: bool = True) -> tuple[float, str]:
     """CUDA-event ms of one ``scaled_dot_product_attention`` call on the
-    kernel's inputs (causal, GQA), and the backend that ran. SDPA has no
-    window argument: a window is given as an explicit boolean mask, and
-    each backend is tried in turn (cuDNN, memory-efficient, math); the
-    fastest that takes the call is reported."""
+    kernel's inputs (GQA; causal where ``causal``, which here has Sq ==
+    Sk, where SDPA's diagonal is the kernel's), and the backend that ran.
+    SDPA has no window argument: a window is given as an explicit boolean
+    mask, and each backend is tried in turn (cuDNN, memory-efficient,
+    math); the fastest that takes the call is reported."""
     import torch
     import torch.nn.functional as F
 
     if not window:
         ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 20)
-        return ms, "is_causal, enable_gqa, default dispatch"
+            q, k, v, is_causal=causal, enable_gqa=True), 20)
+        return ms, (f"is_causal={causal}, enable_gqa, default dispatch")
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     sq, sk = q.shape[2], k.shape[2]
@@ -2338,6 +2611,8 @@ def main() -> None:
     # one group of six Mamba2 layers and the shared block, two tail layers
     hyb = lm_serving(get_arch("zamba2-7b"), "phase 6h", f32_layers=8)
     mix, kimi = moe_serving()
+    whisper = whisper_serving()
+    vlm = vlm_serving()
 
     # ---- 5. timing at the main-path shapes ----------------------------
     phase("phase 5: timing (CUDA events) and kernel vs plain at the "
@@ -2511,46 +2786,60 @@ def main() -> None:
            19 * 4096 * 4096 * 4, 131 * 4 * 4096 * 4096,
            max(errs["hand"] + [err]))
 
-    # Flash attention at each prefill's launch shape (bf16, causal): the
-    # Qwen3-8B prefill's (D 128) and the Zamba2-7B shared block's (D 112).
+    # Flash attention at each launch shape of the LM phases (bf16), through
+    # the dispatcher the models call: the Qwen3-8B prefill's (D 128, causal;
+    # Mixtral's 4x2048 is the same launch), the Zamba2-7B shared block's
+    # (D 112), Mixtral's 1x8192 with its window of 4096 binding, Kimi K2's
+    # (D 112, GQA 8), whisper-medium's four (D 64: the encoder's and the
+    # cross-attention's non-causal, the decoder's causal, the decode
+    # step's cross-attention at Sq 1) and LLaVA-NeXT-34B's (D 128, GQA 7).
     from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention,
         flash_attention_plain,
     )
+    from repro_torch.kernels.flash_attention.ops import attention
 
-    # Flash attention at each prefill's launch shape (bf16, causal): the
-    # Qwen3-8B prefill's (D 128; Mixtral's 4x2048 is the same launch), the
-    # Zamba2-7B shared block's (D 112), Mixtral's 1x8192 with its window
-    # of 4096 binding, and Kimi K2's (D 112, GQA 8).
     flash_rows = (("flash_attention", lm[PREFILL]),
                   ("flash_attention[D 112]", hyb[PREFILL]),
                   ("flash_attention[D 128, window 4096]", mix[LONG_PREFILL]),
-                  ("flash_attention[D 112, GQA 8]", kimi[PREFILL]))
+                  ("flash_attention[D 112, GQA 8]", kimi[PREFILL]),
+                  ("flash_attention[D 64, whisper encoder]",
+                   whisper["encoder self"]),
+                  ("flash_attention[D 64, whisper cross]", whisper["cross"]),
+                  ("flash_attention[D 64, whisper decoder]",
+                   whisper["decoder self"]),
+                  ("flash_attention[D 64, whisper decode cross]",
+                   whisper["decode cross"]),
+                  ("flash_attention[D 128, GQA 7]", vlm[VLM_PREFILL]))
     for name, run in flash_rows:
         # Two layouts: contiguous (B, H, S, D), and the head-split views
         # of (B, S, H, D) buffers that the prefill passes (read in place).
         q, k, v = run.pop("qkv")
-        window = run["window"]
-        b_, hq_, s_, d_ = q.shape
-        ops = 4 * b_ * hq_ * d_ * kept_pairs(s_, s_, True, window)
+        window, causal = run["window"], run.get("causal", True)
+        b_, hq_, sq_, d_ = q.shape
+        sk_ = k.shape[2]
+        ops = 4 * b_ * hq_ * d_ * kept_pairs(sq_, sk_, causal, window)
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
         bound_ms = max(ops / bf16_peak, nbytes / hbm) * 1e3
+        kw = dict(causal=causal, window=window)
         plain_ms, want = cuda_ms(
-            lambda: flash_attention_plain(q, k, v, window=window), 2)
+            lambda: flash_attention_plain(q, k, v, **kw), 2)
         views = tuple(x.transpose(1, 2).contiguous().transpose(1, 2)
                       for x in (q, k, v))
         flash_errs = []
-        label = f"D {d_}, Hq {hq_}, Hkv {k.shape[1]}, {b_}x{s_}" + (
-            f", window {window}" if window else "")
+        label = (f"D {d_}, Hq {hq_}, Hkv {k.shape[1]}, {b_}x{sq_}"
+                 + (f"x{sk_}" if sk_ != sq_ else "")
+                 + (f", window {window}" if window else "")
+                 + ("" if causal else ", non-causal"))
         for layout, (qq, kk, vv) in (("contiguous", (q, k, v)),
                                      ("head-split views", views)):
-            ms, got = cuda_ms(
-                lambda: flash_attention(qq, kk, vv, window=window), 20)
+            ms, got = cuda_ms(lambda: attention(qq, kk, vv, **kw), 20)
             flash_errs.append(check_close(
-                f"flash {label} prefill shape, {layout}, vs plain",
+                f"flash {label} launch shape, {layout}, vs plain",
                 got.float(), want.float(), FLASH_TOL["bfloat16"]))
-            lib_ms, backend = sdpa_ms(qq, kk, vv, window)
-            phase(f"  flash {label} {layout}: {ms:.4f} ms, "
+            host = enqueue_ms(lambda: attention(qq, kk, vv, **kw))
+            lib_ms, backend = sdpa_ms(qq, kk, vv, window, causal)
+            phase(f"  flash {label} {layout}: {ms:.4f} ms (host enqueue "
+                  f"{host:.4f} ms a call), "
                   f"{ops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of "
                   f"the bound ({bound_ms:.4f} ms); SDPA {lib_ms:.4f} ms "
                   f"({ops / lib_ms / 1e9:.1f} TFLOP/s, {backend}); plain "
@@ -2562,7 +2851,7 @@ def main() -> None:
                max(run["errs"] + flash_errs), lib_ms, peak=bf16_peak)
         del q, k, v, views, want, got
         torch.cuda.empty_cache()
-    del lm, hyb, mix, kimi, flash_rows
+    del lm, hyb, mix, kimi, whisper, vlm, flash_rows
 
     # The stencil kernels' design choices side by side, on the same
     # main-path inputs (three rounds after a warm-up).

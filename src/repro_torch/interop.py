@@ -110,11 +110,13 @@ def params_from_jax(tree, cfg, device):
 
     ``tree`` is the JAX package's ``init_params`` tree with every leaf a
     numpy array: ``embed``, ``ln_f``, ``lm_head`` (unless tied), and
-    ``layers`` (dense), ``moe_layers`` after the dense head ``layers``,
-    if any (MoE: ``moe.router``, ``moe.w_gate``, ``moe.w_up``,
-    ``moe.w_down`` and an optional ``moe.shared``), or ``mamba_layers``
-    and the one ``shared_attn`` block (hybrid). Stacked leaves carry the
-    ``L`` axis first. Matrices are ``(d_in, d_out)`` in both packages, so
+    ``layers`` (dense, VLM), ``moe_layers`` after the dense head
+    ``layers``, if any (MoE: ``moe.router``, ``moe.w_gate``, ``moe.w_up``,
+    ``moe.w_down`` and an optional ``moe.shared``), ``enc_layers`` (each
+    a dense layer), ``dec_layers`` (each with ``ln_x`` and ``xattn``
+    besides) and ``ln_enc`` (encoder-decoder), or ``mamba_layers`` and the
+    one ``shared_attn`` block (hybrid). Stacked leaves carry the ``L``
+    axis first. Matrices are ``(d_in, d_out)`` in both packages, so
     nothing is transposed. Other trees raise.
     """
     from repro_torch.models.transformer import Transformer
@@ -122,10 +124,12 @@ def params_from_jax(tree, cfg, device):
 
     dev = resolve_device(device)
     if not ("layers" in tree or "moe_layers" in tree
-            or "mamba_layers" in tree):
+            or "mamba_layers" in tree or "enc_layers" in tree):
         raise NotImplementedError("only the decoder-only trees (``layers``, "
-                                  "``moe_layers``) and the hybrid tree "
-                                  "(``mamba_layers``) are ported")
+                                  "``moe_layers``), the encoder-decoder "
+                                  "tree (``enc_layers``, ``dec_layers``) "
+                                  "and the hybrid tree (``mamba_layers``) "
+                                  "are ported")
 
     def put(param, value):
         value = np.asarray(value)
@@ -155,6 +159,11 @@ def params_from_jax(tree, cfg, device):
             for name, value in tree["mamba_layers"].items():
                 put(getattr(layer, name), value[i])
         put_block(model.shared, tree["shared_attn"])
+    elif "enc_layers" in tree:
+        put(model.ln_enc, tree["ln_enc"])
+        for i in range(cfg.n_layers):
+            put_block(model.enc_layers[i], tree["enc_layers"], i)
+            put_block(model.dec_layers[i], tree["dec_layers"], i)
     else:
         n_dense = len(tree["layers"]["ln1"]) if "layers" in tree else 0
         for i, layer in enumerate(model.layers):

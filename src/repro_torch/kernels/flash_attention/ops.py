@@ -5,7 +5,11 @@ tensor's device)."""
 
 from __future__ import annotations
 
-from .flash_attention import flash_attention
+from .flash_attention import (
+    DEFAULT_BLOCK_K,
+    DEFAULT_BLOCK_Q,
+    flash_attention,
+)
 from .ref import attention_chunked_ref, attention_ref
 
 
@@ -16,13 +20,19 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     ``use_kernel=None`` picks the kernel for a CUDA tensor and the chunked
     version for a CPU one. On a CUDA tensor the kernel builds and launches
     or raises; it never falls back quietly. ``use_kernel=False`` runs the
-    chunked version on any device (the plain model on the card).
+    chunked version on any device (the plain model on the card). Any
+    length is taken: the reference's model path never tiles.
     """
     if use_kernel is None:
         use_kernel = q.device.type == "cuda"
     if use_kernel:
-        return flash_attention(q, k, v, causal=causal, window=window,
-                               scale=scale)
+        # Blocks that tile any length, as the chunk rule below does: the
+        # kernel's own tiles take ragged ends (docs/port.md §encdec).
+        sq, sk = q.shape[2], k.shape[2]
+        return flash_attention(
+            q, k, v, causal=causal, window=window, scale=scale,
+            block_q=DEFAULT_BLOCK_Q if sq % DEFAULT_BLOCK_Q == 0 else sq,
+            block_k=DEFAULT_BLOCK_K if sk % DEFAULT_BLOCK_K == 0 else sk)
     sk = k.shape[2]
     chunk = 512 if sk % 512 == 0 else sk
     return attention_chunked_ref(q, k, v, causal=causal, window=window,

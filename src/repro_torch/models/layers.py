@@ -58,6 +58,17 @@ def rms_norm(x, scale, eps: float = 1e-6):
     return out.to(x.dtype)
 
 
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    """Mean-centred norm with a bias, in f32 (the population variance, as
+    ``jnp.var``)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * scale.float() + bias.float()
+    return out.to(x.dtype)
+
+
 # --------------------------------------------------------------------------
 # RoPE
 # --------------------------------------------------------------------------
@@ -134,22 +145,33 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
+def attn_q(p: Attention, x, cfg, positions):
+    """The query of :func:`attn_qkv` alone: projection, bias, head split,
+    qk-norm, rope. (B, Hq, S, D)."""
+    q = x @ p.wq
+    if cfg.qkv_bias:
+        q = q + p.bq
+    q = _split_heads(q, cfg.n_heads)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+    return q
+
+
 def attn_qkv(p: Attention, x, cfg, positions):
     """Projections, head split, qk-norm (after the split, before rope),
     rope. Returns (B, H, S, D) q, k, v."""
-    q = x @ p.wq
+    q = attn_q(p, x, cfg, positions)
     k = x @ p.wk
     v = x @ p.wv
     if cfg.qkv_bias:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = _split_heads(q, cfg.n_heads)
+        k, v = k + p.bk, v + p.bv
     k = _split_heads(k, cfg.n_kv_heads)
     v = _split_heads(v, cfg.n_kv_heads)
     if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm)
         k = rms_norm(k, p.k_norm)
     if cfg.use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
@@ -159,9 +181,12 @@ def attention_block(p: Attention, x, cfg, positions, *, causal=True,
     """Full-sequence attention (train/prefill) through the dispatcher:
     the flash kernel on a CUDA tensor, the chunked version on the CPU
     (``use_kernel`` overrides). kv_override supplies cross-attention K/V
-    (already head-split)."""
-    q, k, v = attn_qkv(p, x, cfg, positions)
-    if kv_override is not None:
+    (already head-split); the block's own k and v, which the reference
+    computes and discards there, are then not computed."""
+    if kv_override is None:
+        q, k, v = attn_qkv(p, x, cfg, positions)
+    else:
+        q = attn_q(p, x, cfg, positions)
         k, v = kv_override
     o = _attention(q, k, v, causal=causal, window=cfg.sliding_window,
                    use_kernel=use_kernel)

@@ -1,12 +1,17 @@
-"""Decoder-only transformer LM, dense and MoE (the port of the JAX
-package's ``models/transformer.py``).
+"""Decoder-only and encoder-decoder transformer LMs: dense, MoE, VLM and
+audio backbones (the port of the JAX package's ``models/transformer.py``).
 
 Entry points:
   Transformer(cfg, device=...)                 the parameters, nn.Modules
   init_params(cfg, generator, device)          -> Transformer, seeded init
   forward(model, tokens, embeds, positions)    -> logits     (prefill)
-  init_cache(cfg, batch, seq, device)          -> cache
+  init_cache(cfg, batch, seq, device, enc_len) -> cache
   decode_step(model, token, cache, pos, rows)  -> (logits, cache)
+  encode(model, frames)                        -> encoder states (enc_dec)
+  forward_enc_dec(model, frames, tokens)       -> logits          (enc_dec)
+  prime_cross_cache(model, cache, enc_states)  -> cache           (enc_dec)
+  decode_step_enc_dec(model, token, cache, pos, enc_states)
+                                               -> (logits, cache) (enc_dec)
 
 The JAX package scans a stacked ``L`` axis under remat; here the layers
 are an ``nn.ModuleList`` walked by a Python loop, and no gradient is kept.
@@ -15,8 +20,12 @@ The KV cache is a preallocated ``(L, B, Hkv, S, D)`` pair updated in place
 signature stays the reference's. An MoE config's first
 ``moe_start_layer`` layers are dense and the rest MoE (the reference's
 ``layers`` and ``moe_layers`` groups, in that order in the cache;
-docs/port.md §moe). The encoder-decoder path and the VLM frontend's
-inputs wait for later slices (ROADMAP Queue 1, items 3 and 4).
+docs/port.md §moe). A VLM config prepends its frontend's ``embeds`` to
+the tokens (docs/port.md §vlm). An encoder-decoder config (``enc_dec``,
+whisper) holds ``enc_layers``, ``dec_layers`` (:class:`CrossLayer`) and
+``ln_enc`` instead of ``layers``; its cache adds the cross-attention K/V
+``xk``/``xv``, computed once from the encoder states (docs/port.md
+§encdec).
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from .layers import (
     Attention,
     MoE,
     _param,
+    _split_heads,
     attention_block,
     decode_attention,
     mlp_apply,
@@ -82,23 +92,66 @@ class DecoderLayer(nn.Module):
         return x + self.feed_forward(rms_norm(x, self.ln2), cfg)
 
 
-class Transformer(nn.Module):
-    """Embedding, ``n_layers`` decoder layers (MoE from
-    ``moe_start_layer`` on, for an MoE config), final norm and head."""
+class CrossLayer(nn.Module):
+    """Decoder layer of the encoder-decoder path (``_init_cross_layer`` /
+    ``_cross_layer_apply``): causal self-attention, cross-attention to the
+    encoder's K/V, MLP, each pre-normed."""
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
-        if cfg.enc_dec:
-            raise NotImplementedError(
-                f"{cfg.name}: the encoder-decoder path is not ported yet "
-                "(ROADMAP Queue 1, item 3)"
-            )
+        self.ln1 = _param((cfg.d_model,), cfg.param_dtype, device)
+        self.ln_x = _param((cfg.d_model,), cfg.param_dtype, device)
+        self.ln2 = _param((cfg.d_model,), cfg.param_dtype, device)
+        self.attn = Attention(cfg, device=device)
+        self.xattn = Attention(cfg, device=device)
+        self.mlp = MLP(cfg, device=device)
+
+    @torch.no_grad()
+    def init_weights(self, cfg, generator: torch.Generator) -> None:
+        for norm in (self.ln1, self.ln_x, self.ln2):
+            norm.fill_(1.0)
+        self.attn.init_weights(cfg, generator)
+        self.xattn.init_weights(cfg, generator)
+        self.mlp.init_weights(cfg, generator)
+
+    def cross(self, x, cfg, positions, enc_kv, use_kernel=None):
+        """The cross-attention sublayer's output: q from the decoder
+        stream (rope at ``positions``), K/V from the encoder, no mask."""
+        return attention_block(self.xattn, rms_norm(x, self.ln_x), cfg,
+                               positions, causal=False, kv_override=enc_kv,
+                               use_kernel=use_kernel)
+
+    def forward(self, x, cfg, positions, enc_kv, *,
+                use_kernel: bool | None = None):
+        x = x + attention_block(self.attn, rms_norm(x, self.ln1), cfg,
+                                positions, causal=True,
+                                use_kernel=use_kernel)
+        x = x + self.cross(x, cfg, positions, enc_kv, use_kernel)
+        return x + mlp_apply(self.mlp, rms_norm(x, self.ln2), cfg)
+
+
+class Transformer(nn.Module):
+    """Embedding, ``n_layers`` decoder layers (MoE from
+    ``moe_start_layer`` on, for an MoE config), final norm and head; for
+    an encoder-decoder config, ``n_layers`` encoder layers, their norm
+    ``ln_enc`` and ``n_layers`` :class:`CrossLayer` decoder layers."""
+
+    def __init__(self, cfg, *, device=None):
+        super().__init__()
         self.cfg = cfg
         dt = cfg.param_dtype
         self.embed = _param((cfg.vocab, cfg.d_model), dt, device)
         self.ln_f = _param((cfg.d_model,), dt, device)
         if not cfg.tie_embeddings:
             self.lm_head = _param((cfg.d_model, cfg.vocab), dt, device)
+        if cfg.enc_dec:
+            self.enc_layers = nn.ModuleList(
+                DecoderLayer(cfg, device=device)
+                for _ in range(cfg.n_layers))
+            self.dec_layers = nn.ModuleList(
+                CrossLayer(cfg, device=device) for _ in range(cfg.n_layers))
+            self.ln_enc = _param((cfg.d_model,), dt, device)
+            return
         moe_start = cfg.moe.moe_start_layer if cfg.moe else cfg.n_layers
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, moe=i >= moe_start, device=device)
@@ -115,7 +168,11 @@ class Transformer(nn.Module):
         self.ln_f.fill_(1.0)
         if hasattr(self, "lm_head"):
             normal_(self.lm_head, cfg.d_model ** -0.5, generator)
-        for layer in self.layers:
+        layers = self.layers if not cfg.enc_dec else [
+            *self.enc_layers, *self.dec_layers]
+        if cfg.enc_dec:
+            self.ln_enc.fill_(1.0)
+        for layer in layers:
             layer.init_weights(cfg, generator)
 
     def head(self) -> torch.Tensor:
@@ -155,12 +212,23 @@ def forward(model: Transformer, tokens, embeds=None, positions=None, *,
     return x @ model.head()
 
 
-def init_cache(cfg, batch: int, seq: int, device="cuda") -> dict:
-    """Zeroed ``(L, B, Hkv, S, D)`` K and V caches in the model dtype."""
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, seq, cfg.head_dim)
+def init_cache(cfg, batch: int, seq: int, device="cuda",
+               enc_len: int | None = None) -> dict:
+    """Zeroed ``(L, B, Hkv, S, D)`` K and V caches in the model dtype; an
+    encoder-decoder config adds the cross-attention ``xk``/``xv`` over
+    ``enc_len`` frames (default ``4 * seq``), which
+    :func:`prime_cross_cache` fills once."""
     dev = resolve_device(device)
-    return {"k": torch.zeros(shape, dtype=cfg.param_dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.param_dtype, device=dev)}
+
+    def kv(s):
+        return torch.zeros((cfg.n_layers, batch, cfg.n_kv_heads, s,
+                            cfg.head_dim), dtype=cfg.param_dtype, device=dev)
+
+    cache = {"k": kv(seq), "v": kv(seq)}
+    if cfg.enc_dec:
+        enc_len = enc_len if enc_len is not None else seq * 4
+        cache["xk"], cache["xv"] = kv(enc_len), kv(enc_len)
+    return cache
 
 
 @torch.no_grad()
@@ -183,5 +251,89 @@ def decode_step(model: Transformer, token, cache: dict, pos: int,
                                    cache["v"][i], pos, rows)
         x = x + o
         x = x + layer.feed_forward(rms_norm(x, layer.ln2), cfg, rows)
+    x = rms_norm(x, model.ln_f)
+    return x @ model.head(), cache
+
+
+# --------------------------------------------------------------------------
+# Encoder-decoder (whisper): docs/port.md §encdec
+# --------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def encode(model: Transformer, frames, *, use_kernel: bool | None = None):
+    """Encoder stack over the stubbed frame embeddings ``(B, T, d)``, cast
+    to the parameter dtype: non-causal self-attention, then ``ln_enc``."""
+    cfg = model.cfg
+    x = frames.to(cfg.param_dtype)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for layer in model.enc_layers:
+        x = layer(x, cfg, positions, causal=False, use_kernel=use_kernel)
+    return rms_norm(x, model.ln_enc)
+
+
+def _enc_kv(layer: CrossLayer, cfg, enc_states):
+    """One decoder layer's cross-attention K/V ``(B, Hkv, T, D)`` from the
+    encoder states: projection and bias, no norm and no rope."""
+    kx = enc_states @ layer.xattn.wk
+    vx = enc_states @ layer.xattn.wv
+    if cfg.qkv_bias:
+        kx, vx = kx + layer.xattn.bk, vx + layer.xattn.bv
+    return _split_heads(kx, cfg.n_kv_heads), _split_heads(vx, cfg.n_kv_heads)
+
+
+@torch.no_grad()
+def forward_enc_dec(model: Transformer, frames, tokens, *,
+                    use_kernel: bool | None = None):
+    """Whisper-style: encode ``frames``, decode ``tokens`` with
+    cross-attention -> logits ``(B, S, vocab)``."""
+    cfg = model.cfg
+    enc = encode(model, frames, use_kernel=use_kernel)
+    x = model.embed[tokens]
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for layer in model.dec_layers:
+        x = layer(x, cfg, positions, _enc_kv(layer, cfg, enc),
+                  use_kernel=use_kernel)
+    x = rms_norm(x, model.ln_f)
+    return x @ model.head()
+
+
+@torch.no_grad()
+def prime_cross_cache(model: Transformer, cache: dict, enc_states) -> dict:
+    """A copy of ``cache`` whose ``xk``/``xv`` are every decoder layer's
+    cross-attention K/V from ``enc_states``, stacked ``(L, B, Hkv, T, D)``
+    (the one-time fill; ``k``/``v`` are the same tensors)."""
+    kvs = [_enc_kv(layer, model.cfg, enc_states)
+           for layer in model.dec_layers]
+    cache = dict(cache)
+    cache["xk"] = torch.stack([k for k, _ in kvs])
+    cache["xv"] = torch.stack([v for _, v in kvs])
+    return cache
+
+
+@torch.no_grad()
+def decode_step_enc_dec(model: Transformer, token, cache: dict, pos: int,
+                        enc_states=None, *, use_kernel: bool | None = None):
+    """token: (B, 1) int; pos: int -> (logits (B, 1, V), cache).
+
+    The self-attention K/V are written at ``pos`` in place, as
+    :func:`decode_step` writes them; the cross-attention reads the cached
+    ``xk``/``xv`` through the dispatcher (one launch per layer at Sq 1 on
+    the card), its q roped at ``pos``. ``enc_states`` is needed only when
+    the cache holds no ``xk``: the cache is then primed first (the
+    reference's slow path)."""
+    cfg = model.cfg
+    if enc_states is not None and "xk" not in cache:
+        cache = prime_cross_cache(model, cache, enc_states)
+    x = model.embed[token]
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int64,
+                           device=x.device)
+    for i, layer in enumerate(model.dec_layers):
+        o, _, _ = decode_attention(layer.attn, rms_norm(x, layer.ln1), cfg,
+                                   cache["k"][i], cache["v"][i], pos)
+        x = x + o
+        x = x + layer.cross(x, cfg, positions,
+                            (cache["xk"][i], cache["xv"][i]), use_kernel)
+        x = x + mlp_apply(layer.mlp, rms_norm(x, layer.ln2), cfg)
     x = rms_norm(x, model.ln_f)
     return x @ model.head(), cache

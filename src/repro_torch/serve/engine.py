@@ -18,7 +18,10 @@ position 0, where the hybrid's ``decode_step`` starts the stepped rows
 from a zero SSM state (docs/port.md §hybrid). For an MoE model the same
 ``rows`` make a step dispatch only the live rows it advances, so the
 expert capacity counts those rows' tokens; the reference's full-batch
-step dispatches every slot, idle ones included (docs/port.md §moe).
+step dispatches every slot, idle ones included (docs/port.md §moe). An
+encoder-decoder bundle is refused: the reference's engine takes no frames
+and decodes whisper against the zeroed cross cache of ``init_cache``
+(docs/port.md §encdec).
 """
 
 from __future__ import annotations
@@ -49,6 +52,14 @@ class Completion:
 class ServeEngine:
     def __init__(self, bundle: ModelBundle, params: Any, *, max_batch: int,
                  max_seq: int, seed: int = 0):
+        if bundle.cfg.enc_dec:
+            raise NotImplementedError(
+                f"{bundle.cfg.name}: the engine serves decoder-only models. "
+                "A request here carries no frames, so an encoder-decoder "
+                "model's cross-attention cache would never be primed; decode "
+                "it through prime_cross_cache and decode_step_enc_dec "
+                "(docs/port.md §encdec)"
+            )
         self.bundle = bundle
         self.cfg = bundle.cfg
         self.device = bundle.device

@@ -1101,3 +1101,90 @@ def test_async_checkpoint_snapshots_cuda_tensors(card, tmp_path):
     assert tree["f"].is_cuda and tree["b16"].dtype == torch.bfloat16
     assert torch.equal(tree["f"].cpu(), want[0])
     assert torch.equal(tree["b16"].cpu(), want[1])
+
+
+# ------------- the encoder-decoder path at D 64, GQA 7 (VLM) -------------
+
+#: (B, Hq, Hkv, Sq, Sk, causal) at whisper-medium's D 64, cut to fewer
+#: clips: the encoder's self-attention over a ragged 1500 frames, the
+#: cross-attention (Sq = Sk / 4, non-causal), the decoder's causal
+#: self-attention at a ragged 375, and the decode step's cross-attention
+#: (Sq 1); at D 128, LLaVA-NeXT-34B's GQA 56:8 at a small S.
+ENCDEC_FLASH_CASES = {
+    "enc1500_d64": (1, 16, 16, 1500, 1500, False, 64),
+    "cross375x1500_d64": (2, 16, 16, 375, 1500, False, 64),
+    "dec375_d64": (2, 16, 16, 375, 375, True, 64),
+    "decode1x1500_d64": (8, 16, 16, 1, 1500, False, 64),
+    "gqa7_d128": (1, 56, 8, 384, 384, True, 128),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(ENCDEC_FLASH_CASES))
+def test_flash_encdec_and_gqa7_shapes_equal_plain(card, case, dtype):
+    """Each shape through the dispatcher (``ops.attention`` on a CUDA
+    tensor: one kernel launch, whatever the length), q as the head-split
+    view the model passes, against the plain version."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+    from repro_torch.kernels.flash_attention.ops import attention
+
+    b, hq, hkv, sq, sk, causal, d = ENCDEC_FLASH_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q = (torch.randn((b, sq, hq * d), generator=g, device="cuda").to(dtype)
+         .view(b, sq, hq, d).transpose(1, 2))
+    k, v = (torch.randn((b, hkv, sk, d), generator=g, device="cuda")
+            .to(dtype) for _ in range(2))
+    n = flash_attention.launches
+    got = attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whisper_forward_and_decode_on_the_card(card, dtype):
+    """A narrow whisper-medium (d_model 256, 4 heads at D 64, 2 + 2
+    layers) on the card: the encoder-decoder forward through the kernel
+    (three launches per layer pair) equals the plain-attention twin on
+    ragged lengths (120 frames, 30 tokens), and in f32 the primed decode
+    steps (one launch per layer at Sq 1) equal the forward's rows."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+    )
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tfm
+
+    cfg = dataclasses.replace(get_arch("whisper-medium").reduced(),
+                              d_model=256, n_heads=4, n_kv_heads=4,
+                              head_dim=64, n_layers=2, dtype=dtype)
+    bundle = registry.build(cfg, device="cuda")
+    plain = registry.build(cfg, device="cuda", use_kernel=False)
+    model = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = registry.make_batch(cfg, ShapeConfig("t", 120, 2, "prefill"),
+                                seed=1, device="cuda")
+    n = flash_attention.launches
+    got = bundle.forward(model, batch)
+    assert flash_attention.launches == n + 3 * cfg.n_layers
+    want = plain.forward(model, batch)
+    tol = (dict(rtol=2e-3, atol=2e-3) if dtype == "float32"
+           else dict(rtol=5e-2, atol=5e-2))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    if dtype != "float32":
+        return
+    tokens = batch["tokens"]
+    enc = tfm.encode(model, batch["frames"])
+    cache = tfm.prime_cross_cache(model, bundle.cache_init(2, 30), enc)
+    n = flash_attention.launches
+    for t in range(tokens.shape[1]):
+        lg, cache = bundle.decode(model, tokens[:, t:t + 1], cache, t)
+        torch.testing.assert_close(lg[:, 0], got[:, t], rtol=2e-3,
+                                   atol=2e-3)
+    assert flash_attention.launches == n + cfg.n_layers * tokens.shape[1]

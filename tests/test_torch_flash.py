@@ -129,6 +129,24 @@ def test_dispatcher_cpu_path_equals_jax_dispatcher():
     assert torch.equal(got, attention_chunked_ref(*_t(q, k, v), chunk=512))
 
 
+@pytest.mark.parametrize("shape", [(1500, 1500, False), (375, 1500, False),
+                                   (1000, 1000, True)])
+def test_dispatcher_kernel_path_takes_any_length(shape):
+    """``use_kernel=True`` takes every length the reference's model path
+    takes (whisper's 1500 frames, its 375 x 1500 cross-attention, a
+    1000-token prompt), though none tiles by the default blocks: on a CPU
+    tensor it equals the chunked path bitwise, and the JAX dispatcher's
+    reference path within f32 rounding."""
+    sq, sk, causal = shape
+    q, k, v = _qkv(13, 1, 2, 2, sq, sk, 64)
+    got = attention(*_t(q, k, v), causal=causal, use_kernel=True)
+    assert torch.equal(got, attention(*_t(q, k, v), causal=causal,
+                                      use_kernel=False))
+    want = np.asarray(jax_attention(*_j(q, k, v), causal=causal,
+                                    use_pallas=False))
+    np.testing.assert_allclose(got.numpy(), want, **REF_TOL)
+
+
 def test_rejections_match_the_reference():
     q, k, v = _t(*_qkv(0, 1, 3, 2, 64, 64, 32))
     with pytest.raises(ValueError, match="multiple of Hkv"):

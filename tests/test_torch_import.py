@@ -33,6 +33,8 @@ import repro_torch.core.distribute
 import repro_torch.models.registry
 import repro_torch.models.mamba2
 import repro_torch.models.zamba2
+import repro_torch.models.transformer
+import repro_torch.models.layers
 import repro_torch.serve.engine
 import repro_torch.kernels.flash_attention.ops
 import repro_torch.launch.serve
@@ -95,6 +97,20 @@ bundle = registry.build(hyb, device="cpu")
 model = bundle.init(torch.Generator().manual_seed(0))
 nxt = bundle.make_prefill_step()(model, {"tokens": torch.tensor([[1, 2, 3]])})
 assert nxt.shape == (1, 512) and bool(torch.isfinite(nxt).all())
+from repro_torch.configs import ShapeConfig
+from repro_torch.models import transformer as tfm
+for name in ("llava-next-34b", "whisper-medium"):
+    cfg = get_arch(name).reduced()
+    bundle = registry.build(cfg, device="cpu")
+    model = bundle.init(torch.Generator().manual_seed(0))
+    batch = registry.make_batch(cfg, ShapeConfig("p", 32, 1, "prefill"),
+                                seed=0, device="cpu")
+    nxt = bundle.make_prefill_step()(model, batch)
+    assert nxt.shape == (1, 512) and bool(torch.isfinite(nxt).all())
+cache = tfm.prime_cross_cache(model, bundle.cache_init(1, 8),
+                              tfm.encode(model, batch["frames"]))
+lg, _ = bundle.decode(model, batch["tokens"][:, :1], cache, 0)
+assert lg.shape == (1, 1, 512)
 for name in ("mixtral-8x7b", "kimi-k2-1t-a32b"):
     bundle = registry.build(get_arch(name).reduced(), device="cpu")
     model = bundle.init(torch.Generator().manual_seed(0))
