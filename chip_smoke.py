@@ -89,13 +89,39 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    of 6m at its 1x4096 prefill (2,880 seeded frontend embeds and 1,216
    tokens from ``make_batch``), D 128 with GQA 56:8; (c) the engine on
    text prompts; (d) 4 layers in f32;
+6x. SSM serving (docs/port.md §ssm), xLSTM-125m at full width and depth
+   (12 blocks, sLSTM at 5 and 11), bf16: (a) the prefill 4x2048 (chunk
+   128) with its device activities per prefill (the sLSTM blocks' Python
+   loop over 2048 positions makes it host-bound), and one block of each
+   kind alone; (b) the engine, 8 requests on 4 slots, and one decode step
+   beside its host enqueue; (c) in f32 at full depth over 256 tokens, each
+   block's chunked apply against its step-by-step decode (the reference's
+   rtol 2e-3 / atol 2e-4 for that pair) and the whole model's decode
+   against the chunked forward (argmax equal, ``SSM_REL_L2``); (d) f32
+   engines at 6 blocks,
+   ``max_batch`` 2 and 3, against the greedy forward;
+11. training (docs/port.md §train), run before phase 5: (a) xLSTM-125m at
+   full width and depth through the port's loop, bf16 weights and f32
+   AdamW, 8x2048 synthetic tokens a step, 12 steps with a checkpoint every
+   4 and faults after steps 6 and 9, beside the same 12 steps unbroken:
+   two restarts, every loss finite, the losses after the last restore
+   within ``TRAIN_LOSS_RTOL`` of the unbroken run's, the newest
+   checkpoint restored bitwise, with step ms, tokens/s, peak memory and
+   the seconds of a save and a restore; (b) Qwen3-8B at full width and 8
+   of its 36 layers, B 2 x 2048: step 0's gradients through the kernel
+   (8 launches forward, none backward) against plain attention's, every
+   leaf within the larger of ``GRAD_REL_L2`` and 1.5x its rounding floor,
+   then 3 steps of ``make_train_step``, and at the training shape the
+   kernel's forward, ``FlashAttentionFn``'s backward (the plain
+   recompute) and ``scaled_dot_product_attention`` forward + backward;
 5. at the main-path shapes, each kernel held to its plain version again
    and timed (CUDA events) against its bound, its plain version and, for
    diffusion and flash attention, one PyTorch call (``library_ms``); the
    halo kernels at one shard of the phase-3b runs; flash attention at
    the LM phases' launch shapes (D 128 causal, D 112 MHA, Mixtral's D 128
    at 1x8192 with the window binding, Kimi's D 112 with GQA 8,
-   whisper's four at D 64, LLaVA's D 128 with GQA 7), through the
+   whisper's four at D 64, LLaVA's D 128 with GQA 7, the Qwen3-8B
+   training step's D 128 with GQA 4 at B 2), through the
    dispatcher, on contiguous q/k/v and on the head-split views, with TFLOP/s,
    the share of its bound (the (query, key) pairs the mask keeps) and
    ``scaled_dot_product_attention`` (the window as a boolean mask, on the
@@ -354,6 +380,42 @@ VLM_PREFILL = (1, 4096)
 #: chosen: the prefill's activations, three (1, 4096, 64000) logits
 #: tensors and the plain twin's f32 score chunks.
 VLM_HEADROOM = 8 * 2**30
+#: xLSTM-125m's prefill: prompts x tokens (16 chunks of 128).
+SSM_PREFILL = (4, 2048)
+#: f32 at full width and depth, over this many tokens: each block's chunked
+#: apply against its step-by-step decode on the block's own input, at the
+#: reference's tolerance for that pair (tests/test_models.py:80); and the
+#: whole model's step-by-step decode against the chunked forward, argmax
+#: equal at every position and within ``SSM_REL_L2`` (whisper's f32 gate).
+#: The per-block tolerance does not hold for the logits after 12 blocks:
+#: the random weights' later blocks amplify each block's ~1e-5 difference
+#: to a few 1e-4 on unit-scale logits, in the reference's own f32 run too
+#: (2.85e-4 max, one element of 2 x 128 x 50,304 outside it, on the CPU).
+SSM_CONSISTENCY = 256
+SSM_TOL = dict(rtol=2e-3, atol=2e-4)
+SSM_REL_L2 = 1e-3
+#: Phase 11a: xLSTM-125m trained at full width and depth, bf16 weights and
+#: f32 AdamW: batch x tokens a step, and the reference's loop-test
+#: schedule (tests/test_substrate.py): 12 steps, a checkpoint every 4,
+#: faults after steps 6 and 9.
+TRAIN_SSM = (8, 2048)
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAULTS = 12, 4, (6, 9)
+#: The restarted run's losses after its last restore against the unbroken
+#: run's same steps: the same data from a bitwise-restored state, but the
+#: embedding backward's atomic adds sum in another order on each run, so
+#: two runs of a step differ at the rounding level, far inside this.
+TRAIN_LOSS_RTOL = 1e-3
+#: Phase 11b: Qwen3-8B at full width and 8 of its 36 layers (2.79 B
+#: parameters: ~33.5 GB of bf16 weights and gradients and f32 moments),
+#: batch x tokens a step, and the steps of make_train_step.
+QWEN_TRAIN_LAYERS = 8
+TRAIN_DENSE = (2, 2048)
+DENSE_STEPS = 3
+#: Step 0's gradient of every leaf through the kernel against plain
+#: attention's, as a relative L2 (the logits gate's 5e-2), or where the
+#: model's own bf16 rounding moves a leaf more, FLOOR_FACTOR x that
+#: floor, measured in the same run.
+GRAD_REL_L2 = 5e-2
 
 
 #: ptxas spill bytes allowed per kernel instantiation, by stream library:
@@ -841,11 +903,17 @@ def sim_serving(record) -> None:
     phase(f"  phase 9: {time.perf_counter() - t9:.1f} s")
 
 
-def rel_l2(got, want) -> float:
+def l2_sums(got, want) -> tuple[float, float]:
+    """(sum (got - want)², sum want²) in f64, piece by piece."""
     num = den = 0.0
     for x, y in _row_chunks(got, want):
         num += float(((x - y) ** 2).sum())
         den += float((y * y).sum())
+    return num, den
+
+
+def rel_l2(got, want) -> float:
+    num, den = l2_sums(got, want)
     return math.sqrt(num / den)
 
 
@@ -1482,6 +1550,488 @@ def vlm_serving():
           + ("" if depth == cfg.n_layers else " (the depth is cut)"))
     return lm_serving(dataclasses.replace(cfg, n_layers=depth), "phase 6v",
                       f32_layers=4, prefills=(VLM_PREFILL,), matrix=False)
+
+
+def kernel_launches(fn) -> int:
+    """The device activities (kernels, copies, fills) of one call of
+    ``fn``, as ``torch.profiler`` records them on the card alone (the raw
+    kineto events, not parsed into Python objects)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA)
+
+
+def ssm_serving() -> None:
+    """Phase 6x, xLSTM-125m at full width and depth (12 blocks, sLSTM at
+    5 and 11, d 768, 4 heads: mLSTM D 384), bf16, seeded weights: (a)
+    the prefill 4x2048 at chunk 128 with its device activities per
+    prefill, and each block kind alone; (b) the engine; (c) in f32 at full
+    depth over ``SSM_CONSISTENCY`` tokens, each block's chunked apply
+    against its step-by-step decode (``SSM_TOL``) and the whole model's
+    decode against the chunked forward (``SSM_REL_L2``, argmax equal);
+    (d) f32 engines at 6
+    blocks (one sLSTM), ``max_batch`` 2 and 3, against the greedy forward
+    (docs/port.md §ssm). No attention, so no flash launch."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import registry
+    from repro_torch.models import xlstm as xl
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    t6 = time.perf_counter()
+    cfg = get_arch("xlstm-125m")
+    dev = "cuda"
+    pattern = registry._xlstm_pattern(cfg)
+    slstm = [i for i, k in enumerate(pattern) if k == "slstm"]
+    bundle = registry.build(cfg, device=dev)
+    model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    phase(f"phase 6x: SSM serving, {cfg.name} ({cfg.family}) at "
+          f"{cfg.n_layers} blocks (sLSTM at {slstm}), bf16: "
+          f"{cfg.num_params():.0f} parameters, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    b, s = SSM_PREFILL
+    tok = torch.randint(1, cfg.vocab, (b, s), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    prefill = bundle.make_prefill_step()
+    prefill(model, {"tokens": tok[:1, :256]})  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    nxt = prefill(model, {"tokens": tok})
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if nxt.shape != (b, cfg.vocab) or not torch.isfinite(nxt).all():
+        fail(f"xlstm prefill logits: shape {tuple(nxt.shape)} or "
+             "non-finite")
+    t0 = time.perf_counter()
+    n = kernel_launches(lambda: prefill(model, {"tokens": tok}))
+    count_s = time.perf_counter() - t0
+    phase(f"  prefill {b}x{s} (chunk {cfg.ssm.chunk}): {wall * 1e3:.1f} ms "
+          f"(host enqueue {enqueue * 1e3:.1f} ms), {b * s / wall:.0f} "
+          f"tokens/s, peak memory {peak:.2f} GiB (weights included); "
+          f"{n} device activities (torch.profiler) per prefill (counted "
+          f"in {count_s:.1f} s)")
+    with torch.no_grad():
+        x = model.embed[tok]
+        for kind, i in (("mLSTM", 0), ("sLSTM", slstm[0])):
+            fn = (xl.mlstm_block_apply if kind == "mLSTM"
+                  else xl.slstm_block_apply)
+            ms, _ = cuda_ms(lambda: fn(model.blocks[i], x, cfg), 2)
+            host = enqueue_ms(lambda: fn(model.blocks[i], x, cfg), 2)
+            phase(f"  one {kind} block alone on {b}x{s}: {ms:.2f} ms, "
+                  f"host enqueue {host:.2f} ms")
+        del x
+
+    # (b) the engine at full width, bf16
+    rng = np.random.default_rng(0)
+    eng = ServeEngine(bundle, model, max_batch=4, max_seq=256)
+    for rid in range(8):
+        prompt = rng.integers(1, cfg.vocab, rng.integers(4, 17)).tolist()
+        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=16))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if sorted(c.rid for c in done) != list(range(8)) or not all(
+            len(c.tokens) == 16 and all(0 <= t < cfg.vocab for t in c.tokens)
+            for c in done):
+        fail(f"xlstm engine completions malformed: "
+             f"{[(c.rid, c.tokens) for c in done]}")
+    phase(f"  engine: 8 requests x 16 tokens on 4 slots in "
+          f"{wall * 1e3:.1f} ms, {8 * 16 / wall:.1f} decode tokens/s, "
+          f"{eng.decode_calls} decode steps")
+    one = torch.ones((4, 1), dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(10):
+        bundle.decode(model, one, eng.cache, 200 + i)
+    enqueue = (time.perf_counter() - t0) / 10
+    torch.cuda.synchronize()
+    step = (time.perf_counter() - t0) / 10
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    phase(f"  one decode step (4 slots): {step * 1e3:.2f} ms, host enqueue "
+          f"{enqueue * 1e3:.2f} ms, weight-read bound "
+          f"{weights / card_peaks(torch.cuda.get_device_name(0))[0] * 1e3:.3f}"
+          " ms")
+    del eng, model, bundle
+    torch.cuda.empty_cache()
+
+    # (c) f32 at full depth: the chunked forward against the recurrence,
+    # block by block and for the whole model
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    bundle = registry.build(f32, device=dev)
+    model = bundle.init(torch.Generator(device=dev).manual_seed(2))
+    n = SSM_CONSISTENCY
+    toks = torch.randint(1, cfg.vocab, (2, n), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+    t0 = time.perf_counter()
+    errs = []
+    with torch.no_grad():
+        x = model.embed[toks]
+        states = bundle.cache_init(2, n)
+        for block, kind, st in zip(model.blocks, model.pattern, states):
+            apply, step = ((xl.mlstm_block_apply, xl.mlstm_block_decode)
+                           if kind == "mlstm" else
+                           (xl.slstm_block_apply, xl.slstm_block_decode))
+            y = apply(block, x, f32)
+            ys = torch.cat([step(block, x[:, t:t + 1], f32, st)[0]
+                            for t in range(n)], dim=1)
+            errs.append(max_err(ys, y))
+            if not torch.allclose(ys, y, **SSM_TOL):
+                fail(f"f32 {kind} block {len(errs) - 1}: step-by-step decode "
+                     f"vs chunked apply, max abs err {errs[-1]}")
+            x = y
+    phase(f"  f32, each of the {cfg.n_layers} blocks' chunked apply vs its "
+          f"step-by-step decode over {n} tokens on the block's own input: "
+          f"max abs err {max(errs):.3e} (rtol {SSM_TOL['rtol']}, atol "
+          f"{SSM_TOL['atol']}, the reference's tolerance for the pair); "
+          f"{time.perf_counter() - t0:.1f} s")
+    full = bundle.forward(model, {"tokens": toks})
+    cache = bundle.cache_init(2, n)
+    rows = []
+    for t in range(n):
+        lg, cache = bundle.decode(model, toks[:, t:t + 1], cache, t)
+        rows.append(lg[:, 0])
+    got = torch.stack(rows, dim=1)
+    rel = rel_l2(got, full)
+    agree = int((got.argmax(-1) == full.argmax(-1)).sum())
+    phase(f"  f32 {cfg.n_layers}-block xlstm_decode step by step vs the "
+          f"chunked forward over {n} tokens: rel L2 {rel:.3e} (<= "
+          f"{SSM_REL_L2}), max abs err {max_err(got, full):.3e}, argmax "
+          f"equal at {agree}/{2 * n} positions")
+    if not rel <= SSM_REL_L2 or agree != 2 * n:
+        fail(f"f32 xlstm decode vs forward: rel L2 {rel}, argmax equal at "
+             f"{agree}/{2 * n}")
+    del model, bundle, cache, full, got, rows, x, y, ys, states
+    torch.cuda.empty_cache()
+
+    # (d) f32 engines at reduced depth against the greedy forward
+    small = dataclasses.replace(f32, n_layers=6)
+    bundle = registry.build(small, device=dev)
+    model = bundle.init(torch.Generator(device=dev).manual_seed(4))
+    prompts = [rng.integers(1, cfg.vocab, 6).tolist() for _ in range(3)]
+    for max_batch in (2, 3):
+        eng = ServeEngine(bundle, model, max_batch=max_batch, max_seq=64)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=list(p), max_new_tokens=8))
+        done = {c.rid: c.tokens for c in eng.run_until_drained()}
+        for rid, p in enumerate(prompts):
+            seq = list(p)
+            for t in done[rid]:
+                logits = bundle.forward(model, {"tokens": torch.tensor(
+                    [seq], device=dev)})
+                if t != int(logits[0, -1].argmax()):
+                    fail(f"f32 xlstm engine (max_batch {max_batch}) request "
+                         f"{rid}: token {t} != forward argmax after {seq}")
+                seq.append(t)
+        phase(f"  f32 6-block engine, max_batch {max_batch} (3 requests): "
+              f"{done} == argmax of the greedy forward")
+    del model, bundle, eng
+    torch.cuda.empty_cache()
+    phase(f"  phase 6x: {time.perf_counter() - t6:.1f} s")
+
+
+def leaf_names(tree, prefix="") -> list:
+    """The key path of every leaf of ``tree`` in ``tree_flatten``'s order
+    (a dict's keys sorted, a list's indices)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, list):
+        return [n for i, x in enumerate(tree)
+                for n in leaf_names(x, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def ssm_training() -> None:
+    """Phase 11a: xLSTM-125m trained at full width and depth through the
+    port's loop, bf16 parameters and f32 AdamW, ``TRAIN_SSM`` synthetic
+    tokens a step, ``TRAIN_STEPS`` steps with a checkpoint every
+    ``TRAIN_CKPT_EVERY`` and faults after ``TRAIN_FAULTS``, beside the
+    same steps unbroken: two restarts, every loss finite, the losses
+    after the last restore against the unbroken run's
+    (``TRAIN_LOSS_RTOL``), the newest checkpoint restored bitwise, with
+    step ms, tokens/s, peak memory and the seconds of a save and a
+    restore (docs/port.md §train)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.interop import param_tree
+    from repro_torch.models import registry
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import DataConfig
+    from repro_torch.train.loop import LoopConfig, run_with_restarts
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+
+    t11 = time.perf_counter()
+    cfg = get_arch("xlstm-125m")
+    b, s = TRAIN_SSM
+    phase(f"phase 11a: training {cfg.name} at full width and depth "
+          f"({cfg.num_params():.0f} parameters, bf16; AdamW moments "
+          f"{cfg.opt_state_dtype}), {b}x{s} synthetic tokens a step, "
+          f"{TRAIN_STEPS} steps, a checkpoint every {TRAIN_CKPT_EVERY}")
+    bundle = registry.build(cfg, device="cuda")
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS,
+                          state_dtype=cfg.opt_state_dtype)
+    data = DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b, seed=0)
+    tmp = tempfile.mkdtemp(prefix="phase11-")
+    runs = {}
+    try:
+        for name, faults in (("restarted", TRAIN_FAULTS), ("unbroken", ())):
+            model = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+            opt = init_state(opt_cfg, param_tree(model))
+            loop = LoopConfig(total_steps=TRAIN_STEPS,
+                              ckpt_dir=os.path.join(tmp, name),
+                              ckpt_every=TRAIN_CKPT_EVERY,
+                              log_every=TRAIN_STEPS, fail_at_steps=faults)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model, opt, st = run_with_restarts(
+                loop, data, bundle.make_train_step(opt_cfg), model, opt,
+                log=lambda m, name=name: phase(f"  {name}: {m}"))
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            if not all(math.isfinite(x) for x in st.losses):
+                fail(f"phase 11a {name}: a loss is not finite: {st.losses}")
+            if st.step != TRAIN_STEPS or st.restarts != len(faults):
+                fail(f"phase 11a {name}: {st.step} steps, {st.restarts} "
+                     f"restarts")
+            times = sorted(st.step_times[1:])
+            med = times[len(times) // 2]
+            phase(f"  {name}: {st.step} steps, {st.restarts} restarts, "
+                  f"{st.straggler_events} stragglers in {wall:.1f} s; "
+                  f"step {med * 1e3:.1f} ms (median after the first; first "
+                  f"{st.step_times[0] * 1e3:.1f} ms), {b * s / med:.0f} "
+                  f"tokens/s, peak memory {peak:.2f} GiB; losses "
+                  + ", ".join(f"{x:.4f}" for x in st.losses))
+            runs[name] = (model, opt, st, loop.ckpt_dir)
+        model, opt, st, ck = runs["restarted"]
+        want = runs["unbroken"][2].losses[-len(st.losses):]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(st.losses, want))
+        phase(f"  restarted vs unbroken, the {len(st.losses)} losses after "
+              f"the last restore: max rel diff {rel:.3e} (<= "
+              f"{TRAIN_LOSS_RTOL})")
+        if not rel <= TRAIN_LOSS_RTOL:
+            fail(f"phase 11a: restarted losses {st.losses} vs unbroken "
+                 f"{want}")
+        tree = {"params": param_tree(model), "opt": opt}
+        leaves = ckpt.tree_flatten(tree)[0]
+        sums = [l2_sums(x, y) for x, y in zip(
+            ckpt.tree_flatten(tree["params"])[0],
+            ckpt.tree_flatten(param_tree(runs["unbroken"][0]))[0])]
+        drift = math.sqrt(sum(x for x, _ in sums) / sum(y for _, y in sums))
+        phase(f"  restarted vs unbroken parameters after {TRAIN_STEPS} "
+              f"steps: rel L2 {drift:.3e} (not gated)")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, got, _ = ckpt.restore_latest(ck, tree)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        bad = [i for i, (a, x) in enumerate(zip(ckpt.tree_flatten(got)[0],
+                                                leaves))
+               if not torch.equal(a, x)]
+        if step != TRAIN_STEPS or bad:
+            fail(f"phase 11a: restored step {step}, leaves {bad} differ "
+                 "from the saved")
+        t0 = time.perf_counter()
+        ckpt.save(os.path.join(tmp, "timed"), TRAIN_STEPS, tree)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(x.numel() * x.element_size() for x in leaves)
+        phase(f"  the step-{step} checkpoint restored vs the saved "
+              f"parameters and moments ({len(leaves)} leaves, "
+              f"{nbytes / 2**30:.2f} GiB): bitwise equal; a save "
+              f"{save_s:.2f} s, the restore {restore_s:.2f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del runs, model, opt, tree, got, leaves
+    torch.cuda.empty_cache()
+    phase(f"  phase 11a: {time.perf_counter() - t11:.1f} s")
+
+
+def dense_training() -> dict:
+    """Phase 11b: Qwen3-8B at full width and ``QWEN_TRAIN_LAYERS`` of its
+    36 layers, bf16 parameters and gradients, f32 moments,
+    ``TRAIN_DENSE`` synthetic tokens: step 0's gradients through the
+    flash kernel (``FlashAttentionFn``: one launch per layer forward,
+    none backward) against plain attention's, every leaf of the
+    reference's tree within the larger of ``GRAD_REL_L2`` and
+    ``FLOOR_FACTOR`` x its rounding floor (the plain twin's gradient
+    with every attention output moved at the rounding level); then
+    ``DENSE_STEPS`` steps of ``make_train_step``, and at the training
+    shape the kernel's forward, the Function's backward (the plain
+    recompute) and ``scaled_dot_product_attention`` forward + backward
+    timed (docs/port.md §train). Returns phase 5's flash row."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.interop import Stacked, param_tree
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.models import registry
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import DataConfig, SyntheticTokens
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+
+    t11 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch("qwen3-8b"),
+                              n_layers=QWEN_TRAIN_LAYERS)
+    b, s = TRAIN_DENSE
+    dev = "cuda"
+    bundle = registry.build(cfg, device=dev)
+    plain = registry.build(cfg, device=dev, use_kernel=False)
+    model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    phase(f"phase 11b: training {cfg.name} at full width and "
+          f"{cfg.n_layers} of 36 layers ({cfg.num_params():.0f} "
+          f"parameters, bf16; AdamW moments f32), {b}x{s} synthetic tokens "
+          f"a step: {torch.cuda.memory_allocated() / 2**30:.2f} GiB of "
+          "weights")
+    source = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=s,
+                                        global_batch=b, seed=0))
+    tree = param_tree(model)
+    leaves = ckpt.tree_flatten(tree)[0]
+    names = leaf_names(tree)
+    groups = [x.parts if isinstance(x, Stacked) else [x] for x in leaves]
+    parts = [p for g in groups for p in g]
+    for p in parts:
+        p.requires_grad_(True)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in source.batch_at(0).items()}
+
+    def grads(which, noise=None):
+        ctx = (attention_through(rounding_noise(noise)) if noise is not None
+               else contextlib.nullcontext())
+        n0 = flash_attention.launches
+        with ctx:
+            loss = which.loss(model, batch)
+            n1 = flash_attention.launches
+            gs = torch.autograd.grad(loss, parts)
+        return float(loss), gs, (n1 - n0, flash_attention.launches - n1)
+
+    def per_leaf(gs, ref):
+        """The relative L2 of ``gs`` against ``ref`` per leaf of the
+        reference's tree (a stacked leaf's parts together)."""
+        out, i = [], 0
+        for g in groups:
+            sums = [l2_sums(a, r) for a, r in zip(gs[i:i + len(g)],
+                                                  ref[i:i + len(g)])]
+            num, den = sum(x for x, _ in sums), sum(y for _, y in sums)
+            out.append(math.sqrt(num / den) if den else 0.0)
+            i += len(g)
+        return out
+
+    loss_k, gk, (fwd, bwd) = grads(bundle)
+    phase(f"  step 0 through the kernel: loss {loss_k:.4f}, flash launches "
+          f"{{'forward': {fwd}, 'backward': {bwd}}}")
+    if fwd != cfg.n_layers or bwd != 0:
+        fail(f"phase 11b: flash launched {fwd} times forward (expected "
+             f"{cfg.n_layers}) and {bwd} backward (expected 0)")
+    loss_p, gp, _ = grads(plain)
+    rels = per_leaf(gk, gp)
+    del gk
+    _, gn, _ = grads(plain, NOISE_SEEDS[0])
+    floors = per_leaf(gn, gp)
+    del gn, gp
+    limits = [max(GRAD_REL_L2, FLOOR_FACTOR * f) for f in floors]
+    worst = max(range(len(rels)), key=lambda i: rels[i] / limits[i])
+    phase(f"  step 0 gradients, kernel vs plain attention, {len(rels)} "
+          f"leaves of the reference's tree: worst {names[worst]} rel L2 "
+          f"{rels[worst]:.3e} (<= {limits[worst]:.3e}: the larger of "
+          f"{GRAD_REL_L2} and {FLOOR_FACTOR} x its rounding floor "
+          f"{floors[worst]:.3e}); largest rel L2 {max(rels):.3e}, largest "
+          f"floor {max(floors):.3e}; loss {loss_k:.6f} vs plain "
+          f"{loss_p:.6f}")
+    bad = [f"{names[i]}: {rels[i]:.3e} > {limits[i]:.3e}"
+           for i in range(len(rels)) if not rels[i] <= limits[i]]
+    if bad:
+        fail("phase 11b gradients vs plain attention: " + "; ".join(bad))
+    torch.cuda.empty_cache()
+
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=DENSE_STEPS)
+    opt = init_state(opt_cfg, tree)
+    step = bundle.make_train_step(opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches, times, losses = [], [], []
+    for i in range(DENSE_STEPS):
+        n0 = flash_attention.launches
+        t0 = time.perf_counter()
+        model, opt, metrics = step(model, opt, source.batch_at(i))
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+        launches.append(flash_attention.launches - n0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    phase(f"  {DENSE_STEPS} steps of make_train_step: losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; step ms {', '.join(f'{t * 1e3:.1f}' for t in times)} "
+          f"({b * s / times[-1]:.0f} tokens/s at the last), peak memory "
+          f"{peak:.2f} GiB (weights, gradients and moments included); "
+          f"flash launches per step {launches}")
+    if not all(math.isfinite(x) for x in losses) or launches != [
+            cfg.n_layers] * DENSE_STEPS:
+        fail(f"phase 11b: losses {losses}, launches {launches}")
+    n_train = sum(launches)
+    del model, opt, step, tree, leaves, groups, parts, batch, metrics
+    torch.cuda.empty_cache()
+
+    # At the training shape: the kernel's forward, the Function's backward
+    # (the plain recompute) and SDPA forward + backward.
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = flash_inputs(g, b, cfg.n_heads, cfg.n_kv_heads, s, s,
+                           cfg.head_dim, torch.bfloat16)
+    err = check_close(f"flash training shape q {tuple(q.shape)} kv "
+                      f"{tuple(k.shape)} bf16", flash_attention(
+                          q, k, v).float(), flash_attention_plain(
+                              q, k, v).float(), FLASH_TOL["bfloat16"])
+    xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = attention(*xs)
+    go = torch.randn(out.shape, generator=g, device=dev).to(out.dtype)
+    fwd_ms, _ = cuda_ms(lambda: attention(q, k, v), 10)
+    bwd_ms, got = cuda_ms(lambda: torch.autograd.grad(
+        out, xs, go, retain_graph=True), 3)
+
+    def sdpa_fb():
+        o = F.scaled_dot_product_attention(*xs, is_causal=True,
+                                           enable_gqa=True)
+        return torch.autograd.grad(o, xs, go)
+
+    sdpa_fb_ms, want = cuda_ms(sdpa_fb, 10)
+    sdpa_f_ms, _ = sdpa_ms(q, k, v, 0)
+    grad_rel = max(rel_l2(a, w) for a, w in zip(got, want))
+    phase(f"  flash at the training shape: kernel forward {fwd_ms:.4f} ms, "
+          f"the Function's backward (plain recompute, chunk 512) "
+          f"{bwd_ms:.3f} ms; SDPA forward {sdpa_f_ms:.4f} ms, forward + "
+          f"backward {sdpa_fb_ms:.4f} ms; dq, dk, dv vs SDPA's: rel L2 <= "
+          f"{grad_rel:.3e} (not gated)")
+    del xs, out, go, got, want
+    torch.cuda.empty_cache()
+    phase(f"  phase 11b: {time.perf_counter() - t11:.1f} s")
+    return {"qkv": (q, k, v), "window": 0, "launches": n_train,
+            "errs": [err]}
 
 
 def sdpa_ms(q, k, v, window: int, causal: bool = True) -> tuple[float, str]:
@@ -2613,6 +3163,11 @@ def main() -> None:
     mix, kimi = moe_serving()
     whisper = whisper_serving()
     vlm = vlm_serving()
+    ssm_serving()
+
+    # ---- 11. training (before phase 5, which times its kernel) -------
+    ssm_training()
+    train = dense_training()
 
     # ---- 5. timing at the main-path shapes ----------------------------
     phase("phase 5: timing (CUDA events) and kernel vs plain at the "
@@ -2792,7 +3347,8 @@ def main() -> None:
     # (D 112), Mixtral's 1x8192 with its window of 4096 binding, Kimi K2's
     # (D 112, GQA 8), whisper-medium's four (D 64: the encoder's and the
     # cross-attention's non-causal, the decoder's causal, the decode
-    # step's cross-attention at Sq 1) and LLaVA-NeXT-34B's (D 128, GQA 7).
+    # step's cross-attention at Sq 1), LLaVA-NeXT-34B's (D 128, GQA 7) and
+    # the Qwen3-8B training step's (B 2; its launches those of phase 11b).
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_plain,
     )
@@ -2809,7 +3365,8 @@ def main() -> None:
                    whisper["decoder self"]),
                   ("flash_attention[D 64, whisper decode cross]",
                    whisper["decode cross"]),
-                  ("flash_attention[D 128, GQA 7]", vlm[VLM_PREFILL]))
+                  ("flash_attention[D 128, GQA 7]", vlm[VLM_PREFILL]),
+                  ("flash_attention[D 128, GQA 4, training]", train))
     for name, run in flash_rows:
         # Two layouts: contiguous (B, H, S, D), and the head-split views
         # of (B, S, H, D) buffers that the prefill passes (read in place).
@@ -2851,7 +3408,7 @@ def main() -> None:
                max(run["errs"] + flash_errs), lib_ms, peak=bf16_peak)
         del q, k, v, views, want, got
         torch.cuda.empty_cache()
-    del lm, hyb, mix, kimi, whisper, vlm, flash_rows
+    del lm, hyb, mix, kimi, whisper, vlm, train, flash_rows
 
     # The stencil kernels' design choices side by side, on the same
     # main-path inputs (three rounds after a warm-up).

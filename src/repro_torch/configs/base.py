@@ -2,10 +2,9 @@
 
 The port of the JAX package's ``configs/base.py``: the same dataclasses and
 analytic parameter counts, with ``param_dtype`` a ``torch.dtype``. The
-hybrid count walks the port's own ``Zamba2`` module, built on the meta
-device (nothing is allocated), as the reference walks its parameter tree
-through ``jax.eval_shape``; the SSM family (xLSTM) is not ported yet
-(ROADMAP Queue 1, item 5), so its count raises here.
+hybrid and SSM counts walk the port's own ``Zamba2`` and ``XLSTM``
+modules, built on the meta device (nothing is allocated), as the
+reference walks its parameter tree through ``jax.eval_shape``.
 """
 
 from __future__ import annotations
@@ -101,20 +100,17 @@ class ArchConfig:
 
     def num_params(self) -> float:
         emb = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
-        if self.family == "ssm":
-            raise NotImplementedError(
-                f"num_params of the {self.family!r} family counts its real "
-                "parameter tree, and the xLSTM model is not ported yet "
-                "(ROADMAP Queue 1, item 5)"
-            )
-        if self.family == "hybrid":
-            # count the real module once (meta tensors: no allocation)
-            # and cache on the instance, as the reference does
+        if self.family in ("hybrid", "ssm"):
+            # non-transformer blocks: count the real module once (meta
+            # tensors: no allocation) and cache on the instance, as the
+            # reference does
             cached = getattr(self, "_np_cache", None)
             if cached is None:
+                from repro_torch.models.registry import XLSTM
                 from repro_torch.models.zamba2 import Zamba2
 
-                model = Zamba2(self, device=torch.device("meta"))
+                cls = Zamba2 if self.family == "hybrid" else XLSTM
+                model = cls(self, device=torch.device("meta"))
                 cached = float(sum(p.numel() for p in model.parameters()))
                 object.__setattr__(self, "_np_cache", cached)
             return cached

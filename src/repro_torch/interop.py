@@ -6,7 +6,10 @@ values and initial states; :func:`from_numpy` moves a state onto a device,
 and :func:`core_structure` renders a parsed ``Core`` as plain Python so
 the two packages' parsers can be compared without importing each other.
 The LM substrate's weights cross as numpy arrays: :func:`params_from_jax`
-loads a JAX parameter tree into the port's ``Transformer`` or ``Zamba2``.
+loads a JAX parameter tree into the port's ``Transformer``, ``Zamba2`` or
+``XLSTM``, and :func:`param_tree` is the inverse view, a model's
+parameters as the reference's nested tree, which the train step
+differentiates and the checkpoints store (docs/port.md §train).
 """
 
 from __future__ import annotations
@@ -103,10 +106,108 @@ def core_structure(core) -> tuple:
     )
 
 
+class Stacked:
+    """One stacked leaf of the reference's parameter tree, an ``(L, ...)``
+    array, held as the ``L`` per-layer tensors of the port's modules
+    (``parts``, no copy). It has the stacked leaf's ``shape``, ``ndim``,
+    ``dtype`` and ``device``: the optimizer decays it by the stacked
+    ``ndim`` (a stacked norm is a matrix there, as in the reference), and
+    a checkpoint stores it stacked."""
+
+    __slots__ = ("parts",)
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+
+    @property
+    def shape(self) -> tuple:
+        return (len(self.parts),) + tuple(self.parts[0].shape)
+
+    @property
+    def ndim(self) -> int:
+        return 1 + self.parts[0].dim()
+
+    @property
+    def dtype(self):
+        return self.parts[0].dtype
+
+    @property
+    def device(self):
+        return self.parts[0].device
+
+    def stack(self) -> torch.Tensor:
+        """A stacked copy."""
+        return torch.stack([p.detach() for p in self.parts])
+
+    @torch.no_grad()
+    def copy_(self, src) -> "Stacked":
+        """Each part from its row of the stacked tensor ``src``."""
+        for i, p in enumerate(self.parts):
+            p.copy_(src[i])
+        return self
+
+
+def leaf_parts(leaf) -> list:
+    """The tensors a leaf of a parameter tree holds: a :class:`Stacked`
+    leaf's per-layer parts, or the leaf itself."""
+    return leaf.parts if isinstance(leaf, Stacked) else [leaf]
+
+
+def _own(module) -> dict:
+    """A module's parameters as a nested dict: its own by name, each
+    child's under the child's name."""
+    out = dict(module.named_parameters(recurse=False))
+    for name, child in module.named_children():
+        out[name] = _own(child)
+    return out
+
+
+def _stacked(modules) -> dict:
+    """Modules of one kind as the reference's stacked subtree, each leaf a
+    :class:`Stacked` of the modules' tensors."""
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return Stacked(nodes)
+
+    return stack([_own(m) for m in modules])
+
+
+def param_tree(model) -> dict:
+    """``model``'s parameters as the reference's ``init_params`` tree:
+    the same keys and nesting, each leaf the module's own tensor. The
+    xLSTM ``blocks`` list holds one dict per block; the stacked groups of
+    the others (``layers``, ``moe_layers``, ``enc_layers``,
+    ``dec_layers``, ``mamba_layers``) hold :class:`Stacked` leaves."""
+    from repro_torch.models.registry import XLSTM
+    from repro_torch.models.zamba2 import Zamba2
+
+    cfg = model.cfg
+    tree = {"embed": model.embed, "ln_f": model.ln_f}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = model.lm_head
+    if isinstance(model, XLSTM):
+        tree["blocks"] = [_own(block) for block in model.blocks]
+    elif isinstance(model, Zamba2):
+        tree["mamba_layers"] = _stacked(model.layers)
+        tree["shared_attn"] = _own(model.shared)
+    elif cfg.enc_dec:
+        tree["enc_layers"] = _stacked(model.enc_layers)
+        tree["dec_layers"] = _stacked(model.dec_layers)
+        tree["ln_enc"] = model.ln_enc
+    else:
+        n_dense = cfg.moe.moe_start_layer if cfg.moe else cfg.n_layers
+        if n_dense:
+            tree["layers"] = _stacked(model.layers[:n_dense])
+        if n_dense < cfg.n_layers:
+            tree["moe_layers"] = _stacked(model.layers[n_dense:])
+    return tree
+
+
 def params_from_jax(tree, cfg, device):
     """The port's model of ``cfg`` on ``device`` holding the weights of a
     JAX parameter tree: a ``Transformer`` for the dense family, a
-    ``Zamba2`` for the hybrid one.
+    ``Zamba2`` for the hybrid one, an ``XLSTM`` for the SSM one.
 
     ``tree`` is the JAX package's ``init_params`` tree with every leaf a
     numpy array: ``embed``, ``ln_f``, ``lm_head`` (unless tied), and
@@ -114,22 +215,25 @@ def params_from_jax(tree, cfg, device):
     ``layers``, if any (MoE: ``moe.router``, ``moe.w_gate``, ``moe.w_up``,
     ``moe.w_down`` and an optional ``moe.shared``), ``enc_layers`` (each
     a dense layer), ``dec_layers`` (each with ``ln_x`` and ``xattn``
-    besides) and ``ln_enc`` (encoder-decoder), or ``mamba_layers`` and the
-    one ``shared_attn`` block (hybrid). Stacked leaves carry the ``L``
+    besides) and ``ln_enc`` (encoder-decoder), ``mamba_layers`` and the
+    one ``shared_attn`` block (hybrid), or ``blocks``, a list of one
+    mLSTM or sLSTM dict per block (SSM). Stacked leaves carry the ``L``
     axis first. Matrices are ``(d_in, d_out)`` in both packages, so
     nothing is transposed. Other trees raise.
     """
+    from repro_torch.models.registry import XLSTM
     from repro_torch.models.transformer import Transformer
     from repro_torch.models.zamba2 import Zamba2
 
     dev = resolve_device(device)
     if not ("layers" in tree or "moe_layers" in tree
-            or "mamba_layers" in tree or "enc_layers" in tree):
+            or "mamba_layers" in tree or "enc_layers" in tree
+            or "blocks" in tree):
         raise NotImplementedError("only the decoder-only trees (``layers``, "
                                   "``moe_layers``), the encoder-decoder "
-                                  "tree (``enc_layers``, ``dec_layers``) "
-                                  "and the hybrid tree (``mamba_layers``) "
-                                  "are ported")
+                                  "tree (``enc_layers``, ``dec_layers``), "
+                                  "the hybrid tree (``mamba_layers``) and "
+                                  "the xLSTM tree (``blocks``) are ported")
 
     def put(param, value):
         value = np.asarray(value)
@@ -149,12 +253,17 @@ def params_from_jax(tree, cfg, device):
                 put(getattr(module, name), value if i is None else value[i])
 
     hybrid = "mamba_layers" in tree
-    model = (Zamba2 if hybrid else Transformer)(cfg, device=dev)
+    ssm = "blocks" in tree
+    model = (Zamba2 if hybrid else XLSTM if ssm else Transformer)(
+        cfg, device=dev)
     put(model.embed, tree["embed"])
     put(model.ln_f, tree["ln_f"])
     if not cfg.tie_embeddings:
         put(model.lm_head, tree["lm_head"])
-    if hybrid:
+    if ssm:
+        for block, value in zip(model.blocks, tree["blocks"], strict=True):
+            put_block(block, value)
+    elif hybrid:
         for i, layer in enumerate(model.layers):
             for name, value in tree["mamba_layers"].items():
                 put(getattr(layer, name), value[i])

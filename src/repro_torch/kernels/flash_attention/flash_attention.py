@@ -21,7 +21,10 @@ a simple kernel (scalar FMAs or WMMA fragments).
 the CUDA tiles are the kernel's own, and the output does not depend on
 them. On a CPU tensor :func:`flash_attention` runs
 :func:`flash_attention_plain`; on a CUDA tensor it launches the kernel or
-raises.
+raises. The kernel has no backward: on a CUDA input that requires grad
+(grad mode on) the call raises rather than return an output that drops
+the gradient; ``ops.attention`` wraps it in ``FlashAttentionFn`` there
+(docs/port.md §train).
 """
 
 from __future__ import annotations
@@ -103,6 +106,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale, block_k=block_k)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention launches a kernel with no backward, and an "
+            "input requires grad: call ops.attention, which runs it inside "
+            "FlashAttentionFn, or run under torch.no_grad()")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim D={d} is not one of the kernel's "
                          f"{HEAD_DIMS}")

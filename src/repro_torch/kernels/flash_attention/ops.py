@@ -1,9 +1,12 @@
 """Public wrapper for attention: the kernel on a CUDA tensor, the chunked
 plain version on the CPU (the port of the JAX package's
 ``kernels/flash_attention/ops.py``, whose "TPU backend" test becomes the
-tensor's device)."""
+tensor's device), and the kernel with a gradient
+(:class:`FlashAttentionFn`) where one is asked for."""
 
 from __future__ import annotations
+
+import torch
 
 from .flash_attention import (
     DEFAULT_BLOCK_K,
@@ -11,6 +14,43 @@ from .flash_attention import (
     flash_attention,
 )
 from .ref import attention_chunked_ref, attention_ref
+
+
+def _chunk(sk: int) -> int:
+    """The chunk of the reference's model path: 512 where it divides the
+    keys, else all of them."""
+    return 512 if sk % 512 == 0 else sk
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with a gradient. The forward is
+    :func:`flash_attention` (the hand-written kernel on a CUDA tensor);
+    the backward recomputes attention from the saved q, k and v through
+    :func:`attention_chunked_ref` at the model path's chunk and
+    differentiates that, the function the reference's model path
+    differentiates (docs/port.md §train). The backward launches no
+    kernel of its own."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, block_q, block_k):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, scale=scale,
+                      chunk=_chunk(k.shape[2]))
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale, block_q=block_q,
+                               block_k=block_k)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_(need)
+                  for x, need in zip(saved, ctx.needs_input_grad[:3])]
+            o = attention_chunked_ref(*xs, **ctx.kw)
+            wanted = [x for x in xs if x.requires_grad]
+            gs = iter(torch.autograd.grad(o, wanted, grad_out))
+        return (*(next(gs) if x.requires_grad else None for x in xs),
+                None, None, None, None, None)
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -21,23 +61,29 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     version for a CPU one. On a CUDA tensor the kernel builds and launches
     or raises; it never falls back quietly. ``use_kernel=False`` runs the
     chunked version on any device (the plain model on the card). Any
-    length is taken: the reference's model path never tiles.
+    length is taken: the reference's model path never tiles. With grad
+    mode on and an input that requires grad, the kernel runs inside
+    :class:`FlashAttentionFn`, whose backward is the chunked version's.
     """
     if use_kernel is None:
         use_kernel = q.device.type == "cuda"
+    sk = k.shape[2]
     if use_kernel:
         # Blocks that tile any length, as the chunk rule below does: the
         # kernel's own tiles take ragged ends (docs/port.md §encdec).
-        sq, sk = q.shape[2], k.shape[2]
-        return flash_attention(
-            q, k, v, causal=causal, window=window, scale=scale,
-            block_q=DEFAULT_BLOCK_Q if sq % DEFAULT_BLOCK_Q == 0 else sq,
-            block_k=DEFAULT_BLOCK_K if sk % DEFAULT_BLOCK_K == 0 else sk)
-    sk = k.shape[2]
-    chunk = 512 if sk % 512 == 0 else sk
+        sq = q.shape[2]
+        blocks = (DEFAULT_BLOCK_Q if sq % DEFAULT_BLOCK_Q == 0 else sq,
+                  DEFAULT_BLOCK_K if sk % DEFAULT_BLOCK_K == 0 else sk)
+        if torch.is_grad_enabled() and any(
+                x.requires_grad for x in (q, k, v)):
+            return FlashAttentionFn.apply(q, k, v, causal, window, scale,
+                                          *blocks)
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale, block_q=blocks[0],
+                               block_k=blocks[1])
     return attention_chunked_ref(q, k, v, causal=causal, window=window,
-                                 scale=scale, chunk=chunk)
+                                 scale=scale, chunk=_chunk(sk))
 
 
-__all__ = ["attention", "attention_chunked_ref", "attention_ref",
-           "flash_attention"]
+__all__ = ["FlashAttentionFn", "attention", "attention_chunked_ref",
+           "attention_ref", "flash_attention"]

@@ -33,6 +33,8 @@ from repro_torch.kernels.flash_attention.ref import NEG_INF
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
+    """A parameter created frozen, so that serving records no graph; the
+    train step turns grad on for what it trains (docs/port.md §train)."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 
@@ -352,10 +354,11 @@ def moe_apply(p: MoE, x, cfg):
 
 
 def cross_entropy(logits, labels, ignore_index: int = -100):
-    """logits: (..., V) f32/bf16; labels int. Mean over non-ignored."""
+    """logits: (..., V) f32/bf16; labels int (int32 as the reference's
+    batches, or int64). Mean over non-ignored."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels.clamp(min=0)[..., None])[..., 0]
+    ll = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
     nll = lse - ll
     mask = (labels != ignore_index).float()
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,28 +1,179 @@
-"""Architecture registry: config -> (init, forward, cache, decode) bundle
-consumed by the serving launcher, the engine and the tests (the port of
-the JAX package's ``models/registry.py``, families ``"dense"``, ``"moe"``,
-``"vlm"``, ``"audio"`` and ``"hybrid"``), and the model inputs of a shape
-cell (:func:`input_specs`, :func:`make_batch`).
+"""Architecture registry: config -> (init, loss, forward, cache, decode)
+bundle consumed by the launchers, the engine, the training loop and the
+tests (the port of the JAX package's ``models/registry.py``, every
+family), and the model inputs of a shape cell (:func:`input_specs`,
+:func:`make_batch`).
 
 The bundle is bound to one device at :func:`build`; its ``init`` draws the
-weights from an explicit ``torch.Generator``. Training (``loss``,
-``make_train_step``, ROADMAP Queue 1, item 6) and the ``"ssm"`` family
-(item 5) wait for later slices.
+weights from an explicit ``torch.Generator``. ``make_train_step`` trains
+the model in place: the reference's ``jax.value_and_grad`` becomes
+``torch.autograd.grad`` over the reference's parameter tree of the
+module's own tensors (``interop.param_tree``), and microbatch gradients
+accumulate in f32 buffers (docs/port.md §train). The xLSTM model (the
+``"ssm"`` family) is assembled here from the blocks of ``models/xlstm.py``,
+as in the reference (docs/port.md §ssm).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.interop import resolve_device
+from repro_torch.interop import (
+    Stacked,
+    leaf_parts,
+    param_tree,
+    resolve_device,
+)
 
 from . import transformer as tfm
+from . import xlstm as xl
 from . import zamba2 as zb
+from .layers import _param, cross_entropy, normal_, rms_norm
+
+# --------------------------------------------------------------------------
+# xLSTM model assembly (heterogeneous block list)
+# --------------------------------------------------------------------------
+
+
+def _xlstm_pattern(cfg) -> tuple:
+    if cfg.block_pattern:
+        pat = list(cfg.block_pattern)
+        if len(pat) < cfg.n_layers:  # tile the declared pattern
+            pat = (pat * cfg.n_layers)[: cfg.n_layers]
+        return tuple(pat)
+    # default xLSTM[7:1]-style: one sLSTM every 6th block
+    return tuple(
+        "slstm" if (i % 6 == 5) else "mlstm" for i in range(cfg.n_layers)
+    )
+
+
+class XLSTM(nn.Module):
+    """Embedding, the blocks of :func:`_xlstm_pattern` (an
+    :class:`~repro_torch.models.xlstm.MLSTMBlock` or
+    :class:`~repro_torch.models.xlstm.SLSTMBlock` each), final norm and
+    head (``xlstm_init``)."""
+
+    def __init__(self, cfg, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.pattern = _xlstm_pattern(cfg)
+        dt = cfg.param_dtype
+        self.embed = _param((cfg.vocab, cfg.d_model), dt, device)
+        self.blocks = nn.ModuleList(
+            xl.MLSTMBlock(cfg, device=device) if kind == "mlstm"
+            else xl.SLSTMBlock(cfg, device=device) for kind in self.pattern)
+        self.ln_f = _param((cfg.d_model,), dt, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = _param((cfg.d_model, cfg.vocab), dt, device)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        cfg = self.cfg
+        normal_(self.embed, 0.02, generator)
+        for block in self.blocks:
+            block.init_weights(cfg, generator)
+        self.ln_f.fill_(1.0)
+        if hasattr(self, "lm_head"):
+            normal_(self.lm_head, 1.0 / math.sqrt(cfg.d_model), generator)
+
+    def head(self) -> torch.Tensor:
+        return self.embed.T if self.cfg.tie_embeddings else self.lm_head
+
+
+def xlstm_init(cfg, generator: torch.Generator, device="cuda") -> XLSTM:
+    model = XLSTM(cfg, device=resolve_device(device))
+    model.init_weights(generator)
+    return model
+
+
+def xlstm_logits(model: XLSTM, tokens):
+    """-> logits (B, S, vocab), with a graph when the parameters require
+    grad (the loss path)."""
+    cfg = model.cfg
+    x = model.embed[tokens]
+    for block, kind in zip(model.blocks, model.pattern):
+        x = (xl.mlstm_block_apply(block, x, cfg) if kind == "mlstm"
+             else xl.slstm_block_apply(block, x, cfg))
+    x = rms_norm(x, model.ln_f)
+    return x @ model.head()
+
+
+@torch.no_grad()
+def xlstm_forward(model: XLSTM, tokens):
+    """:func:`xlstm_logits` without a graph: the serving forward."""
+    return xlstm_logits(model, tokens)
+
+
+def xlstm_cache_init(cfg, batch: int, seq: int, device="cuda") -> list:
+    """One state dict per block, at the state-init values (mLSTM ``m`` at
+    ``-inf``, sLSTM ``n`` at one); ``seq`` is unused (the state is
+    O(1))."""
+    dev = resolve_device(device)
+    return [
+        xl.mlstm_state_init(cfg, batch, dev) if k == "mlstm"
+        else xl.slstm_state_init(cfg, batch, dev)
+        for k in _xlstm_pattern(cfg)
+    ]
+
+
+@torch.no_grad()
+def xlstm_decode(model: XLSTM, token, cache: list, pos: int, rows=None):
+    """token: (B, 1) int; pos: int -> (logits (B, 1, V), cache).
+
+    Writes every block's new state into ``cache`` in place: into every
+    batch row (``rows=None``, the reference's step), or only into
+    ``rows``. At ``pos`` 0 the stepped rows start from the state-init
+    values (not zero: mLSTM ``m`` is ``-inf`` and sLSTM ``n`` one), since
+    position 0 is a request's first token, whatever the slot held."""
+    cfg = model.cfg
+    x = model.embed[token]
+    if rows is not None:  # one host-to-device copy per step, not per block
+        rows = torch.as_tensor(rows, dtype=torch.int64, device=x.device)
+    if pos == 0:
+        for st, st0 in zip(cache, xlstm_cache_init(cfg, 1, 0, x.device)):
+            for name, value in st0.items():
+                if rows is None:
+                    st[name].copy_(value.expand_as(st[name]))
+                else:
+                    st[name][rows] = value
+    for block, st, kind in zip(model.blocks, cache, model.pattern):
+        step = (xl.mlstm_block_decode if kind == "mlstm"
+                else xl.slstm_block_decode)
+        x, _ = step(block, x, cfg, st, rows)
+    x = rms_norm(x, model.ln_f)
+    return x @ model.head(), cache
+
+
+# --------------------------------------------------------------------------
+# Model bundle
+# --------------------------------------------------------------------------
+
+
+def _grads(loss, parts: list) -> list:
+    """d loss / d each tensor of ``parts``; zeros for one the loss does not
+    reach, as ``jax.grad`` gives."""
+    gs = torch.autograd.grad(loss, parts, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(parts, gs)]
+
+
+def _regroup(leaves: list, flat: list) -> list:
+    """``flat`` (one tensor per part of each leaf) as one value per leaf:
+    a :class:`~repro_torch.interop.Stacked` for a stacked leaf."""
+    out, i = [], 0
+    for leaf in leaves:
+        n = len(leaf_parts(leaf))
+        out.append(Stacked(flat[i:i + n]) if isinstance(leaf, Stacked)
+                   else flat[i])
+        i += n
+    return out
 
 
 @dataclass
@@ -30,11 +181,68 @@ class ModelBundle:
     cfg: ArchConfig
     device: torch.device
     init: Callable  # generator -> model
+    loss: Callable  # (model, batch) -> scalar, with a graph
     forward: Callable  # (model, batch) -> logits
     cache_init: Callable  # (batch, seq) -> cache
     # (model, token, cache, pos, rows=None) -> (logits, cache); an audio
     # bundle's fifth argument is enc_states
     decode: Callable
+
+    # ---- step factories ---------------------------------------------------
+    def make_train_step(self, opt_cfg, num_microbatches: int = 1):
+        """``train_step(model, opt_state, batch) -> (model, opt_state,
+        metrics)``: the reference's step, on the model in place.
+
+        The loss's gradient is taken over the reference's parameter tree
+        of the module's own tensors (``interop.param_tree``), whose grad
+        is turned on at the first step. ``num_microbatches > 1`` splits
+        the batch's leading axis into that many consecutive blocks and
+        sums their gradients in f32 buffers (the reference's
+        ``g.astype(f32)``; bf16 ``.grad`` would sum in bf16), then
+        divides loss and gradients by the count. ``batch`` may hold numpy
+        arrays (the data pipeline's) or tensors."""
+        from repro_torch.train.checkpoint import tree_flatten, tree_unflatten
+        from repro_torch.train.optimizer import apply_updates
+
+        dev = self.device
+
+        def train_step(model, opt_state, batch):
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in batch.items()}
+            params = param_tree(model)
+            leaves, treedef = tree_flatten(params)
+            parts = [x for leaf in leaves for x in leaf_parts(leaf)]
+            for p in parts:
+                p.requires_grad_(True)
+            if num_microbatches == 1:
+                loss = self.loss(model, batch)
+                flat = _grads(loss, parts)
+                loss = loss.detach()
+            else:
+                nm = num_microbatches
+                b = next(iter(batch.values())).shape[0]
+                if b % nm:
+                    raise ValueError(f"batch {b} % microbatches {nm}")
+                bm = b // nm
+                acc = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
+                       for p in parts]
+                loss = torch.zeros((), dtype=torch.float32, device=dev)
+                for i in range(nm):
+                    mb = {k: v[i * bm:(i + 1) * bm] for k, v in batch.items()}
+                    li = self.loss(model, mb)
+                    for a, g in zip(acc, _grads(li, parts)):
+                        a.add_(g)
+                    loss = loss + li.detach()
+                loss = loss / nm
+                flat = [a.div_(nm) for a in acc]
+            grads = tree_unflatten(treedef, _regroup(leaves, flat))
+            del flat
+            _, opt_state, metrics = apply_updates(opt_cfg, params, grads,
+                                                  opt_state)
+            metrics["loss"] = loss
+            return model, opt_state, metrics
+
+        return train_step
 
     def make_prefill_step(self):
         def prefill_step(model, batch):
@@ -53,24 +261,38 @@ class ModelBundle:
 def build(cfg: ArchConfig, *, device="cuda",
           use_kernel: bool | None = None) -> ModelBundle:
     """The bundle of ``cfg`` on ``device``. ``use_kernel`` selects the
-    attention of ``forward`` (and of the encoder-decoder's cross-attention
-    in ``decode``) as in ``ops.attention`` (``None``: the flash kernel on
-    a CUDA device, the chunked version on the CPU). An ``"audio"``
-    bundle's ``decode`` takes ``enc_states`` where the others take
-    ``rows``; the serving engine refuses it (docs/port.md §encdec)."""
-    if cfg.family not in ("dense", "moe", "vlm", "audio", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-            "port serves the dense, moe, vlm, audio and hybrid families "
-            "(ROADMAP Queue 1: ssm item 5)"
-        )
+    attention of ``forward`` and ``loss`` (and of the encoder-decoder's
+    cross-attention in ``decode``) as in ``ops.attention`` (``None``: the
+    flash kernel on a CUDA device, the chunked version on the CPU). An
+    ``"audio"`` bundle's ``decode`` takes ``enc_states`` where the others
+    take ``rows``; the serving engine refuses it (docs/port.md §encdec).
+    ``ValueError`` for an unknown family, as the reference raises."""
     dev = resolve_device(device)
-    if cfg.family == "audio":
+    fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
+        def fwd(model, batch):
+            return tfm.forward(model, batch["tokens"], batch.get("embeds"),
+                               use_kernel=use_kernel)
+
+        return ModelBundle(
+            cfg=cfg,
+            device=dev,
+            init=lambda generator: tfm.init_params(cfg, generator, dev),
+            loss=lambda model, batch: tfm.lm_loss(model, batch,
+                                                  use_kernel=use_kernel),
+            forward=fwd,
+            cache_init=lambda b, s: tfm.init_cache(cfg, b, s, dev),
+            decode=lambda model, tok, cache, pos, rows=None: tfm.decode_step(
+                model, tok, cache, pos, rows),
+        )
+    if fam == "audio":
         # self-cache of length s; cross K/V cache over 4 * s encoder frames
         return ModelBundle(
             cfg=cfg,
             device=dev,
             init=lambda generator: tfm.init_params(cfg, generator, dev),
+            loss=lambda model, batch: tfm.lm_loss(model, batch,
+                                                  use_kernel=use_kernel),
             forward=lambda model, batch: tfm.forward_enc_dec(
                 model, batch["frames"], batch["tokens"],
                 use_kernel=use_kernel),
@@ -80,31 +302,34 @@ def build(cfg: ArchConfig, *, device="cuda",
                 tfm.decode_step_enc_dec(model, tok, cache, pos, enc_states,
                                         use_kernel=use_kernel),
         )
-    if cfg.family == "hybrid":
+    if fam == "hybrid":
         return ModelBundle(
             cfg=cfg,
             device=dev,
             init=lambda generator: zb.init_params(cfg, generator, dev),
+            loss=lambda model, batch: cross_entropy(
+                zb.logits(model, batch["tokens"], use_kernel=use_kernel),
+                batch["labels"]),
             forward=lambda model, batch: zb.forward(
                 model, batch["tokens"], use_kernel=use_kernel),
             cache_init=lambda b, s: zb.init_cache(cfg, b, s, dev),
             decode=lambda model, tok, cache, pos, rows=None: zb.decode_step(
                 model, tok, cache, pos, rows),
         )
-
-    def fwd(model, batch):
-        return tfm.forward(model, batch["tokens"], batch.get("embeds"),
-                           use_kernel=use_kernel)
-
-    return ModelBundle(
-        cfg=cfg,
-        device=dev,
-        init=lambda generator: tfm.init_params(cfg, generator, dev),
-        forward=fwd,
-        cache_init=lambda b, s: tfm.init_cache(cfg, b, s, dev),
-        decode=lambda model, tok, cache, pos, rows=None: tfm.decode_step(
-            model, tok, cache, pos, rows),
-    )
+    if fam == "ssm":
+        return ModelBundle(
+            cfg=cfg,
+            device=dev,
+            init=lambda generator: xlstm_init(cfg, generator, dev),
+            loss=lambda model, batch: cross_entropy(
+                xlstm_logits(model, batch["tokens"]), batch["labels"]),
+            forward=lambda model, batch: xlstm_forward(model,
+                                                       batch["tokens"]),
+            cache_init=lambda b, s: xlstm_cache_init(cfg, b, s, dev),
+            decode=lambda model, tok, cache, pos, rows=None: xlstm_decode(
+                model, tok, cache, pos, rows),
+        )
+    raise ValueError(f"unknown family {fam!r}")
 
 
 # --------------------------------------------------------------------------

@@ -5,6 +5,8 @@ Entry points:
   Transformer(cfg, device=...)                 the parameters, nn.Modules
   init_params(cfg, generator, device)          -> Transformer, seeded init
   forward(model, tokens, embeds, positions)    -> logits     (prefill)
+  logits(model, tokens, embeds, positions)     -> logits, with a graph
+  lm_loss(model, batch)                        -> scalar     (train)
   init_cache(cfg, batch, seq, device, enc_len) -> cache
   decode_step(model, token, cache, pos, rows)  -> (logits, cache)
   encode(model, frames)                        -> encoder states (enc_dec)
@@ -14,7 +16,10 @@ Entry points:
                                                -> (logits, cache) (enc_dec)
 
 The JAX package scans a stacked ``L`` axis under remat; here the layers
-are an ``nn.ModuleList`` walked by a Python loop, and no gradient is kept.
+are an ``nn.ModuleList`` walked by a Python loop. The serving entry points
+(``forward``, ``encode``, ``forward_enc_dec``, the decode steps) record no
+graph; ``logits``, ``logits_enc_dec`` and ``lm_loss`` do once the
+parameters require grad (docs/port.md §train).
 The KV cache is a preallocated ``(L, B, Hkv, S, D)`` pair updated in place
 (docs/port.md §lm); ``decode_step`` returns the same tensors so that its
 signature stays the reference's. An MoE config's first
@@ -42,6 +47,7 @@ from .layers import (
     _param,
     _split_heads,
     attention_block,
+    cross_entropy,
     decode_attention,
     mlp_apply,
     moe_apply,
@@ -196,11 +202,11 @@ def embed_tokens(model: Transformer, tokens, embeds=None):
     return x
 
 
-@torch.no_grad()
-def forward(model: Transformer, tokens, embeds=None, positions=None, *,
-            use_kernel: bool | None = None):
+def logits(model: Transformer, tokens, embeds=None, positions=None, *,
+           use_kernel: bool | None = None):
     """-> logits (B, S_total, vocab). Every layer's attention goes through
-    the dispatcher (``use_kernel`` as in ``ops.attention``)."""
+    the dispatcher (``use_kernel`` as in ``ops.attention``). Records a
+    graph when the parameters require grad (the loss path)."""
     cfg = model.cfg
     x = embed_tokens(model, tokens, embeds)
     _, s, _ = x.shape
@@ -210,6 +216,13 @@ def forward(model: Transformer, tokens, embeds=None, positions=None, *,
         x = layer(x, cfg, positions, causal=True, use_kernel=use_kernel)
     x = rms_norm(x, model.ln_f)
     return x @ model.head()
+
+
+@torch.no_grad()
+def forward(model: Transformer, tokens, embeds=None, positions=None, *,
+            use_kernel: bool | None = None):
+    """:func:`logits` without a graph: the serving forward."""
+    return logits(model, tokens, embeds, positions, use_kernel=use_kernel)
 
 
 def init_cache(cfg, batch: int, seq: int, device="cuda",
@@ -260,8 +273,7 @@ def decode_step(model: Transformer, token, cache: dict, pos: int,
 # --------------------------------------------------------------------------
 
 
-@torch.no_grad()
-def encode(model: Transformer, frames, *, use_kernel: bool | None = None):
+def _encode(model: Transformer, frames, *, use_kernel: bool | None = None):
     """Encoder stack over the stubbed frame embeddings ``(B, T, d)``, cast
     to the parameter dtype: non-causal self-attention, then ``ln_enc``."""
     cfg = model.cfg
@@ -270,6 +282,12 @@ def encode(model: Transformer, frames, *, use_kernel: bool | None = None):
     for layer in model.enc_layers:
         x = layer(x, cfg, positions, causal=False, use_kernel=use_kernel)
     return rms_norm(x, model.ln_enc)
+
+
+@torch.no_grad()
+def encode(model: Transformer, frames, *, use_kernel: bool | None = None):
+    """The encoder states of ``frames`` (:func:`_encode`), no graph."""
+    return _encode(model, frames, use_kernel=use_kernel)
 
 
 def _enc_kv(layer: CrossLayer, cfg, enc_states):
@@ -282,13 +300,13 @@ def _enc_kv(layer: CrossLayer, cfg, enc_states):
     return _split_heads(kx, cfg.n_kv_heads), _split_heads(vx, cfg.n_kv_heads)
 
 
-@torch.no_grad()
-def forward_enc_dec(model: Transformer, frames, tokens, *,
-                    use_kernel: bool | None = None):
+def logits_enc_dec(model: Transformer, frames, tokens, *,
+                   use_kernel: bool | None = None):
     """Whisper-style: encode ``frames``, decode ``tokens`` with
-    cross-attention -> logits ``(B, S, vocab)``."""
+    cross-attention -> logits ``(B, S, vocab)``. Records a graph when the
+    parameters require grad (the loss path)."""
     cfg = model.cfg
-    enc = encode(model, frames, use_kernel=use_kernel)
+    enc = _encode(model, frames, use_kernel=use_kernel)
     x = model.embed[tokens]
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for layer in model.dec_layers:
@@ -296,6 +314,13 @@ def forward_enc_dec(model: Transformer, frames, tokens, *,
                   use_kernel=use_kernel)
     x = rms_norm(x, model.ln_f)
     return x @ model.head()
+
+
+@torch.no_grad()
+def forward_enc_dec(model: Transformer, frames, tokens, *,
+                    use_kernel: bool | None = None):
+    """:func:`logits_enc_dec` without a graph: the serving forward."""
+    return logits_enc_dec(model, frames, tokens, use_kernel=use_kernel)
 
 
 @torch.no_grad()
@@ -337,3 +362,24 @@ def decode_step_enc_dec(model: Transformer, token, cache: dict, pos: int,
         x = x + mlp_apply(layer.mlp, rms_norm(x, layer.ln2), cfg)
     x = rms_norm(x, model.ln_f)
     return x @ model.head(), cache
+
+
+# --------------------------------------------------------------------------
+# Loss
+# --------------------------------------------------------------------------
+
+
+def lm_loss(model: Transformer, batch: dict, *,
+            use_kernel: bool | None = None):
+    """batch: {tokens, labels, [embeds], [frames]} -> scalar loss, with a
+    graph when the parameters require grad. A VLM's logits over its
+    frontend embeds are dropped before the loss (docs/port.md §train)."""
+    if model.cfg.enc_dec:
+        out = logits_enc_dec(model, batch["frames"], batch["tokens"],
+                             use_kernel=use_kernel)
+    else:
+        embeds = batch.get("embeds")
+        out = logits(model, batch["tokens"], embeds, use_kernel=use_kernel)
+        if embeds is not None:
+            out = out[:, embeds.shape[1]:]
+    return cross_entropy(out, batch["labels"])

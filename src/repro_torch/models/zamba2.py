@@ -13,6 +13,7 @@ Entry points:
   Zamba2(cfg, device=...)                      the parameters, nn.Modules
   init_params(cfg, generator, device)          -> Zamba2, seeded init
   forward(model, tokens, use_kernel)           -> logits     (prefill)
+  logits(model, tokens, use_kernel)            -> logits, with a graph
   init_cache(cfg, batch, seq, device)          -> cache
   decode_step(model, token, cache, pos, rows)  -> (logits, cache)
 
@@ -83,10 +84,10 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
     return model
 
 
-@torch.no_grad()
-def forward(model: Zamba2, tokens, *, use_kernel: bool | None = None):
+def logits(model: Zamba2, tokens, *, use_kernel: bool | None = None):
     """-> logits (B, S, vocab). The shared block's attention goes through
-    the dispatcher (``use_kernel`` as in ``ops.attention``)."""
+    the dispatcher (``use_kernel`` as in ``ops.attention``). Records a
+    graph when the parameters require grad (the loss path)."""
     cfg = model.cfg
     n_groups, g, _ = schedule(cfg)
     x = model.embed[tokens]
@@ -98,6 +99,12 @@ def forward(model: Zamba2, tokens, *, use_kernel: bool | None = None):
                              use_kernel=use_kernel)
     x = rms_norm(x, model.ln_f)
     return x @ model.head()
+
+
+@torch.no_grad()
+def forward(model: Zamba2, tokens, *, use_kernel: bool | None = None):
+    """:func:`logits` without a graph: the serving forward."""
+    return logits(model, tokens, use_kernel=use_kernel)
 
 
 def init_cache(cfg, batch: int, seq: int, device="cuda") -> dict:

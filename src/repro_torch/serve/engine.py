@@ -15,7 +15,8 @@ full-batch step writes every row at the stepped position, and with two
 slots at one position the second slot's step overwrites the first slot's
 entry with token 0's K/V (ROADMAP Queue 3). A request's first step is at
 position 0, where the hybrid's ``decode_step`` starts the stepped rows
-from a zero SSM state (docs/port.md §hybrid). For an MoE model the same
+from a zero SSM state (docs/port.md §hybrid) and ``xlstm_decode`` from
+the xLSTM's state-init values (docs/port.md §ssm). For an MoE model the same
 ``rows`` make a step dispatch only the live rows it advances, so the
 expert capacity counts those rows' tokens; the reference's full-batch
 step dispatches every slot, idle ones included (docs/port.md §moe). An

@@ -19,7 +19,10 @@ The manifest records no paths, so the leaf order is the whole contract.
 :func:`tree_flatten` walks nested dicts, lists and tuples as
 ``jax.tree_util.tree_flatten`` does: a dict's keys in sorted order (an
 ``OrderedDict``'s in insertion order), lists and tuples by index, ``None``
-as an empty subtree; anything else is a leaf.
+as an empty subtree; anything else is a leaf. An ``interop.Stacked`` leaf
+(a model's per-layer tensors standing for one stacked leaf of the
+reference's parameter tree) is saved stacked, and restores as one stacked
+tensor (docs/port.md §train).
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.interop import Stacked
 
 _STEP_RE = re.compile(r"^step_(\d{8})$")
 
@@ -117,6 +122,11 @@ class _Host:
     def __init__(self, leaf):
         if isinstance(leaf, _Host):
             self.array, self.dtype = leaf.array, leaf.dtype
+            return
+        if isinstance(leaf, Stacked):  # stored stacked, as the reference's
+            parts = [_Host(p) for p in leaf.parts]
+            self.array = np.stack([p.array for p in parts])
+            self.dtype = parts[0].dtype
             return
         if isinstance(leaf, torch.Tensor):
             t = leaf.detach().to("cpu", copy=True)
@@ -249,7 +259,7 @@ def _to_tensor(arr: np.ndarray, tag: str, like) -> torch.Tensor:
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
-    dev = like.device if isinstance(like, torch.Tensor) else "cpu"
+    dev = like.device if isinstance(like, (torch.Tensor, Stacked)) else "cpu"
     dev = "cpu" if torch.device(dev).type == "meta" else dev
     return t.to(dev)
 

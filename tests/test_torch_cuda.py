@@ -1188,3 +1188,60 @@ def test_whisper_forward_and_decode_on_the_card(card, dtype):
         torch.testing.assert_close(lg[:, 0], got[:, t], rtol=2e-3,
                                    atol=2e-3)
     assert flash_attention.launches == n + cfg.n_layers * tokens.shape[1]
+
+
+# ---- flash attention with a gradient (docs/port.md §train) -------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 4, 4, 256, 0), (2, 8, 2, 384, 128)])
+def test_flash_function_gradient_equals_the_plain_path(card, dtype, shape):
+    """On CUDA inputs that require grad the dispatcher runs the kernel
+    inside ``FlashAttentionFn``: its forward is one launch of the kernel,
+    its backward launches none, and the gradients of q, k and v equal
+    autograd through the chunked plain version (the recompute, the same
+    function: f32 bitwise-close at 1e-5, bf16 at the kernel's 2e-2 on the
+    forward and the backward's own rounding)."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+    )
+    from repro_torch.kernels.flash_attention.ops import (
+        attention,
+        attention_chunked_ref,
+    )
+
+    b, hq, hkv, s, window = shape
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((b, h, s, 64), generator=g, device="cuda").to(
+        dt).requires_grad_(True) for h in (hq, hkv, hkv))
+    go = torch.randn((b, hq, s, 64), generator=g, device="cuda").to(dt)
+    n = flash_attention.launches
+    out = attention(q, k, v, window=window)
+    assert flash_attention.launches == n + 1
+    assert "FlashAttentionFn" in type(out.grad_fn).__name__
+    got = torch.autograd.grad(out, (q, k, v), go)
+    assert flash_attention.launches == n + 1
+    ref = attention_chunked_ref(q, k, v, window=window, chunk=s)
+    want = torch.autograd.grad(ref, (q, k, v), go)
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
+           else dict(rtol=2e-2, atol=2e-2))
+    torch.testing.assert_close(out.float(), ref.float(), **(
+        dict(rtol=2e-3, atol=2e-3) if dtype == "float32" else tol))
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.float(), w.float(), **tol)
+
+
+def test_flash_kernel_with_grad_raises(card):
+    """A direct kernel call on inputs that require grad raises rather than
+    return an output with no gradient; under ``no_grad`` it launches."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+    )
+
+    q = torch.randn((1, 2, 128, 64), device="cuda").requires_grad_(True)
+    k = torch.randn((1, 2, 128, 64), device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, k, k)
+    with torch.no_grad():
+        assert flash_attention(q, k, k).shape == q.shape

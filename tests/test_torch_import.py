@@ -52,10 +52,16 @@ import repro_torch.core.program
 import repro_torch.apps.advection_diffusion
 import repro_torch.serve.sim
 import repro_torch.train.checkpoint
+import repro_torch.train.optimizer
+import repro_torch.train.data
+import repro_torch.train.loop
+import repro_torch.models.xlstm
+import repro_torch.launch.train
 import importlib.util, os
 examples = os.path.join(os.path.dirname(repro_torch.__file__), "..", "..",
                         "examples")
-for name in ("torch_quickstart", "torch_lbm_simulation", "torch_dse_explore"):
+for name in ("torch_quickstart", "torch_lbm_simulation", "torch_dse_explore",
+             "torch_train_lm"):
     spec = importlib.util.spec_from_file_location(
         name, os.path.join(examples, name + ".py"))
     mod = importlib.util.module_from_spec(spec)
@@ -124,6 +130,19 @@ with tempfile.TemporaryDirectory() as d:
     ckpt.save(d, 1, tree)
     step, got, _ = ckpt.restore_latest(d, tree)
     assert step == 1 and torch.equal(got["w"], tree["w"])
+ssm = get_arch("xlstm-125m").reduced()
+assert ssm.num_params() == 728448
+bundle = registry.build(ssm, device="cpu")
+model = bundle.init(torch.Generator().manual_seed(0))
+nxt = bundle.make_prefill_step()(model, {"tokens": torch.tensor([[1, 2, 3]])})
+assert nxt.shape == (1, 512) and bool(torch.isfinite(nxt).all())
+from repro_torch.interop import param_tree
+from repro_torch.train.optimizer import AdamWConfig, init_state
+opt = AdamWConfig()
+state = init_state(opt, param_tree(model))
+batch = {"tokens": torch.tensor([[1, 2, 3]]), "labels": torch.tensor([[2, 3, 4]])}
+_, state, metrics = bundle.make_train_step(opt)(model, state, batch)
+assert int(state["step"]) == 1 and bool(torch.isfinite(metrics["loss"]))
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 assert not bad, bad
 print("ok")

@@ -212,15 +212,11 @@ def test_decode_matches_prefill(name):
 @pytest.mark.parametrize("name", sorted(JAX_ARCHS))
 def test_num_params_matches_reference(name):
     """The counts of every arch equal the reference's, full and reduced:
-    the analytic ones, and the hybrid's, which counts the parameters of a
-    meta-device model (6,750,840,528 for zamba2-7b); the SSM count raises
-    until that family is ported."""
+    the analytic ones, and the hybrid's and the SSM's, which count the
+    parameters of a meta-device model (6,750,840,528 for zamba2-7b,
+    190,738,176 for xlstm-125m)."""
     for jc, tc in ((jax_get_arch(name), get_arch(name)),
                    (jax_get_arch(name).reduced(), get_arch(name).reduced())):
-        if tc.family == "ssm":
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                tc.num_params()
-            continue
         assert tc.num_params() == jc.num_params()
         assert tc.active_params() == jc.active_params()
         assert tc.param_dtype == getattr(torch, jc.dtype)
@@ -250,7 +246,8 @@ def test_cross_entropy(rng):
     assert float(got) == pytest.approx(float(want), rel=1e-5)
 
 
-@pytest.mark.parametrize("name", ["xlstm-125m"])
-def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.build(get_arch(name).reduced(), device="cpu")
+def test_build_raises_for_an_unknown_family():
+    cfg = dataclasses.replace(get_arch("qwen3-8b").reduced(),
+                              family="conv")
+    with pytest.raises(ValueError, match="unknown family 'conv'"):
+        registry.build(cfg, device="cpu")
