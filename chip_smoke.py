@@ -52,6 +52,13 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    at one position and a third request in a re-used slot, engine tokens
    == argmax of the kernel-run forward, and decode logits == forward
    logits;
+6p. the pipelined prefill (docs/port.md §parallel), on phase 6's model:
+   Qwen3-8B's 36 layers in 4 stages of a stage mesh over ``["cuda:0"] *
+   4``, 4 microbatches of 1x2048 through ``pipelined_forward``: bitwise
+   the layers run on each microbatch in turn, 144 flash launches (none on
+   an idle tick), the wall beside the sequential one and the 4x2048
+   prefill's, the hand-off bytes per tick; the kernel at the B 1 launch
+   shape against its plain version;
 6h. hybrid LM serving (docs/port.md §hybrid), phase 6's four steps on
    Zamba2-7B: (a) at D 112 (the Hopper kernel's padded instantiation in
    bf16, the simple kernel in f32) and the shared block's prefill shape q
@@ -68,6 +75,15 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    past the window to the plain-attention twin, the tokens whose top-k
    experts differ from the twin's counted; (c) the engine; (d) 2 layers
    in f32 at the no-drop capacity factor E/k;
+6e. the expert-parallel prefill, on phase 6m's model: the 4x2048 prefill
+   under ``ep="model", ep_size=4, dp=("data",), dp_size=2, a2a=mesh`` on
+   a (data 2, model 4) mesh over ``["cuda:0"] * 8``, every MoE layer's
+   experts behind two all-to-alls (``moe_ep_apply``), against the
+   two-stage dispatch at ``dp_size`` 8: the first MoE layer's drops per
+   rank equal to its drops per block, the logits by 6m's floor rule, 16
+   flash launches, the all-to-all bytes a layer against ``tokens_loc ·
+   top_k · d · 2 B``; then 2 layers in f32 at E/k within
+   ``EP_F32_REL_L2``;
 6k. Kimi K2 at full width and 2 layers (the dense first layer, one MoE
    layer of 384 experts and the shared expert), bf16: (a) and (b) of 6m
    at its 4x2048 prefill, D 112 with GQA 64:8, 2 flash launches;
@@ -109,11 +125,18 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    checkpoint restored bitwise, with step ms, tokens/s, peak memory and
    the seconds of a save and a restore; (b) Qwen3-8B at full width and 8
    of its 36 layers, B 2 x 2048: step 0's gradients through the kernel
-   (8 launches forward, none backward) against plain attention's, every
-   leaf within the larger of ``GRAD_REL_L2`` and 1.5x its rounding floor,
-   then 3 steps of ``make_train_step``, and at the training shape the
-   kernel's forward, ``FlashAttentionFn``'s backward (the plain
-   recompute) and ``scaled_dot_product_attention`` forward + backward;
+   (8 launches forward and 8 in the backward, which recomputes each
+   layer under the default remat ``"none"``) against plain attention's,
+   every leaf within the larger of ``GRAD_REL_L2`` and 1.5x its rounding
+   floor, then 3 steps of ``make_train_step`` and ``REMAT_STEPS`` more
+   under each of the remat policies ``"sublayers"`` and ``"off"`` (step
+   ms, peak memory, launches), and at the training shape the kernel's
+   forward, ``FlashAttentionFn``'s backward (the plain recompute) and
+   ``scaled_dot_product_attention`` forward + backward; (c) xLSTM-125m's
+   8x2048 batch over 2 data ranks of ``["cuda:0"] * 2``, each rank's
+   gradients and ``compressed_psum``: ``none`` bitwise the f32 mean of
+   ``make_train_step(num_microbatches=2)``, int8 within its bound, top-k
+   ``deq + residual == x``, the payloads;
 5. at the main-path shapes, each kernel held to its plain version again
    and timed (CUDA events) against its bound, its plain version and, for
    diffusion and flash attention, one PyTorch call (``library_ms``); the
@@ -411,6 +434,24 @@ TRAIN_LOSS_RTOL = 1e-3
 QWEN_TRAIN_LAYERS = 8
 TRAIN_DENSE = (2, 2048)
 DENSE_STEPS = 3
+#: Phase 11b under the reference's remat policies (``hint("remat")``):
+#: steps under each policy after the default's, timed at the last.
+REMAT_STEPS = 2
+#: Phase 6p: Qwen3-8B's 36 layers pipelined over this many stages of a
+#: stage mesh ``["cuda:0"] * stages``, on this many microbatches of
+#: 1 x 2048 (PREFILL's prompts one at a time).
+PIPE_STAGES, PIPE_MICRO = 4, 4
+#: Phase 6e: the (data, model) mesh of the expert-parallel prefill over
+#: ``["cuda:0"] * 8``, with the hints ``launch/dryrun.py`` passes.
+EP_MESH = (2, 4)
+#: Phase 6e in f32 at 2 layers and the no-drop capacity factor E/k (as
+#: 6m(d)), one prompt of 2048: the expert products grouped by rank
+#: against grouped by block, in f32 without TF32; held as a relative L2 of
+#: the logits.
+EP_F32_REL_L2 = 1e-5
+#: Phase 11c: the data ranks of xLSTM-125m's 8 x 2048 batch, over
+#: ``["cuda:0"] * ranks``, and the top-k scheme's kept fraction.
+DP_RANKS, TOPK_FRAC = 2, 0.01
 #: Step 0's gradient of every leaf through the kernel against plain
 #: attention's, as a relative L2 (the logits gate's 5e-2), or where the
 #: model's own bf16 rounding moves a leaf more, FLOOR_FACTOR x that
@@ -940,8 +981,8 @@ def routing_recorded(sink: list):
 
     orig = layers.moe_route
 
-    def record(p, xt, cfg):
-        plan = orig(p, xt, cfg)
+    def record(p, xt, cfg, *rest):
+        plan = orig(p, xt, cfg, *rest)
         sink.append(plan[1].sort(-1).values)
         return plan
 
@@ -950,6 +991,33 @@ def routing_recorded(sink: list):
         yield
     finally:
         layers.moe_route = orig
+
+
+@contextlib.contextmanager
+def drops_recorded(sink: list):
+    """Append each MoE dispatch's dropped assignments per block (the
+    two-stage ``moe_route``) or per rank (``moe_ep_apply``, with its
+    all-to-all bytes) to ``sink`` while the block runs."""
+    from repro_torch.models import layers
+    from repro_torch.parallel import moe_ep
+
+    route, ep = layers.moe_route, moe_ep.moe_ep_apply
+
+    def record_route(p, xt, cfg, nblk=1):
+        plan = route(p, xt, cfg, nblk)
+        sink.append({"dropped": (~plan[3]).view(nblk, -1).sum(1)})
+        return plan
+
+    def record_ep(*args, **kwargs):
+        out = ep(*args, **kwargs)
+        sink.append(dict(ep.last))
+        return out
+
+    layers.moe_route, moe_ep.moe_ep_apply = record_route, record_ep
+    try:
+        yield
+    finally:
+        layers.moe_route, moe_ep.moe_ep_apply = route, ep
 
 
 def rounding_noise(seed: int):
@@ -1183,20 +1251,25 @@ def prefill_check(cfg, bundle, plain, model, shape, sites: int,
     if bad:
         fail(f"{cfg.name} prefill {b}x{s} logits vs plain attention: "
              + "; ".join(bad))
+    out["floor"] = floors["every position"][0]
     return out
 
 
 def lm_serving(cfg, label: str, f32_layers: int, *,
                prefills=(PREFILL,), matrix: bool = True,
-               engine: bool = True, f32_changes: dict | None = None) -> dict:
+               engine: bool = True, f32_changes: dict | None = None,
+               resident=None) -> dict:
     """Phases 6 (Qwen3-8B), 6h (Zamba2-7B), 6m (Mixtral-8x7B) and 6k
-    (Kimi K2): (a) the flash kernel against its plain version at the
+    (Kimi K2), and through ``resident`` 6p and 6e: (a) the flash
+    kernel against its plain version at the
     model's head dim (the reference's matrix with ``matrix``) and at each
     prefill's launch shape; (b) each prefill of ``cfg`` at full width
     (:func:`prefill_check`); (c) with ``engine``, the engine at full
     width; (d) with ``f32_layers``, the f32 greedy check at that depth,
-    its config changed by ``f32_changes``. Returns, per prefill shape,
-    the numbers phase 5's flash rows need."""
+    its config changed by ``f32_changes``. ``resident(cfg, bundle, model,
+    out)`` runs after (b) on the same model (phases 6p and 6e), and its
+    result is kept under ``out["resident"]``. Returns, per prefill shape, the
+    numbers phase 5's flash rows need."""
     import dataclasses
 
     import numpy as np
@@ -1250,7 +1323,11 @@ def lm_serving(cfg, label: str, f32_layers: int, *,
                             seed=1 + i)
         out[shape]["launches"] = got["launches"]
         out[shape]["errs"] += got["errs"]
+        out[shape]["wall"], out[shape]["floor"] = got["wall"], got["floor"]
         del got
+    if resident is not None:
+        out["resident"] = resident(cfg, bundle, model, out)
+        torch.cuda.empty_cache()
     if not engine:
         del model, bundle, plain
         torch.cuda.empty_cache()
@@ -1337,6 +1414,203 @@ def lm_serving(cfg, label: str, f32_layers: int, *,
     return out
 
 
+def pipelined_prefill(cfg, bundle, model, out) -> dict:
+    """Phase 6p: Qwen3-8B's layers as ``PIPE_STAGES`` stages of a stage
+    mesh over ``["cuda:0"] * PIPE_STAGES``, ``PIPE_MICRO`` microbatches of
+    1 x 2048 (``parallel/pipeline.py``): the hidden states after the last
+    stage bitwise equal to the layers run on each microbatch in turn (the
+    same launches on the same shapes), one flash launch per layer and
+    microbatch and none on an idle (stage, tick), the wall beside the
+    sequential run's and the 4x2048 prefill's, and the hand-off bytes per
+    tick. Then the kernel at the new B 1 launch shape against its plain
+    version. Returns phase 5's flash row."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.pipeline import (
+        pipeline_utilization,
+        pipelined_forward,
+        stack_stage_params,
+    )
+
+    t0 = time.perf_counter()
+    n_st, n_mb = PIPE_STAGES, PIPE_MICRO
+    s = PREFILL[1]
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(7)
+    tokens = torch.randint(1, cfg.vocab, (n_mb, 1, s), generator=g,
+                           device=dev)
+    micro = model.embed[tokens]  # (M, 1, S, d)
+
+    def stage_fn(layers, x):
+        pos = torch.arange(x.shape[1], device=x.device)[None]
+        for layer in layers:
+            x = layer(x, cfg, pos)
+        return x
+
+    mesh = make_mesh((n_st,), ("stage",), [dev] * n_st)
+    run = pipelined_forward(mesh, stage_fn)
+    stages = stack_stage_params(model.layers, n_st)
+    with torch.no_grad():
+        run(stages, micro[:, :, :128])  # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = torch.stack([stage_fn(model.layers, x) for x in micro])
+        torch.cuda.synchronize()
+        seq_wall = time.perf_counter() - t1
+        flash_attention.launches = 0
+        t1 = time.perf_counter()
+        got = run(stages, micro)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = flash_attention.launches
+    last = run.last
+    phase(f"phase 6p: {cfg.name}'s {cfg.n_layers} layers in {n_st} stages "
+          f"of {cfg.n_layers // n_st} over {mesh}, {n_mb} microbatches of "
+          f"1x{s}: {last['ticks']} ticks, {last['stage_calls']} stage calls "
+          f"(none on an idle tick), utilization pipeline_utilization("
+          f"{n_mb}, {n_st}) = {pipeline_utilization(n_mb, n_st):.4f}")
+    phase(f"  launches on the pipelined path: {{'flash_attention': "
+          f"{launches}}}")
+    if launches != cfg.n_layers * n_mb or last["stage_calls"] != n_st * n_mb:
+        fail(f"phase 6p: {launches} flash launches and "
+             f"{last['stage_calls']} stage calls, expected "
+             f"{cfg.n_layers * n_mb} and {n_st * n_mb}")
+    check_equal(f"pipelined {n_st} stages x {n_mb} microbatches vs the "
+                "layers on each microbatch in turn", got, want)
+    phase(f"  wall: pipelined {wall * 1e3:.1f} ms, the layers on each "
+          f"microbatch in turn {seq_wall * 1e3:.1f} ms (one card runs the "
+          f"stages one after another), the {PREFILL[0]}x{s} prefill "
+          f"{out[PREFILL]['wall'] * 1e3:.1f} ms (with the head); hand-off "
+          f"bytes per tick {last['handoff_bytes']} "
+          f"({micro[0].numel() * micro.element_size()} a microbatch)")
+    del got, want, micro
+    q, k, v = flash_inputs(g, 1, cfg.n_heads, cfg.n_kv_heads, s, s,
+                           cfg.head_dim, torch.bfloat16)
+    err = check_close(
+        f"flash pipelined stage shape q {tuple(q.shape)} kv "
+        f"{tuple(k.shape)} bf16", flash_attention(q, k, v).float(),
+        flash_attention_plain(q, k, v).float(), FLASH_TOL["bfloat16"])
+    phase(f"  phase 6p: {time.perf_counter() - t0:.1f} s")
+    return {"qkv": (q, k, v), "window": 0, "launches": launches,
+            "errs": [err]}
+
+
+def expert_parallel_prefill(cfg, bundle, model, out) -> dict:
+    """Phase 6e: Mixtral's 4x2048 prefill (phase 6m's tokens) under the
+    hints ``launch/dryrun.py`` passes, ``ep="model", ep_size=4,
+    dp=("data",), dp_size=2, a2a=mesh`` on a (data 2, model 4) mesh over
+    ``["cuda:0"] * 8``: every MoE layer through ``moe_ep_apply``'s two
+    all-to-alls. Against the same prefill through the two-stage dispatch
+    at ``dp_size`` 8 (the same per-rank capacity): the first MoE layer's
+    drops per rank equal to its drops per block, the logits by phase 6m's
+    floor rule, 16 flash launches; the all-to-all bytes per layer against
+    ``tokens_loc · top_k · d · 2 B``. Then 2 layers in f32 at the no-drop
+    capacity E/k on 1x2048, within ``EP_F32_REL_L2``. Returns the
+    launch count."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+    )
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry
+    from repro_torch.parallel.hints import sharding_hints
+
+    t0 = time.perf_counter()
+    dev = "cuda"
+    dp, ep = EP_MESH
+    mesh = make_mesh(EP_MESH, ("data", "model"), [dev] * (dp * ep))
+    ep_hints = dict(ep="model", ep_size=ep, dp=("data",), dp_size=dp,
+                    a2a=mesh, fsdp=None)
+    b, s = PREFILL
+    tokens = torch.randint(1, cfg.vocab, PREFILL, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    batch = {"tokens": tokens}
+    m = cfg.moe
+    runs = {}
+    for name, hints in (("expert-parallel", ep_hints),
+                        ("two-stage", dict(dp_size=dp * ep))):
+        sink = []
+        with sharding_hints(**hints):
+            bundle.forward(model, {"tokens": tokens[:, :128]})  # warm-up
+            torch.cuda.synchronize()
+            n0 = flash_attention.launches
+            t1 = time.perf_counter()
+            with drops_recorded(sink):
+                logits = bundle.forward(model, batch)
+            torch.cuda.synchronize()
+            runs[name] = (logits, sink, time.perf_counter() - t1,
+                          flash_attention.launches - n0)
+    (ep_logits, ep_sink, ep_wall, ep_launches) = runs["expert-parallel"]
+    (ts_logits, ts_sink, ts_wall, _) = runs["two-stage"]
+    n_loc, cap = ep_sink[0]["n_loc"], ep_sink[0]["cap"]
+    phase(f"phase 6e: {cfg.name} expert-parallel prefill {b}x{s} over "
+          f"{mesh}, hints {dict(ep_hints, a2a='mesh')}: {len(ep_sink)} MoE "
+          f"layers, n_loc {n_loc} tokens a rank, cap {cap}")
+    phase(f"  launches on the expert-parallel path: {{'flash_attention': "
+          f"{ep_launches}}}")
+    if ep_launches != cfg.n_layers or len(ep_sink) != cfg.n_layers:
+        fail(f"phase 6e: {ep_launches} flash launches, {len(ep_sink)} "
+             f"all-to-all layers, expected {cfg.n_layers}")
+    least = b * s * m.top_k * cfg.d_model * model.embed.element_size()
+    sent, cross = ep_sink[0]["a2a_bytes"], ep_sink[0]["a2a_cross_bytes"]
+    phase(f"  all-to-all bytes a layer (every layer alike: "
+          f"{all(x['a2a_bytes'] == sent for x in ep_sink)}): out {sent[0]}, "
+          f"back {sent[1]} (of them between distinct ranks {cross[0]}, "
+          f"{cross[1]}), against tokens_loc x top_k x d x 2 B over the "
+          f"{dp * ep} ranks = {least} each way (capacity factor "
+          f"{m.capacity_factor})")
+    ep_drops = [x["dropped"].tolist() for x in ep_sink]
+    ts_drops = [x["dropped"].tolist() for x in ts_sink]
+    phase(f"  dropped assignments per rank, first MoE layer: expert-parallel"
+          f" {ep_drops[0]}, two-stage per block {ts_drops[0]}; all layers: "
+          f"{sum(map(sum, ep_drops))} and {sum(map(sum, ts_drops))} of "
+          f"{len(ep_sink) * b * s * m.top_k}")
+    if ep_drops[0] != ts_drops[0]:
+        fail(f"phase 6e: first MoE layer's drops {ep_drops[0]} != the "
+             f"two-stage dispatch's {ts_drops[0]}")
+    rel = rel_l2(ep_logits, ts_logits)
+    floor = out[PREFILL]["floor"]
+    limit = max(PREFILL_REL_L2, FLOOR_FACTOR * floor)
+    phase(f"  logits, expert-parallel vs two-stage, every position: rel L2 "
+          f"{rel:.3e} (<= {limit:.3e}: the larger of {PREFILL_REL_L2} and "
+          f"{FLOOR_FACTOR} x phase 6m's rounding floor {floor:.3e}), max "
+          f"abs err {max_err(ep_logits, ts_logits):.3e}; wall "
+          f"{ep_wall * 1e3:.1f} ms vs {ts_wall * 1e3:.1f} ms")
+    if not rel <= limit:
+        fail(f"phase 6e logits: rel L2 {rel} > {limit}")
+    del runs, ep_logits, ts_logits
+    torch.cuda.empty_cache()
+
+    # 2 layers in f32 at the no-drop capacity, one prompt
+    f32 = dataclasses.replace(cfg, n_layers=2, dtype="float32", moe=(
+        dataclasses.replace(m, capacity_factor=m.n_experts / m.top_k)))
+    fb = registry.build(f32, device=dev)
+    fm = fb.init(torch.Generator(device=dev).manual_seed(2))
+    batch = {"tokens": tokens[:1]}
+    with sharding_hints(**ep_hints):
+        got = fb.forward(fm, batch)
+    with sharding_hints(dp_size=dp * ep):
+        want = fb.forward(fm, batch)
+    rel = rel_l2(got, want)
+    phase(f"  f32 2 layers, 1x{s}, capacity factor "
+          f"{f32.moe.capacity_factor}: logits expert-parallel vs two-stage "
+          f"rel L2 {rel:.3e} (<= {EP_F32_REL_L2}), max abs err "
+          f"{max_err(got, want):.3e}")
+    if not rel <= EP_F32_REL_L2:
+        fail(f"phase 6e f32: rel L2 {rel} > {EP_F32_REL_L2}")
+    del fm, fb, got, want
+    phase(f"  phase 6e: {time.perf_counter() - t0:.1f} s")
+    return {"launches": ep_launches}
+
+
 def moe_serving():
     """Phases 6m (Mixtral-8x7B) and 6k (Kimi K2), the MoE family at full
     width and cut depth, bf16, seeded weights built on the card: the
@@ -1344,7 +1618,8 @@ def moe_serving():
     binds; Kimi's 4x2048 at D 112 with GQA 8), each flash site held to
     its plain version on its own q, k, v; Mixtral's engine and its f32
     greedy check at 2 layers with the no-drop capacity factor E/k
-    (docs/port.md §moe). Mixtral is freed before Kimi is built."""
+    (docs/port.md §moe); phase 6e on Mixtral's resident model. Mixtral is
+    freed before Kimi is built."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -1355,7 +1630,8 @@ def moe_serving():
     mix = lm_serving(
         mixtral, "phase 6m", f32_layers=2, prefills=(PREFILL, LONG_PREFILL),
         matrix=False, f32_changes={"moe": dataclasses.replace(
-            moe, capacity_factor=moe.n_experts / moe.top_k)})
+            moe, capacity_factor=moe.n_experts / moe.top_k)},
+        resident=expert_parallel_prefill)
     kimi = lm_serving(
         dataclasses.replace(get_arch("kimi-k2-1t-a32b"),
                             n_layers=KIMI_LAYERS),
@@ -1866,6 +2142,143 @@ def ssm_training() -> None:
     phase(f"  phase 11a: {time.perf_counter() - t11:.1f} s")
 
 
+def dp_compression() -> None:
+    """Phase 11c: xLSTM-125m at full width and depth, its 8x2048 batch
+    split over ``DP_RANKS`` data ranks of ``["cuda:0"] * DP_RANKS``
+    (``sharding.shard``, views), each rank's loss gradients, and
+    ``compressed_psum`` over them (``parallel/compression.py``): ``none``
+    bitwise equal to the f32 mean ``make_train_step(num_microbatches=2)``
+    forms from the same gradients (``0 + g0 + g1`` in f32, then ``/ 2``),
+    and that step's loss the mean of the ranks' losses; ``int8_ef``
+    within ``sum_r scale_r / (2R)`` of that mean, each residual ``x -
+    deq`` exactly; ``topk_ef`` with ``deq + residual == x`` bitwise; the
+    payload of each scheme against the bf16 baseline."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.interop import param_tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry
+    from repro_torch.models.registry import _grads
+    from repro_torch.parallel.compression import (
+        CompressionConfig,
+        compress_int8,
+        compress_topk,
+        compressed_psum,
+        init_residuals,
+        payload_bytes,
+    )
+    from repro_torch.parallel.sharding import P, shard
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import DataConfig, SyntheticTokens
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+
+    t0 = time.perf_counter()
+    cfg = get_arch("xlstm-125m")
+    b, s = TRAIN_SSM
+    dev = "cuda"
+    bundle = registry.build(cfg, device=dev)
+    model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    source = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=s,
+                                        global_batch=b, seed=0))
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in source.batch_at(0).items()}
+    mesh = make_mesh((DP_RANKS,), ("data",), [dev] * DP_RANKS)
+    halves = {k: shard(v, P("data", None), mesh) for k, v in batch.items()}
+    params = param_tree(model)
+    leaves, treedef = ckpt.tree_flatten(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    losses, rank_grads = [], []
+    for r in range(DP_RANKS):
+        loss = bundle.loss(model, {k: v[r] for k, v in halves.items()})
+        rank_grads.append(ckpt.tree_unflatten(treedef, _grads(loss, leaves)))
+        losses.append(loss.detach())
+    phase(f"phase 11c: {cfg.name} data-parallel gradients over {mesh}: "
+          f"{DP_RANKS} ranks of {b // DP_RANKS}x{s}, {len(leaves)} leaves, "
+          f"losses {[f'{float(x):.6f}' for x in losses]}")
+    flat = [ckpt.tree_flatten(g)[0] for g in rank_grads]
+    res = [init_residuals(g) for g in rank_grads]
+    zeros = [ckpt.tree_flatten(x)[0] for x in res]
+    # the f32 mean of make_train_step(num_microbatches=2), on these grads
+    want = []
+    for j, p in enumerate(leaves):
+        acc = torch.zeros(p.shape, dtype=torch.float32, device=dev)
+        for r in range(DP_RANKS):
+            acc.add_(flat[r][j])
+        want.append(acc.div_(DP_RANKS))
+    out = {}
+    for scheme in ("none", "int8_ef", "topk_ef"):
+        cc = CompressionConfig(scheme, topk_frac=TOPK_FRAC)
+        compressed_psum(rank_grads, res, cc)  # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mean, new_r = compressed_psum(rank_grads, res, cc)
+        torch.cuda.synchronize()
+        out[scheme] = (ckpt.tree_flatten(mean)[0],
+                       [ckpt.tree_flatten(x)[0] for x in new_r],
+                       time.perf_counter() - t1)
+    got = out["none"][0]
+    bad = [j for j in range(len(leaves)) if not torch.equal(got[j], want[j])]
+    phase(f"  none vs make_train_step's f32 mean of the same gradients: "
+          f"{'bitwise equal' if not bad else f'leaves {bad} differ'}")
+    if bad:
+        fail(f"phase 11c none: leaves {bad} != the microbatched mean")
+    worst, resid_ok = 0.0, True
+    mean8, res8, _ = out["int8_ef"]
+    for j in range(len(leaves)):
+        scales = []
+        for r in range(DP_RANKS):
+            (q, scale), deq, _ = compress_int8(flat[r][j], zeros[r][j])
+            scales.append(float(scale))
+            resid_ok &= torch.equal(res8[r][j],
+                                    flat[r][j].float() - deq)
+        bound = sum(scales) / (2 * DP_RANKS)
+        err = float((mean8[j] - want[j]).abs().max())
+        worst = max(worst, err / bound)
+        if not err <= bound:
+            fail(f"phase 11c int8_ef leaf {j}: max abs err {err} > "
+                 f"sum(scale) / 2R = {bound}")
+    phase(f"  int8_ef: every element within sum_r scale_r / (2R) of the "
+          f"mean (worst leaf at {worst:.3f} of its bound); each residual == "
+          f"x - deq: {resid_ok}")
+    if not resid_ok:
+        fail("phase 11c int8_ef: a residual != x - deq")
+    meank, resk, _ = out["topk_ef"]
+    topk_ok = True
+    for j in range(len(leaves)):
+        for r in range(DP_RANKS):
+            x = flat[r][j].float()
+            _, deq, nr = compress_topk(flat[r][j], zeros[r][j], TOPK_FRAC)
+            topk_ok &= torch.equal(nr, resk[r][j]) and torch.equal(
+                deq + resk[r][j], x)
+    phase(f"  topk_ef (frac {TOPK_FRAC}): deq + residual == x bitwise on "
+          f"every leaf and rank: {topk_ok}")
+    if not topk_ok:
+        fail("phase 11c topk_ef: deq + residual != x")
+    base = payload_bytes(params, CompressionConfig("none"))
+    phase("  payload bytes a step: " + ", ".join(
+        f"{scheme} {payload_bytes(params, CompressionConfig(scheme, TOPK_FRAC))}"
+        f" ({payload_bytes(params, CompressionConfig(scheme, TOPK_FRAC)) / base:.4f}"
+        f" of the bf16 baseline; all-reduce {out[scheme][2] * 1e3:.1f} ms)"
+        for scheme in ("none", "int8_ef", "topk_ef")))
+    # one make_train_step(num_microbatches=2) on the whole batch
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=2)
+    step = bundle.make_train_step(opt_cfg, num_microbatches=DP_RANKS,
+                                  dp_axes=("data",))
+    _, _, metrics = step(model, init_state(opt_cfg, params), batch)
+    mean_loss = float(sum(x.float() for x in losses)) / DP_RANKS
+    rel = abs(float(metrics["loss"]) - mean_loss) / abs(mean_loss)
+    phase(f"  make_train_step(num_microbatches={DP_RANKS}) loss "
+          f"{float(metrics['loss']):.7f} vs the ranks' mean {mean_loss:.7f}: "
+          f"rel diff {rel:.2e} (<= 1e-6)")
+    if not rel <= 1e-6:
+        fail(f"phase 11c: step loss {float(metrics['loss'])} vs {mean_loss}")
+    del model, rank_grads, flat, res, zeros, out, want, leaves, params, metrics
+    torch.cuda.empty_cache()
+    phase(f"  phase 11c: {time.perf_counter() - t0:.1f} s")
+
+
 def dense_training() -> dict:
     """Phase 11b: Qwen3-8B at full width and ``QWEN_TRAIN_LAYERS`` of its
     36 layers, bf16 parameters and gradients, f32 moments,
@@ -1892,6 +2305,7 @@ def dense_training() -> dict:
     )
     from repro_torch.kernels.flash_attention.ops import attention
     from repro_torch.models import registry
+    from repro_torch.parallel.hints import sharding_hints
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.data import DataConfig, SyntheticTokens
     from repro_torch.train.optimizer import AdamWConfig, init_state
@@ -1923,10 +2337,13 @@ def dense_training() -> dict:
              for k, v in source.batch_at(0).items()}
 
     def grads(which, noise=None):
+        # the noise run keeps its activations (remat off): a recompute
+        # would draw other noise than the forward's
         ctx = (attention_through(rounding_noise(noise)) if noise is not None
                else contextlib.nullcontext())
+        hints = dict(remat="off") if noise is not None else {}
         n0 = flash_attention.launches
-        with ctx:
+        with ctx, sharding_hints(**hints):
             loss = which.loss(model, batch)
             n1 = flash_attention.launches
             gs = torch.autograd.grad(loss, parts)
@@ -1947,9 +2364,13 @@ def dense_training() -> dict:
     loss_k, gk, (fwd, bwd) = grads(bundle)
     phase(f"  step 0 through the kernel: loss {loss_k:.4f}, flash launches "
           f"{{'forward': {fwd}, 'backward': {bwd}}}")
-    if fwd != cfg.n_layers or bwd != 0:
-        fail(f"phase 11b: flash launched {fwd} times forward (expected "
-             f"{cfg.n_layers}) and {bwd} backward (expected 0)")
+    # Under the default remat ("none") the backward runs each layer's
+    # forward again, so the kernel launches once more per layer there;
+    # the Function's own backward launches nothing.
+    if fwd != cfg.n_layers or bwd != cfg.n_layers:
+        fail(f"phase 11b: flash launched {fwd} times forward and {bwd} "
+             f"backward (expected {cfg.n_layers} each: remat recomputes "
+             "every layer)")
     loss_p, gp, _ = grads(plain)
     rels = per_leaf(gk, gp)
     del gk
@@ -1985,16 +2406,40 @@ def dense_training() -> dict:
         times.append(time.perf_counter() - t0)
         launches.append(flash_attention.launches - n0)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    phase(f"  {DENSE_STEPS} steps of make_train_step: losses "
+    phase(f"  {DENSE_STEPS} steps of make_train_step (remat 'none', the "
+          "default): losses "
           + ", ".join(f"{x:.4f}" for x in losses)
           + f"; step ms {', '.join(f'{t * 1e3:.1f}' for t in times)} "
           f"({b * s / times[-1]:.0f} tokens/s at the last), peak memory "
           f"{peak:.2f} GiB (weights, gradients and moments included); "
           f"flash launches per step {launches}")
     if not all(math.isfinite(x) for x in losses) or launches != [
-            cfg.n_layers] * DENSE_STEPS:
+            2 * cfg.n_layers] * DENSE_STEPS:
         fail(f"phase 11b: losses {losses}, launches {launches}")
     n_train = sum(launches)
+    # The same steps under the other policies: the last step's ms and the
+    # peak memory of each.
+    for policy, per_step in (("sublayers", 2 * cfg.n_layers),
+                             ("off", cfg.n_layers)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        got = []
+        with sharding_hints(remat=policy):
+            for i in range(REMAT_STEPS):
+                n0 = flash_attention.launches
+                t0 = time.perf_counter()
+                model, opt, metrics = step(model, opt, source.batch_at(
+                    DENSE_STEPS + i))
+                float(metrics["loss"])
+                got.append((time.perf_counter() - t0,
+                            flash_attention.launches - n0))
+        phase(f"  remat {policy!r}: step ms "
+              f"{', '.join(f'{t * 1e3:.1f}' for t, _ in got)}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, flash "
+              f"launches per step {[n for _, n in got]}")
+        if [n for _, n in got] != [per_step] * REMAT_STEPS:
+            fail(f"phase 11b remat {policy}: launches {got}")
+        n_train += sum(n for _, n in got)
     del model, opt, step, tree, leaves, groups, parts, batch, metrics
     torch.cuda.empty_cache()
 
@@ -3157,7 +3602,8 @@ def main() -> None:
     # ---- 6. LM serving (before phase 5, which times its kernel) ------
     from repro_torch.configs import get_arch
 
-    lm = lm_serving(get_arch("qwen3-8b"), "phase 6", f32_layers=4)
+    lm = lm_serving(get_arch("qwen3-8b"), "phase 6", f32_layers=4,
+                    resident=pipelined_prefill)
     # one group of six Mamba2 layers and the shared block, two tail layers
     hyb = lm_serving(get_arch("zamba2-7b"), "phase 6h", f32_layers=8)
     mix, kimi = moe_serving()
@@ -3167,6 +3613,7 @@ def main() -> None:
 
     # ---- 11. training (before phase 5, which times its kernel) -------
     ssm_training()
+    dp_compression()
     train = dense_training()
 
     # ---- 5. timing at the main-path shapes ----------------------------
@@ -3354,7 +3801,12 @@ def main() -> None:
     )
     from repro_torch.kernels.flash_attention.ops import attention
 
+    # The expert-parallel prefill (6e) launches the kernel at the same
+    # shape as phase 6's 4x2048 prefill; its launches join that row.
+    lm[PREFILL]["launches"] += mix["resident"]["launches"]
     flash_rows = (("flash_attention", lm[PREFILL]),
+                  ("flash_attention[D 128, GQA 4, B 1, pipelined]",
+                   lm["resident"]),
                   ("flash_attention[D 112]", hyb[PREFILL]),
                   ("flash_attention[D 128, window 4096]", mix[LONG_PREFILL]),
                   ("flash_attention[D 112, GQA 8]", kimi[PREFILL]),

@@ -9,11 +9,12 @@ Conventions:
 * the functions take the module whose weights they apply, as the JAX ones
   take a parameter dict.
 
-The reference's sharding hints (``parallel.hints.constrain``) and remat
-names (``checkpoint_name``) are no-ops on one unmeshed card and are
-dropped. So is the MoE's all-to-all branch (``parallel/moe_ep.py``, which
-prices capacity per rank): the port's dispatch is the reference's at one
-block (``dp_size`` 1), docs/port.md §moe.
+The reference's sharding hints are read as it reads them
+(``parallel/hints.py``): the MoE dispatch splits its tokens into
+``hint("dp_size")`` blocks that each price their own capacity, and under
+the ``a2a`` hint runs ``parallel/moe_ep.py``'s all-to-all dispatch on the
+hinted mesh; ``constrain`` is called where the reference calls it and
+changes no value on one controller (docs/port.md §parallel).
 """
 
 from __future__ import annotations
@@ -26,6 +27,9 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention.ops import attention as _attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF
+from repro_torch.parallel import moe_ep
+from repro_torch.parallel.hints import constrain, hint
+from repro_torch.parallel.sharding import P
 
 # --------------------------------------------------------------------------
 # Initializers
@@ -195,6 +199,21 @@ def attention_block(p: Attention, x, cfg, positions, *, causal=True,
     return _merge_heads(o) @ p.wo
 
 
+def _kv_decode_spec(cfg):
+    """Decode-time KV-cache spec: heads over 'model' when they divide, else
+    *sequence*-sharded over 'model' (flash-decoding layout)."""
+
+    def spec(h):
+        ep, nep = h.get("ep"), h.get("ep_size", 1) or 1
+        if not ep:
+            return None
+        if cfg.n_kv_heads % nep == 0:
+            return P(h.get("dp"), ep, None, None)
+        return P(h.get("dp"), None, ep, None)
+
+    return spec
+
+
 def decode_attention(p: Attention, x, cfg, cache_k, cache_v, pos: int,
                      rows=None):
     """Single-token decode against a (B, Hkv, S, D) cache; pos: index of
@@ -211,6 +230,9 @@ def decode_attention(p: Attention, x, cfg, cache_k, cache_v, pos: int,
     else:
         cache_k[rows, :, pos] = k_new[rows, :, 0]
         cache_v[rows, :, pos] = v_new[rows, :, 0]
+    kv_spec = _kv_decode_spec(cfg)
+    cache_k = constrain(cache_k, kv_spec)
+    cache_v = constrain(cache_v, kv_spec)
     s = cache_k.shape[2]
     group = cfg.n_heads // cfg.n_kv_heads
     kk = cache_k.repeat_interleave(group, dim=1) if group > 1 else cache_k
@@ -266,7 +288,7 @@ def mlp_apply(p: MLP, x, cfg):
 
 
 # --------------------------------------------------------------------------
-# Mixture of Experts (token-choice top-k with capacity, one block)
+# Mixture of Experts (token-choice top-k with capacity, block dispatch)
 # --------------------------------------------------------------------------
 
 
@@ -300,47 +322,91 @@ class MoE(nn.Module):
             self.shared.init_weights(cfg, generator)
 
 
-def moe_route(p: MoE, xt, cfg):
-    """The reference's dispatch plan for the ``(N, d)`` tokens ``xt``:
-    ``(gates, idx, pos, keep, cap)``.
+def moe_router(p: MoE, xt, cfg):
+    """Softmax of the f32 router logits over the ``(N, d)`` tokens
+    ``xt``, and the top ``k`` experts per token: ``(gates, idx)``, each
+    ``(N, k)``, the gates renormalised over the ``k``."""
+    logits = xt.float() @ p.router  # (N, E)
+    gates, idx = torch.topk(torch.softmax(logits, dim=-1), cfg.moe.top_k,
+                            dim=-1)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return gates, idx
 
-    Softmax of the f32 router logits, the top ``k`` experts per token
-    (``idx``, ``(N, k)``) with their gates renormalised over the ``k``;
-    the ``N·k`` assignments flattened token-major; ``pos`` is each
-    assignment's place in its expert, a running one-hot count, and
-    ``keep`` is ``pos < cap`` with ``cap = int(max(k, cf·N·k/E))``."""
+
+def moe_route(p: MoE, xt, cfg, nblk: int = 1):
+    """The reference's dispatch plan for the ``(N, d)`` tokens ``xt`` in
+    ``nblk`` contiguous blocks of ``N / nblk``: ``(gates, idx, pos, keep,
+    cap)``.
+
+    :func:`moe_router`'s gates and experts; the ``N·k`` assignments
+    flattened token-major; ``pos`` is each assignment's place in its
+    expert within its block, a running one-hot count, and ``keep`` is
+    ``pos < cap`` with ``cap = int(max(k, cf·n_loc·k/E))`` priced from
+    the block's ``n_loc = N / nblk`` tokens."""
     m = cfg.moe
     n = xt.shape[0]
-    logits = xt.float() @ p.router  # (N, E)
-    gates, idx = torch.topk(torch.softmax(logits, dim=-1), m.top_k, dim=-1)
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-    cap = int(max(m.top_k, m.capacity_factor * n * m.top_k / m.n_experts))
-    onehot = F.one_hot(idx.reshape(-1), m.n_experts)  # (N·k, E), int64
-    pos = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1
+    gates, idx = moe_router(p, xt, cfg)
+    cap = int(max(m.top_k, m.capacity_factor * (n // nblk) * m.top_k
+                  / m.n_experts))
+    onehot = F.one_hot(idx.reshape(nblk, -1), m.n_experts)  # int64
+    pos = ((torch.cumsum(onehot, dim=1) * onehot).sum(-1) - 1).reshape(-1)
     return gates, idx, pos, pos < cap, cap
+
+
+def _a2a_applies(n: int, cfg) -> bool:
+    """The reference's condition for the all-to-all dispatch: an ``a2a``
+    mesh and an ``ep`` axis are hinted, the experts divide the ep size
+    and the tokens split over dp and ep."""
+    dp, ep = hint("dp_size", 1) or 1, hint("ep_size", 1) or 1
+    return (hint("a2a") is not None and bool(hint("ep"))
+            and cfg.moe.n_experts % ep == 0 and n % max(dp * ep, 1) == 0)
 
 
 def moe_apply(p: MoE, x, cfg):
     """Token-choice top-k MoE with capacity over the ``B·S`` tokens of
-    ``x`` (the reference's ``moe_apply`` at one block): each kept
-    assignment is scattered into its expert's ``(cap, d)`` buffer, the
-    experts run as batched products over the ``(E, cap, d)`` buffer, and
-    each token sums its kept experts' outputs times their gates in
-    ``x.dtype``; a dropped assignment contributes 0. Nothing here waits
-    for the card: a dropped assignment is written to a spare row past the
-    buffer, which the experts never read."""
+    ``x``: the reference's two-stage block-local dispatch.
+
+    The tokens are split into ``nblk = hint("dp_size", 1)`` contiguous
+    blocks (one when ``nblk`` does not divide them), each with its own
+    capacity (:func:`moe_route`). Each kept assignment is scattered into
+    its expert's ``(nblk, cap, d)`` buffer, the experts run as batched
+    products over the ``(E, nblk·cap, d)`` buffer, and each token sums
+    its kept experts' outputs times their gates in ``x.dtype``; a dropped
+    assignment contributes 0. Nothing here waits for the card: a dropped
+    assignment is written to a spare row past the buffer, which the
+    experts never read. Under the reference's ``a2a`` hints the experts
+    run in :func:`~repro_torch.parallel.moe_ep.moe_ep_apply` on the
+    hinted mesh instead."""
     m = cfg.moe
     b, s, d = x.shape
     n, k, e = b * s, m.top_k, m.n_experts
     xt = x.reshape(n, d)
-    gates, idx, pos, keep, cap = moe_route(p, xt, cfg)
-    slot = idx.reshape(-1) * cap + pos.clamp(max=cap - 1)  # (N·k,)
-    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf.index_copy_(0, torch.where(keep, slot, e * cap),
+    if _a2a_applies(n, cfg):
+        gates, idx = moe_router(p, xt, cfg)
+        out = moe_ep.moe_ep_apply(
+            xt, idx, gates, p.w_gate, p.w_up, p.w_down,
+            mesh=hint("a2a"), dp_axes=hint("dp"), ep_axis=hint("ep"),
+            fsdp_axes=hint("fsdp"), capacity_factor=m.capacity_factor,
+            top_k=k, n_experts=e).to(x.device)
+        if m.n_shared:
+            out = out + mlp_apply(p.shared, xt, cfg)
+        return out.reshape(b, s, d)
+    nblk = hint("dp_size", 1) or 1
+    if n % nblk:
+        nblk = 1
+    gates, idx, pos, keep, cap = moe_route(p, xt, cfg, nblk)
+    # slot of each assignment in the (E, nblk, cap) buffer
+    slot = idx.reshape(-1) * nblk
+    if nblk > 1:
+        slot = slot + torch.arange(n * k, device=x.device) // (n // nblk * k)
+    slot = slot * cap + pos.clamp(max=cap - 1)  # (N·k,)
+    rows = e * nblk * cap
+    buf = torch.zeros((rows + 1, d), dtype=x.dtype, device=x.device)
+    buf.index_copy_(0, torch.where(keep, slot, rows),
                     xt.repeat_interleave(k, dim=0))
-    buf = buf[:-1].view(e, cap, d)
+    buf = buf[:-1].view(e, nblk * cap, d)
     h = F.silu(torch.bmm(buf, p.w_gate)) * torch.bmm(buf, p.w_up)
-    y = torch.bmm(h, p.w_down).view(e * cap, d)
+    y = torch.bmm(h, p.w_down).view(rows, d)
     gathered = torch.where(keep[:, None], y[slot], 0)
     out = (gathered.view(n, k, d) * gates[..., None].to(x.dtype)).sum(1)
     if m.n_shared:

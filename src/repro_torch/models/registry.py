@@ -189,7 +189,8 @@ class ModelBundle:
     decode: Callable
 
     # ---- step factories ---------------------------------------------------
-    def make_train_step(self, opt_cfg, num_microbatches: int = 1):
+    def make_train_step(self, opt_cfg, num_microbatches: int = 1,
+                        dp_axes=None):
         """``train_step(model, opt_state, batch) -> (model, opt_state,
         metrics)``: the reference's step, on the model in place.
 
@@ -200,7 +201,12 @@ class ModelBundle:
         sums their gradients in f32 buffers (the reference's
         ``g.astype(f32)``; bf16 ``.grad`` would sum in bf16), then
         divides loss and gradients by the count. ``batch`` may hold numpy
-        arrays (the data pipeline's) or tensors."""
+        arrays (the data pipeline's) or tensors.
+
+        ``dp_axes`` names the mesh axes that carry the batch dim, where
+        the reference pins each microbatch's dim 1 to them. One
+        controller holds every microbatch whole, so it changes no value
+        here (docs/port.md §parallel)."""
         from repro_torch.train.checkpoint import tree_flatten, tree_unflatten
         from repro_torch.train.optimizer import apply_updates
 

@@ -16,7 +16,10 @@ Entry points:
                                                -> (logits, cache) (enc_dec)
 
 The JAX package scans a stacked ``L`` axis under remat; here the layers
-are an ``nn.ModuleList`` walked by a Python loop. The serving entry points
+are an ``nn.ModuleList`` walked by a Python loop, each layer under
+``torch.utils.checkpoint`` whenever grad mode is on, with the reference's
+policy from ``hint("remat", "none")`` (:func:`_remat`, docs/port.md
+§parallel). The serving entry points
 (``forward``, ``encode``, ``forward_enc_dec``, the decode steps) record no
 graph; ``logits``, ``logits_enc_dec`` and ``lm_loss`` do once the
 parameters require grad (docs/port.md §train).
@@ -35,10 +38,20 @@ whisper) holds ``enc_layers``, ``dec_layers`` (:class:`CrossLayer`) and
 
 from __future__ import annotations
 
+import threading
+from functools import partial
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.interop import resolve_device
+from repro_torch.parallel.hints import constrain, hint
+from repro_torch.parallel.sharding import P
 
 from .layers import (
     MLP,
@@ -54,6 +67,72 @@ from .layers import (
     normal_,
     rms_norm,
 )
+
+
+def _sp_spec(h):
+    """Residual-stream spec: (batch=dp, seq=sp-or-None, d=None)."""
+    if not (h.get("dp") or h.get("sp")):
+        return None
+    return P(h.get("dp"), h.get("sp"), None)
+
+
+# --------------------------------------------------------------------------
+# Remat: the reference's jax.checkpoint policies
+# --------------------------------------------------------------------------
+
+_NAMING = threading.local()
+
+
+def checkpoint_name(x, name: str):
+    """``x`` tagged with the reference's remat name (``attn_out``,
+    ``ff_out``): with grad on, an ``aten.alias`` of ``x`` run while the
+    name is current, which the ``"sublayers"`` policy saves; ``x`` itself
+    otherwise. The value is ``x``'s."""
+    if not torch.is_grad_enabled():
+        return x
+    _NAMING.name = name
+    try:
+        return torch.ops.aten.alias(x)
+    finally:
+        _NAMING.name = None
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the weight products
+    (``mm``; a batched ``bmm`` is recomputed)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_sublayers(ctx, op, *args, **kwargs):
+    """``save_only_these_names("attn_out", "ff_out")``."""
+    named = (op is torch.ops.aten.alias.default
+             and getattr(_NAMING, "name", None) in ("attn_out", "ff_out"))
+    return (CheckpointPolicy.MUST_SAVE if named
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_POLICIES = {"dots": _save_dots, "sublayers": _save_sublayers}
+
+
+def _remat(layer, policy: str, *args, **kwargs):
+    """``layer(*args, **kwargs)``, under ``torch.utils.checkpoint`` (not
+    reentrant) when grad mode is on: the backward runs the layer's
+    forward again, keeping what ``policy`` saves: ``"none"`` nothing,
+    ``"dots"`` the weight products' outputs, ``"sublayers"`` the two
+    sublayers' outputs ``attn_out`` and ``ff_out`` (the reference's
+    ``_remat_policy``; an unknown name saves nothing, as there).
+    ``"off"`` (the port's own) keeps every activation instead. The values
+    do not depend on the policy."""
+    if policy == "off" or not torch.is_grad_enabled():
+        return layer(*args, **kwargs)
+    if policy in _POLICIES:
+        kwargs["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                       _POLICIES[policy])
+    return checkpoint(layer, *args, use_reentrant=False, **kwargs)
 
 
 class DecoderLayer(nn.Module):
@@ -92,10 +171,14 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, cfg, positions, *, causal: bool = True,
                 use_kernel: bool | None = None):
-        x = x + attention_block(self.attn, rms_norm(x, self.ln1), cfg,
-                                positions, causal=causal,
-                                use_kernel=use_kernel)
-        return x + self.feed_forward(rms_norm(x, self.ln2), cfg)
+        h = constrain(rms_norm(x, self.ln1), _sp_spec)
+        attn_out = attention_block(self.attn, h, cfg, positions,
+                                   causal=causal, use_kernel=use_kernel)
+        attn_out = checkpoint_name(attn_out, "attn_out")
+        x = constrain(x + attn_out, _sp_spec)
+        h = constrain(rms_norm(x, self.ln2), _sp_spec)
+        ff_out = checkpoint_name(self.feed_forward(h, cfg), "ff_out")
+        return constrain(x + ff_out, _sp_spec)
 
 
 class CrossLayer(nn.Module):
@@ -212,8 +295,10 @@ def logits(model: Transformer, tokens, embeds=None, positions=None, *,
     _, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
+    policy = hint("remat", "none")
     for layer in model.layers:
-        x = layer(x, cfg, positions, causal=True, use_kernel=use_kernel)
+        x = _remat(layer, policy, x, cfg, positions, causal=True,
+                   use_kernel=use_kernel)
     x = rms_norm(x, model.ln_f)
     return x @ model.head()
 
@@ -279,8 +364,10 @@ def _encode(model: Transformer, frames, *, use_kernel: bool | None = None):
     cfg = model.cfg
     x = frames.to(cfg.param_dtype)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    policy = hint("remat", "none")
     for layer in model.enc_layers:
-        x = layer(x, cfg, positions, causal=False, use_kernel=use_kernel)
+        x = _remat(layer, policy, x, cfg, positions, causal=False,
+                   use_kernel=use_kernel)
     return rms_norm(x, model.ln_enc)
 
 
@@ -300,6 +387,13 @@ def _enc_kv(layer: CrossLayer, cfg, enc_states):
     return _split_heads(kx, cfg.n_kv_heads), _split_heads(vx, cfg.n_kv_heads)
 
 
+def _cross_layer(layer: CrossLayer, x, cfg, positions, enc, use_kernel):
+    """One decoder layer with its cross-attention K/V from ``enc``
+    (computed inside the layer, so that remat recomputes them)."""
+    return layer(x, cfg, positions, _enc_kv(layer, cfg, enc),
+                 use_kernel=use_kernel)
+
+
 def logits_enc_dec(model: Transformer, frames, tokens, *,
                    use_kernel: bool | None = None):
     """Whisper-style: encode ``frames``, decode ``tokens`` with
@@ -309,9 +403,11 @@ def logits_enc_dec(model: Transformer, frames, tokens, *,
     enc = _encode(model, frames, use_kernel=use_kernel)
     x = model.embed[tokens]
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    # the reference's decoder scan saves nothing, whatever the hint
+    off = hint("remat") == "off"
     for layer in model.dec_layers:
-        x = layer(x, cfg, positions, _enc_kv(layer, cfg, enc),
-                  use_kernel=use_kernel)
+        x = _remat(_cross_layer, "off" if off else "none", layer, x, cfg,
+                   positions, enc, use_kernel)
     x = rms_norm(x, model.ln_f)
     return x @ model.head()
 

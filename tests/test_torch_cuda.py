@@ -1245,3 +1245,74 @@ def test_flash_kernel_with_grad_raises(card):
         flash_attention(q, k, k)
     with torch.no_grad():
         assert flash_attention(q, k, k).shape == q.shape
+
+
+@pytest.mark.parametrize("shape,fsdp", [((2, 4), None), ((4, 2), ("data",))])
+def test_moe_all_to_all_on_the_card_equals_the_two_stage_dispatch(
+        card, shape, fsdp):
+    """The expert-parallel dispatch on the logical mesh ``["cuda:0"] *
+    8`` against the two-stage dispatch at ``dp_size`` 8 on the card, f32:
+    the same drops per rank and block, the outputs within the f32
+    tolerance of the CPU tests; the all-to-all bytes are copied on the
+    card."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as tl
+    from repro_torch.parallel.hints import sharding_hints
+    from repro_torch.parallel.moe_ep import moe_ep_apply
+
+    cfg = _moe_cfg("mixtral-8x7b", cf=1.0)
+    moe = tl.MoE(cfg, device="cuda")
+    moe.init_weights(cfg, torch.Generator(device="cuda").manual_seed(1))
+    x = torch.randn((4, 16, cfg.d_model), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(2))
+    mesh = make_mesh(shape, ("data", "model"), ["cuda:0"] * 8)
+    with sharding_hints(ep="model", ep_size=shape[1], dp=("data",),
+                        dp_size=shape[0], a2a=mesh, fsdp=fsdp):
+        got = tl.moe_apply(moe, x, cfg)
+    stats = moe_ep_apply.last
+    with sharding_hints(dp_size=8):
+        want = tl.moe_apply(moe, x, cfg)
+        keep = tl.moe_route(moe, x.reshape(64, -1), cfg, 8)[3]
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
+    assert torch.equal(stats["dropped"], (~keep).view(8, -1).sum(1))
+    assert stats["a2a_bytes"][0] == 8 * 4 * stats["cap"] * cfg.d_model * 4
+
+
+def test_pipelined_layers_on_the_card_are_bitwise_the_sequential_ones(card):
+    """A narrow Qwen3 stack (4 layers, bf16, the flash kernel at D 128) in
+    2 stages over ``["cuda:0"] * 2``, 3 microbatches: bitwise the layers
+    run one microbatch at a time, with one launch per layer and
+    microbatch."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+    )
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tt
+    from repro_torch.parallel.pipeline import (
+        pipelined_forward,
+        stack_stage_params,
+    )
+
+    cfg = dataclasses.replace(get_arch("qwen3-8b").reduced(), n_layers=4,
+                              head_dim=128, dtype="bfloat16")
+    model = tt.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    micro = torch.randn((3, 1, 256, cfg.d_model), device="cuda").bfloat16()
+    pos = torch.arange(256, device="cuda")[None]
+
+    def stage_fn(layers, x):
+        for layer in layers:
+            x = layer(x, cfg, pos)
+        return x
+
+    run = pipelined_forward(make_mesh((2,), ("stage",), ["cuda:0"] * 2),
+                            stage_fn)
+    with torch.no_grad():
+        want = torch.stack([stage_fn(model.layers, x) for x in micro])
+        n0 = flash_attention.launches
+        got = run(stack_stage_params(model.layers, 2), micro)
+    assert flash_attention.launches - n0 == 12
+    assert torch.equal(got, want)

@@ -82,3 +82,24 @@ def test_dse_explore_on_the_cpu(tmp_path, monkeypatch, capsys):
     for app in ("lbm", "diffusion"):
         assert report[app]["executed"]
         assert all(e["interpret"] for e in report[app]["executed"])
+
+
+def test_serve_lm_is_the_greedy_forward(capsys):
+    """``torch_serve_lm.py --device cpu``: the reference example's prompts
+    (the same seeded numpy draws), and every completion the argmax of the
+    model's forward over the prompt and the tokens before it."""
+    out = _example("torch_serve_lm").main(["--device", "cpu", "--requests",
+                                           "5", "--max-batch", "2",
+                                           "--new-tokens", "6"])
+    text = capsys.readouterr().out
+    assert "[serve] 5 requests, 30 tokens" in text
+    rng = np.random.default_rng(0)
+    bundle, model = out["bundle"], out["model"]
+    for rid in range(5):
+        prompt = rng.integers(1, 4096, size=rng.integers(4, 12)).tolist()
+        assert out["prompts"][rid] == prompt
+        seq = list(prompt)
+        for tok in out["completions"][rid]:
+            logits = bundle.forward(model, {"tokens": torch.tensor([seq])})
+            assert tok == int(logits[0, -1].argmax())
+            seq.append(tok)

@@ -57,11 +57,18 @@ import repro_torch.train.data
 import repro_torch.train.loop
 import repro_torch.models.xlstm
 import repro_torch.launch.train
+import repro_torch.launch.mesh
+import repro_torch.parallel
+import repro_torch.parallel.hints
+import repro_torch.parallel.sharding
+import repro_torch.parallel.compression
+import repro_torch.parallel.pipeline
+import repro_torch.parallel.moe_ep
 import importlib.util, os
 examples = os.path.join(os.path.dirname(repro_torch.__file__), "..", "..",
                         "examples")
 for name in ("torch_quickstart", "torch_lbm_simulation", "torch_dse_explore",
-             "torch_train_lm"):
+             "torch_train_lm", "torch_serve_lm"):
     spec = importlib.util.spec_from_file_location(
         name, os.path.join(examples, name + ".py"))
     mod = importlib.util.module_from_spec(spec)
@@ -143,6 +150,20 @@ state = init_state(opt, param_tree(model))
 batch = {"tokens": torch.tensor([[1, 2, 3]]), "labels": torch.tensor([[2, 3, 4]])}
 _, state, metrics = bundle.make_train_step(opt)(model, state, batch)
 assert int(state["step"]) == 1 and bool(torch.isfinite(metrics["loss"]))
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.parallel.hints import sharding_hints
+from repro_torch.parallel.pipeline import pipelined_forward, stack_stage_params
+mesh = make_mesh((2, 4), ("data", "model"), ["cpu"] * 8)
+moe_cfg = get_arch("mixtral-8x7b").reduced()
+bundle = registry.build(moe_cfg, device="cpu")
+model = bundle.init(torch.Generator().manual_seed(0))
+with sharding_hints(ep="model", ep_size=4, dp=("data",), dp_size=2, a2a=mesh):
+    nxt = bundle.make_prefill_step()(model, {"tokens": torch.ones((2, 4), dtype=torch.int64)})
+assert nxt.shape == (2, 512) and bool(torch.isfinite(nxt).all())
+run = pipelined_forward(make_mesh((2,), ("stage",), ["cpu"] * 2),
+                        lambda w, x: x @ w[0])
+assert run(stack_stage_params(torch.eye(3)[None].repeat(2, 1, 1), 2),
+           torch.ones(3, 1, 3)).equal(torch.ones(3, 1, 3))
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 assert not bad, bad
 print("ok")

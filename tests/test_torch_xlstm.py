@@ -82,7 +82,11 @@ def _tokens(seed, b, s, vocab=97):
 
 
 def _t(x):
-    return torch.from_numpy(np.asarray(x))
+    """A tensor of its own copy of ``x``: the decode steps write their
+    state in place, and a JAX array made from the same numpy buffer may
+    share its memory (``jnp.asarray`` aliases an aligned buffer on the
+    CPU)."""
+    return torch.from_numpy(np.array(x))
 
 
 def test_pattern_and_num_params():
