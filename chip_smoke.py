@@ -137,6 +137,17 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    gradients and ``compressed_psum``: ``none`` bitwise the f32 mean of
    ``make_train_step(num_microbatches=2)``, int8 within its bound, top-k
    ``deq + residual == x``, the payloads;
+12. the dry run against the card (docs/port.md §dryrun), after phase 11:
+   ``launch/dryrun.py`` traces a step on the ``meta`` device; (a) Qwen3-8B's
+   4x2048 prefill on a 1x1 mesh: its argument bytes within ``ARGS_RTOL``
+   of what the card allocates for the model and the batch, its flops
+   equal to the ``CostMode`` count of the same prefill run on the card
+   with plain attention, its peak temporaries beside the card's, and
+   phase 6's kernel prefill in TFLOP/s by that count and against the HBM
+   proxy; (b) the same for phase 11b's training step (8 layers, 2x2048,
+   the AdamW moments in the arguments, the remat recompute in the
+   flops); (c) ``run_cell`` on ``DRYRUN_CELLS`` on the 16x16 production
+   mesh, each cell's per-rank bytes beside the card's memory;
 5. at the main-path shapes, each kernel held to its plain version again
    and timed (CUDA events) against its bound, its plain version and, for
    diffusion and flash attention, one PyTorch call (``library_ms``); the
@@ -2476,7 +2487,147 @@ def dense_training() -> dict:
     torch.cuda.empty_cache()
     phase(f"  phase 11b: {time.perf_counter() - t11:.1f} s")
     return {"qkv": (q, k, v), "window": 0, "launches": n_train,
-            "errs": [err]}
+            "errs": [err], "step_s": times[-1]}
+
+
+#: Argument bytes of the dry run against what the card allocates for the
+#: same tensors: the caching allocator rounds each block up (512 B).
+ARGS_RTOL = 5e-3
+#: Phase 12(c): the production cells traced on the 16x16 meta mesh.
+DRYRUN_CELLS = (("qwen3-8b", "prefill_32k"), ("qwen3-8b", "decode_32k"),
+                ("mixtral-8x7b", "train_4k"))
+
+
+def dryrun_vs_card(card_line: str, prefill_wall: float,
+                   step_s: float) -> None:
+    """Phase 12: the dry run (``launch/dryrun.py``, traced on ``meta``)
+    against the card. (a) Qwen3-8B's prefill at phase 6's 4x2048 on a 1x1
+    mesh: the argument bytes within ``ARGS_RTOL`` of what the card
+    allocates for the model and the batch, the peak temporaries beside
+    the plain prefill's, the flops equal to the ``CostMode`` count of the
+    same prefill run on the card with plain attention, and phase 6's
+    kernel prefill's TFLOP/s by that count; (b) the same for phase 11b's
+    training step (8 layers, 2x2048, AdamW moments included), whose flops
+    count the remat recompute, the card's step unrolled against the dry
+    run's; (c) the ``DRYRUN_CELLS`` through ``run_cell`` on the 16x16
+    production mesh, per-rank bytes beside the card's memory."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.interop import param_tree
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_cost import CostMode
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import registry
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+
+    t12 = time.perf_counter()
+    hbm, _, bf16 = card_peaks(torch.cuda.get_device_name(0))
+    one = Mesh((1, 1), ("data", "model"), [torch.device("meta")])
+    dev = "cuda"
+    phase("phase 12: the dry run against the card")
+    phase(f"  {card_line}")
+
+    def placed(cfg, shape, art, build_args):
+        """The model (zeros: its values do not change a count) and the
+        batch of ``shape`` placed on the card, and whatever
+        ``build_args`` adds, against the dry run's argument bytes."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        model = Transformer(cfg, device=dev)
+        for p in model.parameters():
+            p.zero_()
+        batch = registry.make_batch(cfg, shape, 0, dev)
+        extra = build_args(model)
+        grown = torch.cuda.memory_allocated() - base
+        want = art["memory"]["argument_size_in_bytes"]
+        rel = abs(grown - want) / want
+        phase(f"    argument bytes: dry run {want:,} vs allocated "
+              f"{grown:,} on the card (rel {rel:.2e} <= {ARGS_RTOL})")
+        if not rel <= ARGS_RTOL:
+            fail(f"phase 12 {cfg.name}: argument bytes {want} vs "
+                 f"allocated {grown}")
+        return model, batch, extra
+
+    def counted(art, label, fn):
+        """``fn()`` on the card under a CostMode: its flops equal to the
+        dry run's, its peak allocation beside the dry run's temporaries."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        with CostMode() as mode:
+            fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        want = art["hlo_cost"]["global"]["flops"]
+        temp = art["memory"]["temp_size_in_bytes"]
+        phase(f"    flops: dry run on meta {want:.6e}, the card's {label} "
+              f"under CostMode {mode.flops:.6e} "
+              f"({'equal' if mode.flops == want else 'DIFFERENT'}); peak "
+              f"temporaries: dry run {temp / 2**30:.2f} GiB, the card "
+              f"{peak / 2**30:.2f} GiB above the arguments (ratio "
+              f"{temp / peak:.3f}); dry run traced in {art['trace_s']} s")
+        if mode.flops != want:
+            fail(f"phase 12 {label}: flops {mode.flops} on the card != "
+                 f"{want} on meta")
+
+    # (a) the prefill
+    cfg = get_arch("qwen3-8b")
+    b, s = PREFILL
+    shape = ShapeConfig("prefill", s, b, "prefill")
+    art = dryrun.dry_run(cfg, shape, one)
+    phase(f"  (a) {cfg.name} prefill {b}x{s} on a 1x1 mesh")
+    model, batch, _ = placed(cfg, shape, art, lambda m: None)
+    plain = registry.build(cfg, device=dev, use_kernel=False)
+    prefill = plain.make_prefill_step()
+    counted(art, "plain prefill", lambda: prefill(model, batch))
+    flops, proxy = art["hlo_cost"]["flops"], art["hlo_cost"]["hbm_proxy_bytes"]
+    phase(f"    phase 6's kernel prefill {prefill_wall * 1e3:.1f} ms: "
+          f"{flops / prefill_wall / 1e12:.1f} TFLOP/s by the dry run's "
+          f"count, {flops / prefill_wall / bf16:.3f} of {bf16 / 1e12:.0f} "
+          f"bf16; HBM proxy {proxy / 1e9:.1f} GB / {hbm / 1e12:.2f} TB/s = "
+          f"{proxy / hbm * 1e3:.1f} ms against the wall")
+    del model, batch, plain, prefill
+
+    # (b) the training step
+    cfg = dataclasses.replace(get_arch("qwen3-8b"),
+                              n_layers=QWEN_TRAIN_LAYERS)
+    b, s = TRAIN_DENSE
+    shape = ShapeConfig("train", s, b, "train")
+    art = dryrun.dry_run(cfg, shape, one, num_microbatches=1)
+    phase(f"  (b) {cfg.name} at {cfg.n_layers} layers, train {b}x{s} on a "
+          "1x1 mesh (AdamW moments f32)")
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=DENSE_STEPS)
+    model, batch, opt = placed(
+        cfg, shape, art, lambda m: init_state(opt_cfg, param_tree(m)))
+    step = registry.build(cfg, device=dev, use_kernel=False).make_train_step(
+        opt_cfg)
+    counted(art, "plain train step", lambda: step(model, opt, batch))
+    flops = art["hlo_cost"]["flops"]
+    phase(f"    phase 11b's kernel step {step_s * 1e3:.1f} ms: "
+          f"{flops / step_s / 1e12:.1f} TFLOP/s by the dry run's count "
+          f"(remat recompute included), {flops / step_s / bf16:.3f} of "
+          f"{bf16 / 1e12:.0f} bf16")
+    del model, batch, opt, step
+    torch.cuda.empty_cache()
+
+    # (c) production cells on the meta mesh
+    total = torch.cuda.get_device_properties(0).total_memory
+    for arch, shape_name in DRYRUN_CELLS:
+        art = dryrun.run_cell(arch, shape_name, multi_pod=False, save=False)
+        mem, cost = art["memory"], art["hlo_cost"]
+        phase(f"  (c) {arch} x {shape_name} x {art['mesh']}: per rank "
+              f"args {mem['argument_size_in_bytes'] / 2**30:.2f} GiB + temp "
+              f"{mem['temp_size_in_bytes'] / 2**30:.2f} GiB beside the "
+              f"card's {total / 2**30:.2f} GiB; flops/dev "
+              f"{cost['flops']:.3e}, coll/dev "
+              f"{cost['coll_bytes'] / 2**30:.3f} GiB; traced in "
+              f"{art['trace_s']} s")
+    phase(f"  phase 12: {time.perf_counter() - t12:.1f} s")
 
 
 def sdpa_ms(q, k, v, window: int, causal: bool = True) -> tuple[float, str]:
@@ -3615,6 +3766,9 @@ def main() -> None:
     ssm_training()
     dp_compression()
     train = dense_training()
+
+    # ---- 12. the dry run against the card ----------------------------
+    dryrun_vs_card(card_line, lm[PREFILL]["wall"], train["step_s"])
 
     # ---- 5. timing at the main-path shapes ----------------------------
     phase("phase 5: timing (CUDA events) and kernel vs plain at the "

@@ -31,6 +31,7 @@ from repro_torch.interop import (
     param_tree,
     resolve_device,
 )
+from repro_torch.launch import hlo_cost
 
 from . import transformer as tfm
 from . import xlstm as xl
@@ -233,12 +234,17 @@ class ModelBundle:
                 acc = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
                        for p in parts]
                 loss = torch.zeros((), dtype=torch.float32, device=dev)
-                for i in range(nm):
-                    mb = {k: v[i * bm:(i + 1) * bm] for k, v in batch.items()}
-                    li = self.loss(model, mb)
-                    for a, g in zip(acc, _grads(li, parts)):
-                        a.add_(g)
-                    loss = loss + li.detach()
+                # one microbatch costed nm times under the dry run's
+                # folding CostMode (launch/hlo_cost.py), else all nm
+                runs, region = hlo_cost.loop(nm)
+                with region:
+                    for i in range(runs):
+                        mb = {k: v[i * bm:(i + 1) * bm]
+                              for k, v in batch.items()}
+                        li = self.loss(model, mb)
+                        for a, g in zip(acc, _grads(li, parts)):
+                            a.add_(g)
+                        loss = loss + li.detach()
                 loss = loss / nm
                 flat = [a.div_(nm) for a in acc]
             grads = tree_unflatten(treedef, _regroup(leaves, flat))
@@ -272,8 +278,22 @@ def build(cfg: ArchConfig, *, device="cuda",
     flash kernel on a CUDA device, the chunked version on the CPU). An
     ``"audio"`` bundle's ``decode`` takes ``enc_states`` where the others
     take ``rows``; the serving engine refuses it (docs/port.md §encdec).
-    ``ValueError`` for an unknown family, as the reference raises."""
+    ``ValueError`` for an unknown family, as the reference raises. On
+    ``"meta"`` the bundle's ``init`` builds the module and draws nothing
+    (its generator is ignored): the dry run's shapes
+    (docs/port.md §dryrun)."""
     dev = resolve_device(device)
+    bundle = _build(cfg, dev, use_kernel)
+    if dev.type == "meta":
+        # shapes only, the counterpart of jax.eval_shape(bundle.init, ...):
+        # the module's parameters are meta tensors and nothing is drawn
+        cls = {"hybrid": zb.Zamba2, "ssm": XLSTM}.get(cfg.family,
+                                                      tfm.Transformer)
+        bundle.init = lambda generator=None: cls(cfg, device=dev)
+    return bundle
+
+
+def _build(cfg: ArchConfig, dev: torch.device, use_kernel) -> ModelBundle:
     fam = cfg.family
     if fam in ("dense", "moe", "vlm"):
         def fwd(model, batch):

@@ -30,10 +30,11 @@ import torch
 from torch import nn
 
 from repro_torch.interop import resolve_device
+from repro_torch.parallel.hints import hint
 
 from .layers import _param, decode_attention, mlp_apply, normal_, rms_norm
 from .mamba2 import Mamba2, mamba2_apply, mamba2_decode, mamba2_state_init
-from .transformer import DecoderLayer
+from .transformer import DecoderLayer, _remat
 
 
 def schedule(cfg) -> tuple[int, int, int]:
@@ -84,19 +85,39 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
     return model
 
 
+def _group(layers, shared, x, cfg, positions, use_kernel):
+    """Mamba2 ``layers`` in turn, then the ``shared`` block (none for a
+    tail layer): one remat unit of the reference's scans."""
+    for layer in layers:
+        x = x + mamba2_apply(layer, x, cfg)
+    if shared is not None:
+        x = shared(x, cfg, positions, causal=True, use_kernel=use_kernel)
+    return x
+
+
 def logits(model: Zamba2, tokens, *, use_kernel: bool | None = None):
     """-> logits (B, S, vocab). The shared block's attention goes through
     the dispatcher (``use_kernel`` as in ``ops.attention``). Records a
-    graph when the parameters require grad (the loss path)."""
+    graph when the parameters require grad (the loss path).
+
+    With grad on, each group (its ``g`` Mamba2 layers, then the shared
+    block) and each tail layer runs under ``torch.utils.checkpoint`` with
+    nothing saved, as the reference's ``jax.checkpoint(group_body,
+    policy=nothing_saveable)`` and ``jax.checkpoint(tail_body)``: the
+    backward runs its forward again. ``hint("remat") == "off"`` keeps
+    every activation instead (the port's own, as in ``transformer``)."""
     cfg = model.cfg
     n_groups, g, _ = schedule(cfg)
     x = model.embed[tokens]
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for i, layer in enumerate(model.layers):
-        x = x + mamba2_apply(layer, x, cfg)
-        if i < n_groups * g and i % g == g - 1:
-            x = model.shared(x, cfg, positions, causal=True,
-                             use_kernel=use_kernel)
+    policy = "off" if hint("remat") == "off" else "none"
+    layers = list(model.layers)
+    for i in range(n_groups):
+        x = _remat(_group, policy, layers[i * g:(i + 1) * g], model.shared,
+                   x, cfg, positions, use_kernel)
+    for layer in layers[n_groups * g:]:
+        x = _remat(_group, policy, [layer], None, x, cfg, positions,
+                   use_kernel)
     x = rms_norm(x, model.ln_f)
     return x @ model.head()
 

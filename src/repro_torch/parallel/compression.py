@@ -12,7 +12,9 @@ step, so compression error accumulates to zero over time):
 ``shard_map`` body with ``lax.psum``: it takes one gradient tree per rank
 of the data axis, moves each rank's payload to rank 0's device (a copy
 between cards; on one card the reduction reads each rank's buffer), sums
-it there in rank order and divides by the count.
+it there in rank order and divides by the count. Each leaf's payloads,
+summed over the ranks, go to ``launch/hlo_cost.py``'s
+``record_collective``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.launch.hlo_cost import record_collective
 from repro_torch.train.checkpoint import tree_flatten, tree_map, tree_unflatten
 
 
@@ -81,22 +84,29 @@ def compressed_psum(rank_grads: list, rank_residuals: list,
         dev = flat_g[0][j].device
         total = torch.zeros(flat_g[0][j].shape, dtype=torch.float32,
                             device=dev)
+        wire = [0, 0]  # the payloads' bytes and elements, all ranks
         for i in range(n):
             g, r = flat_g[i][j], flat_r[i][j]
             if cfg.scheme == "none":
                 total.add_(g.to(dev).float())
                 new_res[i].append(r)
+                payload = (g,)
             elif cfg.scheme == "int8_ef":
                 (q, scale), _, nr = compress_int8(g, r)
                 # wire payload is (int8 q, f32 scale)
                 total.add_(q.to(dev).float() * scale.to(dev))
                 new_res[i].append(nr)
+                payload = (q, scale)
             elif cfg.scheme == "topk_ef":
-                _, deq, nr = compress_topk(g, r, cfg.topk_frac)
+                payload, deq, nr = compress_topk(g, r, cfg.topk_frac)
                 total.add_(deq.to(dev))
                 new_res[i].append(nr)
             else:
                 raise ValueError(cfg.scheme)
+            for x in payload:
+                wire[0] += x.numel() * x.element_size()
+                wire[1] += x.numel()
+        record_collective("all-reduce", *wire)
         means.append(total / n)
     return (tree_unflatten(treedef, means),
             [tree_unflatten(treedef, res) for res in new_res])

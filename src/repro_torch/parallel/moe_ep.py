@@ -16,10 +16,14 @@ Wire bytes per rank per layer and direction: ``E · cap · d`` in the
 model dtype, which is ``tokens_loc · top_k · d`` times the capacity
 factor, the minimum for token-choice routing up to the capacity's slack.
 
-Each call leaves its counts in ``moe_ep_apply.last``: the dropped
-assignments per rank (a tensor on rank 0's device), the bytes each
-all-to-all copies (all of them, and those between distinct ranks),
-``cap`` and ``n_loc``.
+Each all-to-all and each FSDP gather reports its bytes, summed over the
+ranks, to ``launch/hlo_cost.py``'s ``record_collective`` (the dry run's
+explicit collectives), and so does each transpose in the backward (the
+all-to-all of the gradients, the reduce-scatter of a gathered weight's
+gradient) when autograd computes it. Each call leaves its counts in
+``moe_ep_apply.last``: the dropped assignments per rank (a tensor on rank
+0's device), the bytes each all-to-all copies (all of them, and those
+between distinct ranks), ``cap`` and ``n_loc``.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ import itertools
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.launch.hlo_cost import record_collective
 
 from .sharding import P, shard, unshard
 
@@ -41,6 +47,17 @@ def _group(mesh, rank: int, axes) -> list:
     for idx in itertools.product(*(range(mesh.shape[a]) for a in axes)):
         out.append(mesh.rank({**base, **dict(zip(axes, idx))}))
     return out
+
+
+def _report(kind: str, t, nbytes: int, nelems: int, back: str,
+            back_share: int = 1) -> None:
+    """Report a collective of ``kind`` that produced ``t``, and, when a
+    gradient will flow through ``t``, its transpose ``back`` (moving a
+    ``back_share``-th of the bytes) once that gradient is computed."""
+    record_collective(kind, nbytes, nelems)
+    if t.requires_grad:
+        t.register_hook(lambda g: record_collective(
+            back, nbytes // back_share, nelems // back_share))
 
 
 def moe_ep_apply(xt, idx, gates, w_gate, w_up, w_down, *, mesh, dp_axes,
@@ -109,6 +126,8 @@ def moe_ep_apply(xt, idx, gates, w_gate, w_up, w_down, *, mesh, dp_axes,
                 moved[0] += piece.numel() * piece.element_size()
                 moved[1] += (src != r) * piece.numel() * piece.element_size()
             out.append(recv)
+        _report("all-to-all", out[0], moved[0], moved[0] // xt.itemsize,
+                "all-to-all")
         return out, moved
 
     # token payload crosses the wire exactly once each way; recv is laid
@@ -124,6 +143,11 @@ def moe_ep_apply(xt, idx, gates, w_gate, w_up, w_down, *, mesh, dp_axes,
             peers = _group(mesh, r, fsdp)
             wgr, wur, wdr = (torch.cat([w[p].to(devs[r]) for p in peers],
                                        dim=1) for w in (wg, wu, wd))
+            if r == 0:  # one gather per weight; every rank's is this shape
+                for w in (wgr, wur, wdr):
+                    k = w.numel() * mesh.size
+                    _report("all-gather", w, k * w.element_size(), k,
+                            "reduce-scatter", len(peers))
         xr = recvs[r].view(e_loc, ep * cap, d)
         h = F.silu(torch.bmm(xr, wgr)) * torch.bmm(xr, wur)
         ys.append(torch.bmm(h, wdr).view(e_loc, ep, cap, d))

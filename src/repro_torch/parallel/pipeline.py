@@ -13,7 +13,8 @@ device for tick ``t + 1`` (the reference's ``ppermute``; a copy on the
 same card when the stage mesh repeats a device). The reference computes
 on zeros at the fill and drain ticks and never stores the result; here an
 idle (stage, tick) launches nothing, and the output is the same
-(docs/port.md §parallel).
+(docs/port.md §parallel). Each tick's hand-off bytes go to
+``launch/hlo_cost.py``'s ``record_collective``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from typing import Callable
 
 import torch
 from torch import nn
+
+from repro_torch.launch.hlo_cost import record_collective
 
 
 def pipeline_utilization(n_micro: int, n_stages: int) -> float:
@@ -66,7 +69,7 @@ def pipelined_forward(mesh, stage_fn: Callable, stage_axis: str = "stage"):
         inbox: dict = {}  # stage -> its input for this tick
         handoff, calls = [], 0
         for t in range(m + n_stages - 1):
-            nxt, moved = {}, 0
+            nxt, moved, elems = {}, 0, 0
             for i in range(n_stages):
                 j = t - i
                 if not 0 <= j < m:
@@ -83,8 +86,11 @@ def pipelined_forward(mesh, stage_fn: Callable, stage_axis: str = "stage"):
                     nxt[i + 1] = torch.empty_like(
                         y, device=devs[i + 1]).copy_(y)
                     moved += y.numel() * y.element_size()
+                    elems += y.numel()
             inbox = nxt
             handoff.append(moved)
+            if moved:  # the reference's ppermute of this tick
+                record_collective("collective-permute", moved, elems)
         run.last = {"ticks": m + n_stages - 1, "stage_calls": calls,
                     "handoff_bytes": handoff}
         return out

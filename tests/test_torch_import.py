@@ -64,6 +64,8 @@ import repro_torch.parallel.sharding
 import repro_torch.parallel.compression
 import repro_torch.parallel.pipeline
 import repro_torch.parallel.moe_ep
+import repro_torch.launch.hlo_cost
+import repro_torch.launch.dryrun
 import importlib.util, os
 examples = os.path.join(os.path.dirname(repro_torch.__file__), "..", "..",
                         "examples")
@@ -130,6 +132,13 @@ for name in ("mixtral-8x7b", "kimi-k2-1t-a32b"):
     nxt = bundle.make_prefill_step()(model,
                                      {"tokens": torch.tensor([[1, 2, 3]])})
     assert nxt.shape == (1, 512) and bool(torch.isfinite(nxt).all())
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import Mesh
+art = dryrun.dry_run(get_arch("qwen3-8b").reduced(),
+                     ShapeConfig("t", 16, 2, "train"),
+                     Mesh((1, 1), ("data", "model"), [torch.device("meta")]),
+                     num_microbatches=2)
+assert art["hlo_cost"]["flops"] > 0 and art["hlo_cost"]["n_whiles"] == 1
 import tempfile
 from repro_torch.train import checkpoint as ckpt
 with tempfile.TemporaryDirectory() as d:
