@@ -66,7 +66,9 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    Mamba2 layers, 6.75 B parameters, bf16), 13 flash launches (one per
    site of the shared block), logits held to the plain-attention twin;
    (c) the engine at full width; (d) 8 layers in f32 (one group and two
-   tail layers);
+   tail layers); (e) the 4x2048 prefill at full depth in f32 (25 GiB of
+   weights; the simple kernel's f32 instantiation at D 112) against plain
+   attention, the logits within ``ENC_DEC_REL_L2`` (no rounding floor);
 6m. MoE serving (docs/port.md §moe), Mixtral-8x7B at full width and 16
    of its 32 layers, bf16: (a) the kernel at both prefills' launch shapes
    with the window of 4096; (b) the prefills 4x2048 and 1x8192 (where
@@ -105,6 +107,13 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    of 6m at its 1x4096 prefill (2,880 seeded frontend embeds and 1,216
    tokens from ``make_batch``), D 128 with GQA 56:8; (c) the engine on
    text prompts; (d) 4 layers in f32;
+6d. the dense configs beside Qwen3-8B (docs/port.md §dense-card),
+   granite-34b (MQA 48:1, GELU), nemotron-4-15b (GQA 48:8, squared ReLU,
+   256,000 tokens) and qwen2.5-32b (GQA 40:8, qkv biases), each at full
+   width in bf16 and the deepest depth that fits beside
+   ``DENSE_HEADROOM`` and its logits (all of each, printed): phase 6's
+   (a)-(c) at the 4x2048 prefill (groups 48, 6 and 5 at D 128) and (d) at
+   2 layers in f32; each model freed before the next;
 6x. SSM serving (docs/port.md §ssm), xLSTM-125m at full width and depth
    (12 blocks, sLSTM at 5 and 11), bf16: (a) the prefill 4x2048 (chunk
    128) with its device activities per prefill (the sLSTM blocks' Python
@@ -136,7 +145,16 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    8x2048 batch over 2 data ranks of ``["cuda:0"] * 2``, each rank's
    gradients and ``compressed_psum``: ``none`` bitwise the f32 mean of
    ``make_train_step(num_microbatches=2)``, int8 within its bound, top-k
-   ``deq + residual == x``, the payloads;
+   ``deq + residual == x``, the payloads; (d) the other families
+   (``TRAIN_FAMILIES``: Mixtral-8x7B at 2 layers, Zamba2-7B at 12 with its
+   two shared-block sites, whisper-medium whole at 8 clips of 1500 frames
+   and 375 tokens, LLaVA-NeXT-34B at 4 with 2,880 embeds and 1,216
+   tokens), bf16 parameters and f32 moments: (b)'s gradient gate with the
+   flash launches forward and backward (remat ``"none"``), the floor's
+   noise keyed to each output so that the recompute moves it alike,
+   Mixtral's experts held to the kernel run's; 3 steps of
+   ``make_train_step`` (losses, step ms, tokens/s, peak memory, launches
+   by shape); each launch shape of the steps against its plain version;
 12. the dry run against the card (docs/port.md §dryrun), after phase 11:
    ``launch/dryrun.py`` traces a step on the ``meta`` device; (a) Qwen3-8B's
    4x2048 prefill on a 1x1 mesh: its argument bytes within ``ARGS_RTOL``
@@ -155,7 +173,8 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    the LM phases' launch shapes (D 128 causal, D 112 MHA, Mixtral's D 128
    at 1x8192 with the window binding, Kimi's D 112 with GQA 8,
    whisper's four at D 64, LLaVA's D 128 with GQA 7, the Qwen3-8B
-   training step's D 128 with GQA 4 at B 2), through the
+   training step's D 128 with GQA 4 at B 2, phase 6d's groups 48, 6 and
+   5, and phase 11d's training launch shapes), through the
    dispatcher, on contiguous q/k/v and on the head-split views, with TFLOP/s,
    the share of its bound (the (query, key) pairs the mask keeps) and
    ``scaled_dot_product_attention`` (the window as a boolean mask, on the
@@ -260,12 +279,14 @@ def phase(msg: str) -> None:
     print(msg, flush=True)
 
 
-def _row_chunks(a, b, rows: int = 1024):
-    """``a`` and ``b`` as f64 pieces of at most ``rows`` rows of their last
-    dimension, so that a comparison of two logits tensors never holds a
-    whole f64 copy."""
+def _row_chunks(a, b, elems: int = 2**26):
+    """``a`` and ``b`` as f64 pieces of at most ``elems`` elements (whole
+    rows of their last dimension, at least one), so that a comparison of
+    two logits tensors never holds a whole f64 copy: 0.5 GiB a piece,
+    whatever the vocabulary."""
     a = a.reshape(-1, a.shape[-1]) if a.dim() else a.reshape(1, 1)
     b = b.reshape(-1, b.shape[-1]) if b.dim() else b.reshape(1, 1)
+    rows = max(1, elems // a.shape[-1])
     for x, y in zip(a.split(rows), b.split(rows)):
         yield x.double(), y.double()
 
@@ -468,6 +489,21 @@ DP_RANKS, TOPK_FRAC = 2, 0.01
 #: model's own bf16 rounding moves a leaf more, FLOOR_FACTOR x that
 #: floor, measured in the same run.
 GRAD_REL_L2 = 5e-2
+#: Phase 6d: the dense configs served at full width, each at the deepest
+#: depth that fits beside ``DENSE_HEADROOM`` and its prefill's three
+#: logits tensors (nemotron-4-15b's (4, 2048, 256000) bf16 are 4.2 GB
+#: each): the prefill's activations and the plain twin's f32 score chunks.
+DENSE_SERVING = ("granite-34b", "nemotron-4-15b", "qwen2.5-32b")
+DENSE_HEADROOM = 6 * 2**30
+#: Phase 11d: the other families trained on one card, (config, layers
+#: kept or None for all, batch x positions a step): Mixtral-8x7B's MoE
+#: dispatch, Zamba2-7B's two shared-block sites under its group remat,
+#: whisper-medium whole at its prefill shape (frames x 1500, 375 decoder
+#: tokens), LLaVA-NeXT-34B's 2,880 embeds and 1,216 tokens (GQA 7).
+TRAIN_FAMILIES = (("mixtral-8x7b", 2, TRAIN_DENSE),
+                  ("zamba2-7b", 12, TRAIN_DENSE),
+                  ("whisper-medium", None, WHISPER),
+                  ("llava-next-34b", 4, VLM_PREFILL))
 
 
 #: ptxas spill bytes allowed per kernel instantiation, by stream library:
@@ -1047,6 +1083,67 @@ def rounding_noise(seed: int):
     return moved
 
 
+def keyed_noise(seed: int):
+    """:func:`rounding_noise` with ``u`` a hash of each output element's
+    index, its bits and ``seed`` instead of a generator's next draw: the
+    same output is moved the same way however often it is computed, so a
+    backward that runs a site's forward again (remat) sees the forward's
+    noise."""
+    import torch
+
+    def moved(orig, q, k, v, **kw):
+        o = orig(q, k, v, **kw)
+        # a 32-bit mix in int64, masked before each product so that
+        # nothing overflows
+        m32 = 0xFFFFFFFF
+        bits = o.float().view(torch.int32).long() & m32
+        idx = torch.arange(o.numel(), device=o.device).view(o.shape)
+        x = ((idx * 0x9E3779B1) & m32) ^ bits ^ (seed * 0x2545F491)
+        x = ((x ^ (x >> 16)) * 0x7FEB352D) & m32
+        x = ((x ^ (x >> 15)) * 0x5BD1E995) & m32
+        x = x ^ (x >> 16)
+        u = (x & 0xFFFFFF).float() / 2.0 ** 23 - 1
+        return (o.float() * (1 + u * 2.0 ** -8)).to(o.dtype)
+
+    return moved
+
+
+@contextlib.contextmanager
+def routing_fixed(table: dict, flips: list):
+    """Hold every MoE layer's top-k experts to ``table`` (the router's
+    module -> ``(N, k)`` experts) while the block runs: a layer not in it
+    yet records its own; one in it keeps the recorded experts, its gates
+    recomputed from its own router logits (so the router's gradient flows
+    as in :func:`moe_router`), and appends to ``flips`` how many of its
+    assignments its own top-k would have changed. A bf16 tie can flip an
+    expert between two runs that differ at the rounding level; held fixed,
+    the two gradients differ only where the runs do."""
+    import torch
+
+    from repro_torch.models import layers
+
+    orig = layers.moe_router
+
+    def fixed(p, xt, cfg):
+        # every call runs the same ops, the first too: remat's recompute
+        # must save what the forward saved
+        with torch.no_grad():
+            idx = orig(p, xt, cfg)[1]
+        want = table.setdefault(p, idx)
+        flips.append(int((idx.sort(-1).values != want.sort(-1).values)
+                         .sum()))
+        probs = torch.softmax(xt.float() @ p.router, dim=-1)
+        gates = probs.gather(-1, want)
+        return gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                   min=1e-9), want
+
+    layers.moe_router = fixed
+    try:
+        yield
+    finally:
+        layers.moe_router = orig
+
+
 def flash_vs_plain(d: int, g) -> list:
     """The flash kernel against its plain version at head dim ``d``: the
     reference's test matrix in f32 and bf16, and two block shapes, bitwise
@@ -1622,6 +1719,60 @@ def expert_parallel_prefill(cfg, bundle, model, out) -> dict:
     return {"launches": ep_launches}
 
 
+def hybrid_f32_prefill() -> None:
+    """Phase 6h(e): Zamba2-7B at full width and depth (81 layers, 13
+    shared-block sites) in f32, the ``PREFILL`` batch through the kernel
+    (the simple f32 instantiation at D 112) against the same model with
+    plain attention: the two round the same f32 operations in another
+    order, so the bf16 gate's rounding floor has no place here and the
+    logits are held at ``ENC_DEC_REL_L2`` (docs/port.md §hybrid)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+    )
+    from repro_torch.models import registry
+    from repro_torch.models.zamba2 import schedule
+
+    t0 = time.perf_counter()
+    dev = "cuda"
+    cfg = dataclasses.replace(get_arch("zamba2-7b"), dtype="float32")
+    bundle = registry.build(cfg, device=dev)
+    plain = registry.build(cfg, device=dev, use_kernel=False)
+    model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    b, s = PREFILL
+    batch = {"tokens": torch.randint(
+        1, cfg.vocab, PREFILL, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(1))}
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() / 2**30
+    flash_attention.launches = 0
+    t1 = time.perf_counter()
+    got = bundle.forward(model, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = flash_attention.launches
+    if launches != schedule(cfg)[0]:
+        fail(f"phase 6h f32: {launches} flash launches, expected "
+             f"{schedule(cfg)[0]}")
+    want = plain.forward(model, batch)
+    rel = rel_l2(got, want)
+    phase(f"  f32 {cfg.n_layers} layers ({weights:.2f} GiB of weights), "
+          f"prefill {b}x{s} through the kernel ({launches} launches, "
+          f"{wall * 1e3:.1f} ms), logits vs plain attention, every "
+          f"position: rel L2 {rel:.3e} (<= {ENC_DEC_REL_L2}), max abs err "
+          f"{max_err(got, want):.3e}, argmax agrees at "
+          f"{int((got.argmax(-1) == want.argmax(-1)).sum())}/{b * s}")
+    if not torch.isfinite(got).all() or not rel <= ENC_DEC_REL_L2:
+        fail(f"phase 6h f32 prefill vs plain attention: rel L2 {rel}")
+    del model, bundle, plain, got, want
+    torch.cuda.empty_cache()
+    phase(f"  phase 6h f32: {time.perf_counter() - t0:.1f} s")
+
+
 def moe_serving():
     """Phases 6m (Mixtral-8x7B) and 6k (Kimi K2), the MoE family at full
     width and cut depth, bf16, seeded weights built on the card: the
@@ -1817,26 +1968,54 @@ def vlm_serving():
     (GQA 7), (b) the prefill of 2,880 frontend embeds and 1,216 tokens
     through ``make_batch``, (c) the engine on text prompts, (d) 4 layers
     in f32 (docs/port.md §vlm). Returns phase 5's numbers."""
+    from repro_torch.configs import get_arch
+
+    cfg = depth_that_fits(get_arch("llava-next-34b"), "phase 6v",
+                          VLM_HEADROOM)
+    return lm_serving(cfg, "phase 6v", f32_layers=4,
+                      prefills=(VLM_PREFILL,), matrix=False)
+
+
+def depth_that_fits(cfg, label: str, headroom: int):
+    """``cfg`` at the deepest depth of its layers whose bf16 weights fit
+    in the card's free memory beside ``headroom`` bytes, the choice and
+    any cut printed."""
     import dataclasses
 
     import torch
 
-    from repro_torch.configs import get_arch
-
-    cfg = get_arch("llava-next-34b")
     torch.cuda.empty_cache()
     free = torch.cuda.mem_get_info()[0]
     per_layer = 2 * cfg.layer_params()
     fixed = 2 * cfg.num_params() - cfg.n_layers * per_layer
-    depth = min(cfg.n_layers, int((free - fixed - VLM_HEADROOM)
-                                  // per_layer))
-    phase(f"phase 6v: {cfg.name} at {depth} of {cfg.n_layers} layers: "
+    depth = min(cfg.n_layers, int((free - fixed - headroom) // per_layer))
+    phase(f"{label}: {cfg.name} at {depth} of {cfg.n_layers} layers: "
           f"{free / 2**30:.2f} GiB free, the weights of all "
           f"{cfg.n_layers} {2 * cfg.num_params() / 2**30:.2f} GiB, "
-          f"{VLM_HEADROOM / 2**30:.0f} GiB kept for the prefill"
+          f"{headroom / 2**30:.0f} GiB kept for the prefill"
           + ("" if depth == cfg.n_layers else " (the depth is cut)"))
-    return lm_serving(dataclasses.replace(cfg, n_layers=depth), "phase 6v",
-                      f32_layers=4, prefills=(VLM_PREFILL,), matrix=False)
+    return dataclasses.replace(cfg, n_layers=depth)
+
+
+def dense_serving() -> dict:
+    """Phase 6d, the dense configs that differ from Qwen3-8B, at full
+    width in bf16, each at the deepest depth that fits (all of it:
+    granite-34b's 88 layers, MQA 48:1 with GELU; nemotron-4-15b's 32,
+    GQA 48:8, squared ReLU, 256,000 tokens; qwen2.5-32b's 64, GQA 40:8,
+    qkv biases): phase 6's four steps through :func:`lm_serving` at the
+    4x2048 prefill, (d) at 2 layers in f32. Each model is freed before
+    the next is built (docs/port.md §dense-card). Returns phase 5's
+    numbers by config."""
+    from repro_torch.configs import get_arch
+
+    out = {}
+    b, s = PREFILL
+    for name in DENSE_SERVING:
+        cfg = get_arch(name)
+        logits = 3 * b * s * cfg.vocab * 2
+        cfg = depth_that_fits(cfg, "phase 6d", DENSE_HEADROOM + logits)
+        out[name] = lm_serving(cfg, "phase 6d", f32_layers=2, matrix=False)
+    return out
 
 
 def kernel_launches(fn) -> int:
@@ -2290,26 +2469,164 @@ def dp_compression() -> None:
     phase(f"  phase 11c: {time.perf_counter() - t0:.1f} s")
 
 
+def train_check(cfg, bundle, plain, model, batches, rate, label: str, *,
+                sites: int, keyed: bool = False) -> dict:
+    """Step 0's gradients of ``model`` on ``batches(0)`` through the flash
+    kernel (``FlashAttentionFn``: ``sites`` launches forward and, under
+    the default remat ``"none"``, which runs each site's forward again in
+    the backward, as many there; the Function's own backward launches
+    nothing) against plain attention's, every leaf of the reference's
+    tree within the larger of ``GRAD_REL_L2`` and ``FLOOR_FACTOR`` x its
+    rounding floor (the plain twin's gradient with every attention output
+    moved at the rounding level: :func:`rounding_noise` with remat off,
+    or with ``keyed`` :func:`keyed_noise` under the default remat, whose
+    recompute moves each output as its forward did); an MoE model's
+    experts held to the kernel run's (:func:`routing_fixed`). Then
+    ``DENSE_STEPS`` steps of ``make_train_step`` on ``batches(i)``, the
+    launches of each counted, by launch shape too. ``rate(seconds)``
+    words a step's throughput. Returns the state for further steps and
+    phase 5's numbers."""
+    import torch
+
+    from repro_torch.interop import Stacked, param_tree
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+    )
+    from repro_torch.parallel.hints import sharding_hints
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+
+    tree = param_tree(model)
+    leaves = ckpt.tree_flatten(tree)[0]
+    names = leaf_names(tree)
+    groups = [x.parts if isinstance(x, Stacked) else [x] for x in leaves]
+    parts = [p for g in groups for p in g]
+    for p in parts:
+        p.requires_grad_(True)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in batches(0).items()}
+    routes, flips = {}, {}
+
+    def grads(which, noise=None, run="kernel"):
+        # the generator's noise run keeps its activations (remat off): a
+        # recompute would draw other noise than the forward's
+        ctx = contextlib.ExitStack()
+        if noise is not None:
+            ctx.enter_context(attention_through(
+                (keyed_noise if keyed else rounding_noise)(noise)))
+            if not keyed:
+                ctx.enter_context(sharding_hints(remat="off"))
+        if cfg.moe:
+            ctx.enter_context(routing_fixed(routes, flips.setdefault(run,
+                                                                      [])))
+        n0 = flash_attention.launches
+        with ctx:
+            loss = which.loss(model, batch)
+            n1 = flash_attention.launches
+            gs = torch.autograd.grad(loss, parts)
+        return float(loss.detach()), gs, (n1 - n0,
+                                          flash_attention.launches - n1)
+
+    def per_leaf(gs, ref):
+        """The relative L2 of ``gs`` against ``ref`` per leaf of the
+        reference's tree (a stacked leaf's parts together)."""
+        out, i = [], 0
+        for g in groups:
+            sums = [l2_sums(a, r) for a, r in zip(gs[i:i + len(g)],
+                                                  ref[i:i + len(g)])]
+            num, den = sum(x for x, _ in sums), sum(y for _, y in sums)
+            out.append(math.sqrt(num / den) if den else 0.0)
+            i += len(g)
+        return out
+
+    loss_k, gk, (fwd, bwd) = grads(bundle)
+    phase(f"  step 0 through the kernel: loss {loss_k:.4f}, flash launches "
+          f"{{'forward': {fwd}, 'backward': {bwd}}}")
+    if fwd != sites or bwd != sites:
+        fail(f"{label}: flash launched {fwd} times forward and {bwd} "
+             f"backward (expected {sites} each: remat recomputes every "
+             "site)")
+    loss_p, gp, _ = grads(plain, run="plain")
+    rels = per_leaf(gk, gp)
+    del gk
+    _, gn, _ = grads(plain, NOISE_SEEDS[0], run="noise")
+    floors = per_leaf(gn, gp)
+    del gn, gp
+    limits = [max(GRAD_REL_L2, FLOOR_FACTOR * f) for f in floors]
+    worst = max(range(len(rels)), key=lambda i: rels[i] / limits[i])
+    phase(f"  step 0 gradients, kernel vs plain attention, {len(rels)} "
+          f"leaves of the reference's tree: worst {names[worst]} rel L2 "
+          f"{rels[worst]:.3e} (<= {limits[worst]:.3e}: the larger of "
+          f"{GRAD_REL_L2} and {FLOOR_FACTOR} x its rounding floor "
+          f"{floors[worst]:.3e}); largest rel L2 {max(rels):.3e}, largest "
+          f"floor {max(floors):.3e}; loss {loss_k:.6f} vs plain "
+          f"{loss_p:.6f}")
+    if cfg.moe:
+        n = sum(x.numel() for x in routes.values())
+        phase(f"  top-k experts held to the kernel run's in {len(routes)} "
+              f"MoE layers ({n} assignments a pass, recomputes included): "
+              "assignments a run's own top-k would have changed: "
+              + ", ".join(f"{run} {sum(f)}" for run, f in flips.items()))
+    bad = [f"{names[i]}: {rels[i]:.3e} > {limits[i]:.3e}"
+           for i in range(len(rels)) if not rels[i] <= limits[i]]
+    if bad:
+        fail(f"{label} gradients vs plain attention: " + "; ".join(bad))
+    torch.cuda.empty_cache()
+
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=DENSE_STEPS)
+    opt = init_state(opt_cfg, tree)
+    step = bundle.make_train_step(opt_cfg)
+    del tree, leaves, groups, parts, batch
+    by_shape: dict = {}
+
+    def tally(orig, q, k, v, **kw):
+        n = flash_attention.launches
+        o = orig(q, k, v, **kw)
+        key = (q.shape[2], k.shape[2], kw["causal"])
+        by_shape[key] = by_shape.get(key, 0) + flash_attention.launches - n
+        return o
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches, times, losses = [], [], []
+    with attention_through(tally):
+        for i in range(DENSE_STEPS):
+            n0 = flash_attention.launches
+            t0 = time.perf_counter()
+            model, opt, metrics = step(model, opt, batches(i))
+            losses.append(float(metrics["loss"]))
+            times.append(time.perf_counter() - t0)
+            launches.append(flash_attention.launches - n0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    phase(f"  {DENSE_STEPS} steps of make_train_step (remat 'none', the "
+          "default): losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; step ms {', '.join(f'{t * 1e3:.1f}' for t in times)} "
+          f"({rate(times[-1])} at the last), peak memory "
+          f"{peak:.2f} GiB (weights, gradients and moments included); "
+          f"flash launches per step {launches}")
+    if not all(math.isfinite(x) for x in losses) or launches != [
+            2 * sites] * DENSE_STEPS:
+        fail(f"{label}: losses {losses}, launches {launches}")
+    return {"model": model, "opt": opt, "step": step, "times": times,
+            "launches": sum(launches), "by_shape": by_shape}
+
+
 def dense_training() -> dict:
     """Phase 11b: Qwen3-8B at full width and ``QWEN_TRAIN_LAYERS`` of its
     36 layers, bf16 parameters and gradients, f32 moments,
-    ``TRAIN_DENSE`` synthetic tokens: step 0's gradients through the
-    flash kernel (``FlashAttentionFn``: one launch per layer forward,
-    none backward) against plain attention's, every leaf of the
-    reference's tree within the larger of ``GRAD_REL_L2`` and
-    ``FLOOR_FACTOR`` x its rounding floor (the plain twin's gradient
-    with every attention output moved at the rounding level); then
-    ``DENSE_STEPS`` steps of ``make_train_step``, and at the training
-    shape the kernel's forward, the Function's backward (the plain
-    recompute) and ``scaled_dot_product_attention`` forward + backward
-    timed (docs/port.md §train). Returns phase 5's flash row."""
+    ``TRAIN_DENSE`` synthetic tokens: :func:`train_check` (8 launches a
+    pass, the generator's noise with remat off); then the steps under
+    each of the remat policies ``"sublayers"`` and ``"off"``, and at the
+    training shape the kernel's forward, the Function's backward (the
+    plain recompute) and ``scaled_dot_product_attention`` forward +
+    backward timed (docs/port.md §train). Returns phase 5's flash row."""
     import dataclasses
 
     import torch
     import torch.nn.functional as F
 
     from repro_torch.configs import get_arch
-    from repro_torch.interop import Stacked, param_tree
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention,
         flash_attention_plain,
@@ -2317,9 +2634,7 @@ def dense_training() -> dict:
     from repro_torch.kernels.flash_attention.ops import attention
     from repro_torch.models import registry
     from repro_torch.parallel.hints import sharding_hints
-    from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.data import DataConfig, SyntheticTokens
-    from repro_torch.train.optimizer import AdamWConfig, init_state
 
     t11 = time.perf_counter()
     cfg = dataclasses.replace(get_arch("qwen3-8b"),
@@ -2337,97 +2652,12 @@ def dense_training() -> dict:
           "weights")
     source = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=s,
                                         global_batch=b, seed=0))
-    tree = param_tree(model)
-    leaves = ckpt.tree_flatten(tree)[0]
-    names = leaf_names(tree)
-    groups = [x.parts if isinstance(x, Stacked) else [x] for x in leaves]
-    parts = [p for g in groups for p in g]
-    for p in parts:
-        p.requires_grad_(True)
-    batch = {k: torch.as_tensor(v, device=dev)
-             for k, v in source.batch_at(0).items()}
-
-    def grads(which, noise=None):
-        # the noise run keeps its activations (remat off): a recompute
-        # would draw other noise than the forward's
-        ctx = (attention_through(rounding_noise(noise)) if noise is not None
-               else contextlib.nullcontext())
-        hints = dict(remat="off") if noise is not None else {}
-        n0 = flash_attention.launches
-        with ctx, sharding_hints(**hints):
-            loss = which.loss(model, batch)
-            n1 = flash_attention.launches
-            gs = torch.autograd.grad(loss, parts)
-        return float(loss), gs, (n1 - n0, flash_attention.launches - n1)
-
-    def per_leaf(gs, ref):
-        """The relative L2 of ``gs`` against ``ref`` per leaf of the
-        reference's tree (a stacked leaf's parts together)."""
-        out, i = [], 0
-        for g in groups:
-            sums = [l2_sums(a, r) for a, r in zip(gs[i:i + len(g)],
-                                                  ref[i:i + len(g)])]
-            num, den = sum(x for x, _ in sums), sum(y for _, y in sums)
-            out.append(math.sqrt(num / den) if den else 0.0)
-            i += len(g)
-        return out
-
-    loss_k, gk, (fwd, bwd) = grads(bundle)
-    phase(f"  step 0 through the kernel: loss {loss_k:.4f}, flash launches "
-          f"{{'forward': {fwd}, 'backward': {bwd}}}")
-    # Under the default remat ("none") the backward runs each layer's
-    # forward again, so the kernel launches once more per layer there;
-    # the Function's own backward launches nothing.
-    if fwd != cfg.n_layers or bwd != cfg.n_layers:
-        fail(f"phase 11b: flash launched {fwd} times forward and {bwd} "
-             f"backward (expected {cfg.n_layers} each: remat recomputes "
-             "every layer)")
-    loss_p, gp, _ = grads(plain)
-    rels = per_leaf(gk, gp)
-    del gk
-    _, gn, _ = grads(plain, NOISE_SEEDS[0])
-    floors = per_leaf(gn, gp)
-    del gn, gp
-    limits = [max(GRAD_REL_L2, FLOOR_FACTOR * f) for f in floors]
-    worst = max(range(len(rels)), key=lambda i: rels[i] / limits[i])
-    phase(f"  step 0 gradients, kernel vs plain attention, {len(rels)} "
-          f"leaves of the reference's tree: worst {names[worst]} rel L2 "
-          f"{rels[worst]:.3e} (<= {limits[worst]:.3e}: the larger of "
-          f"{GRAD_REL_L2} and {FLOOR_FACTOR} x its rounding floor "
-          f"{floors[worst]:.3e}); largest rel L2 {max(rels):.3e}, largest "
-          f"floor {max(floors):.3e}; loss {loss_k:.6f} vs plain "
-          f"{loss_p:.6f}")
-    bad = [f"{names[i]}: {rels[i]:.3e} > {limits[i]:.3e}"
-           for i in range(len(rels)) if not rels[i] <= limits[i]]
-    if bad:
-        fail("phase 11b gradients vs plain attention: " + "; ".join(bad))
-    torch.cuda.empty_cache()
-
-    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=DENSE_STEPS)
-    opt = init_state(opt_cfg, tree)
-    step = bundle.make_train_step(opt_cfg)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    launches, times, losses = [], [], []
-    for i in range(DENSE_STEPS):
-        n0 = flash_attention.launches
-        t0 = time.perf_counter()
-        model, opt, metrics = step(model, opt, source.batch_at(i))
-        losses.append(float(metrics["loss"]))
-        times.append(time.perf_counter() - t0)
-        launches.append(flash_attention.launches - n0)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    phase(f"  {DENSE_STEPS} steps of make_train_step (remat 'none', the "
-          "default): losses "
-          + ", ".join(f"{x:.4f}" for x in losses)
-          + f"; step ms {', '.join(f'{t * 1e3:.1f}' for t in times)} "
-          f"({b * s / times[-1]:.0f} tokens/s at the last), peak memory "
-          f"{peak:.2f} GiB (weights, gradients and moments included); "
-          f"flash launches per step {launches}")
-    if not all(math.isfinite(x) for x in losses) or launches != [
-            2 * cfg.n_layers] * DENSE_STEPS:
-        fail(f"phase 11b: losses {losses}, launches {launches}")
-    n_train = sum(launches)
+    run = train_check(cfg, bundle, plain, model, source.batch_at,
+                      lambda t: f"{b * s / t:.0f} tokens/s", "phase 11b",
+                      sites=cfg.n_layers)
+    model, opt, step, times = (run["model"], run["opt"], run["step"],
+                               run["times"])
+    n_train = run["launches"]
     # The same steps under the other policies: the last step's ms and the
     # peak memory of each.
     for policy, per_step in (("sublayers", 2 * cfg.n_layers),
@@ -2451,7 +2681,7 @@ def dense_training() -> dict:
         if [n for _, n in got] != [per_step] * REMAT_STEPS:
             fail(f"phase 11b remat {policy}: launches {got}")
         n_train += sum(n for _, n in got)
-    del model, opt, step, tree, leaves, groups, parts, batch, metrics
+    del model, opt, step, run, metrics
     torch.cuda.empty_cache()
 
     # At the training shape: the kernel's forward, the Function's backward
@@ -2488,6 +2718,98 @@ def dense_training() -> dict:
     phase(f"  phase 11b: {time.perf_counter() - t11:.1f} s")
     return {"qkv": (q, k, v), "window": 0, "launches": n_train,
             "errs": [err], "step_s": times[-1]}
+
+
+def family_training() -> dict:
+    """Phase 11d: each of ``TRAIN_FAMILIES`` at full width, bf16
+    parameters and gradients, f32 moments, on ``make_batch``'s seeded
+    train batches: :func:`train_check` with the keyed noise under the
+    default remat (a site's forward runs again in the backward: Mixtral's
+    and LLaVA's layers, Zamba2's groups of six Mamba2 layers and the
+    shared block, whisper's encoder and decoder layers), Mixtral's
+    experts held to the kernel run's. Then each launch shape of the
+    steps, through the dispatcher, against the plain version. Returns
+    phase 5's flash rows by name (docs/port.md §train)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_plain,
+    )
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.models import registry
+    from repro_torch.models.zamba2 import schedule
+
+    t11 = time.perf_counter()
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(9)
+    rows = {}
+    for name, depth, (b, s) in TRAIN_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = get_arch(name)
+        layers = (f"{cfg.n_layers} + {cfg.n_layers}" if cfg.enc_dec
+                  else f"{depth or cfg.n_layers} of {cfg.n_layers}")
+        cfg = dataclasses.replace(cfg, n_layers=depth or cfg.n_layers)
+        shape = ShapeConfig("train", s, b, "train")
+        bundle = registry.build(cfg, device=dev)
+        plain = registry.build(cfg, device=dev, use_kernel=False)
+        model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        inputs = ", ".join(f"{k} {tuple(v.shape)}" for k, v in
+                           registry.input_specs(cfg, shape).items())
+        phase(f"phase 11d: training {cfg.name} ({cfg.family}) at full width "
+              f"and {layers} layers ({cfg.num_params():.0f} parameters, "
+              f"bf16; AdamW moments f32), {inputs} a step: "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of weights")
+        if cfg.family == "audio":
+            rate = lambda t: (f"{b * s / t:.0f} frames/s and "  # noqa: E731
+                              f"{b * (s // 4) / t:.0f} tokens/s")
+        elif cfg.family == "vlm":
+            rate = lambda t: (f"{b * s / t:.0f} positions/s, "  # noqa: E731
+                              f"{b * (s - cfg.n_frontend_tokens) / t:.0f} "
+                              "loss tokens/s")
+        else:
+            rate = lambda t: f"{b * s / t:.0f} tokens/s"  # noqa: E731
+        sites = (schedule(cfg)[0] if cfg.family == "hybrid"
+                 else 3 * cfg.n_layers if cfg.enc_dec else cfg.n_layers)
+        run = train_check(
+            cfg, bundle, plain, model,
+            lambda i: registry.make_batch(cfg, shape, seed=i, device=dev),
+            rate, f"phase 11d {cfg.name}", sites=sites, keyed=True)
+        by_shape = run["by_shape"]
+        if sum(by_shape.values()) != run["launches"]:
+            fail(f"phase 11d {cfg.name}: launches by shape {by_shape} != "
+                 f"{run['launches']}")
+        del model, bundle, plain, run
+        torch.cuda.empty_cache()
+        # each launch shape of the steps against the plain version
+        for (sq, sk, causal), n in sorted(by_shape.items()):
+            qkv = flash_inputs(g, b, cfg.n_heads, cfg.n_kv_heads, sq, sk,
+                               cfg.head_dim, torch.bfloat16)
+            kw = dict(causal=causal, window=cfg.sliding_window)
+            group = cfg.n_heads // cfg.n_kv_heads
+            label = ", ".join(
+                [f"D {cfg.head_dim}"]
+                + ([f"GQA {group}"] if group > 1 else [])
+                + ([f"window {cfg.sliding_window}"]
+                   if cfg.sliding_window else [])
+                + ([f"Sq {sq}, Sk {sk}"] if sq != sk else [f"S {sq}"])
+                + ([] if causal else ["non-causal"]) + ["training"])
+            err = check_close(
+                f"flash {cfg.name} training launch shape q "
+                f"{tuple(qkv[0].shape)} kv {tuple(qkv[1].shape)} bf16 "
+                f"({label}, {n} launches in the steps)",
+                attention(*qkv, **kw).float(),
+                flash_attention_plain(*qkv, **kw).float(),
+                FLASH_TOL["bfloat16"])
+            rows[f"flash_attention[{label}]"] = {
+                "qkv": qkv, "window": cfg.sliding_window, "causal": causal,
+                "launches": n, "errs": [err]}
+        phase(f"  phase 11d {cfg.name}: {time.perf_counter() - t0:.1f} s")
+    phase(f"  phase 11d: {time.perf_counter() - t11:.1f} s")
+    return rows
 
 
 #: Argument bytes of the dry run against what the card allocates for the
@@ -3757,15 +4079,18 @@ def main() -> None:
                     resident=pipelined_prefill)
     # one group of six Mamba2 layers and the shared block, two tail layers
     hyb = lm_serving(get_arch("zamba2-7b"), "phase 6h", f32_layers=8)
+    hybrid_f32_prefill()
     mix, kimi = moe_serving()
     whisper = whisper_serving()
     vlm = vlm_serving()
+    dense = dense_serving()
     ssm_serving()
 
     # ---- 11. training (before phase 5, which times its kernel) -------
     ssm_training()
     dp_compression()
     train = dense_training()
+    fam = family_training()
 
     # ---- 12. the dry run against the card ----------------------------
     dryrun_vs_card(card_line, lm[PREFILL]["wall"], train["step_s"])
@@ -3972,7 +4297,14 @@ def main() -> None:
                   ("flash_attention[D 64, whisper decode cross]",
                    whisper["decode cross"]),
                   ("flash_attention[D 128, GQA 7]", vlm[VLM_PREFILL]),
-                  ("flash_attention[D 128, GQA 4, training]", train))
+                  ("flash_attention[D 128, GQA 4, training]", train),
+                  ("flash_attention[D 128, MQA 48]",
+                   dense["granite-34b"][PREFILL]),
+                  ("flash_attention[D 128, GQA 6]",
+                   dense["nemotron-4-15b"][PREFILL]),
+                  ("flash_attention[D 128, GQA 5]",
+                   dense["qwen2.5-32b"][PREFILL]),
+                  *fam.items())
     for name, run in flash_rows:
         # Two layouts: contiguous (B, H, S, D), and the head-split views
         # of (B, S, H, D) buffers that the prefill passes (read in place).
@@ -4014,7 +4346,7 @@ def main() -> None:
                max(run["errs"] + flash_errs), lib_ms, peak=bf16_peak)
         del q, k, v, views, want, got
         torch.cuda.empty_cache()
-    del lm, hyb, mix, kimi, whisper, vlm, train, flash_rows
+    del lm, hyb, mix, kimi, whisper, vlm, train, dense, fam, flash_rows
 
     # The stencil kernels' design choices side by side, on the same
     # main-path inputs (three rounds after a warm-up).

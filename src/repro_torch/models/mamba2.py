@@ -116,10 +116,16 @@ def _ssd_chunked(xh, dt, dA, Bm, Cm, s, h0=None):
     Ch = Cm.repeat_interleave(rep, dim=3) if rep > 1 else Cm
 
     cum = torch.cumsum(dA, dim=2)  # (b,nc,Q,H)
-    # intra-chunk attention-like term: att[t,s] = exp(cum_t - cum_s), t>=s
+    # intra-chunk attention-like term: att[t,s] = exp(cum_t - cum_s), t>=s.
+    # The mask goes on the exponent, not on exp's result: above the
+    # diagonal cum_t - cum_s >= 0 overflows exp once a chunk's decay passes
+    # ~88, and where's zero gradient times exp's inf there would be NaN in
+    # the backward (the reference masks the result; its forward values are
+    # the same)
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (b,nc,t,s,H)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xh.device))
-    att = torch.where(tri[None, None, :, :, None], torch.exp(diff), 0.0)
+    att = torch.exp(torch.where(tri[None, None, :, :, None], diff,
+                                float("-inf")))
     # scores_{t,s} = (C_t . B_s) att u_s  with u_s = dt_s x_s
     cb = torch.einsum("bcthn,bcshn->bctsh", Ch, Bh)  # (b,nc,t,s,H)
     u = xh * dt[..., None]  # (b,nc,Q,H,P)

@@ -468,6 +468,11 @@ FLASH_CASES = {
     "bidirectional": (1, 2, 2, 128, 128, False, 0),
     "window": (1, 2, 2, 256, 256, True, 64),
     "ragged": (1, 4, 2, 100, 100, True, 0),
+    # the dense serving configs' groups: granite-34b's MQA 48:1,
+    # nemotron-4-15b's GQA 48:8 and qwen2.5-32b's GQA 40:8
+    "mqa48": (1, 48, 1, 256, 256, True, 0),
+    "gqa6": (1, 48, 8, 256, 256, True, 0),
+    "gqa5": (1, 40, 8, 256, 256, True, 0),
 }
 
 
@@ -1223,6 +1228,50 @@ def test_flash_function_gradient_equals_the_plain_path(card, dtype, shape):
     got = torch.autograd.grad(out, (q, k, v), go)
     assert flash_attention.launches == n + 1
     ref = attention_chunked_ref(q, k, v, window=window, chunk=s)
+    want = torch.autograd.grad(ref, (q, k, v), go)
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
+           else dict(rtol=2e-2, atol=2e-2))
+    torch.testing.assert_close(out.float(), ref.float(), **(
+        dict(rtol=2e-3, atol=2e-3) if dtype == "float32" else tol))
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.float(), w.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [
+    # (B, Hq, Hkv, Sq, Sk, D, causal): Zamba2's D 112 MHA, whisper's
+    # encoder (ragged, non-causal) and cross-attention (Sq != Sk), and
+    # LLaVA's GQA 7
+    (2, 4, 4, 256, 256, 112, True), (2, 4, 4, 300, 300, 64, False),
+    (2, 4, 4, 75, 300, 64, False), (1, 14, 2, 256, 256, 128, True)])
+def test_flash_function_training_shapes_equal_the_plain_path(card, dtype,
+                                                             shape):
+    """``FlashAttentionFn`` through the dispatcher at the training paths'
+    launch shapes (phase 11d): one kernel launch forward, none backward,
+    the output and the gradients of q, k and v against autograd through
+    the chunked plain version over all the keys (tolerances as
+    test_flash_function_gradient_equals_the_plain_path)."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+    )
+    from repro_torch.kernels.flash_attention.ops import (
+        attention,
+        attention_chunked_ref,
+    )
+
+    b, hq, hkv, sq, sk, d, causal = shape
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn((b, h, s, d), generator=g, device="cuda").to(
+        dt).requires_grad_(True) for h, s in ((hq, sq), (hkv, sk), (hkv, sk)))
+    go = torch.randn((b, hq, sq, d), generator=g, device="cuda").to(dt)
+    n = flash_attention.launches
+    out = attention(q, k, v, causal=causal)
+    assert flash_attention.launches == n + 1
+    assert "FlashAttentionFn" in type(out.grad_fn).__name__
+    got = torch.autograd.grad(out, (q, k, v), go)
+    assert flash_attention.launches == n + 1
+    ref = attention_chunked_ref(q, k, v, causal=causal, chunk=sk)
     want = torch.autograd.grad(ref, (q, k, v), go)
     tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
            else dict(rtol=2e-2, atol=2e-2))

@@ -13,8 +13,10 @@ difference (the port's block-diagonal sLSTM product,
 cell (``tests/test_parallel.py``: Mixtral reduced to 2 layers, train
 32x8, a (data 2, model 4) mesh) runs once in a subprocess with 8 forced
 host devices: every leaf's rank-0 shard shape and the summed argument
-bytes equal the port's; its HLO collective census is printed beside the
-port's ``from_specs`` census, which equals a hand sum from the specs.
+bytes equal the port's; the port's ``from_specs`` census equals a hand
+sum from the specs, and the reference's HLO collective census, split by
+origin, equals it where the port prices the same collectives, each
+difference named (``REFERENCE_ORIGINS``, ``UNPRICED``).
 """
 
 import contextlib
@@ -346,11 +348,63 @@ for name, (tree, specs) in trees.items():
         key = '/'.join([name] + [str(getattr(k, 'key', getattr(k, 'idx', k)))
                                  for k in path])
         shards[key] = list(sh(spec).shard_shape(leaf.shape))
-hc = analyze_hlo(compiled.as_text())
+text = compiled.as_text()
+hc = analyze_hlo(text)
+
+
+def origins(text):
+    # each collective by (kind, origin): [ops, operands], an op counted once
+    # per trip of its loop (analyze_hlo's fold), a tuple op's operands each
+    import collections, re
+    from repro.launch.hlo_cost import (_COLLECTIVES, _COMP_HDR_RE, _INSTR_RE,
+                                       parse_hlo)
+    comps = parse_hlo(text)
+    trips = collections.Counter()
+
+    def walk(name, m):
+        trips[name] += m
+        for callee, k in comps[name].calls:
+            if callee in comps:
+                walk(callee, m * k)
+
+    walk(comps['__entry__'].name, 1)
+    out, cur = {}, None
+    for line in text.splitlines():
+        hdr = _COMP_HDR_RE.match(line)
+        if hdr and '{' in line:
+            cur = hdr.group(1)
+            continue
+        m = _INSTR_RE.match(line)
+        if not m or m.group(3).replace('-start', '') not in _COLLECTIVES:
+            continue
+        kind, shape = m.group(3).replace('-start', ''), m.group(2)
+        name = re.search(r'op_name="([^"]*)"', line).group(1)
+        tail = name.split('/')[-1]
+        if 'vmap()' in name or tail in ('top_k', 'reduce_window_sum'):
+            origin = 'moe dispatch'
+        elif 'attention_chunked_ref' in name or (
+                tail == 'gather' and '/while/' in name):
+            origin = 'attention'
+        elif '/while/' not in name and 'transpose' not in name:
+            origin = 'loss'
+        elif kind == 'all-reduce' and '<=[2,4]T(1,0)' in line:  # over data
+            origin = 'gradients'
+        elif (kind == 'all-reduce' and tail == 'dot_general'
+              and shape.lstrip('(').startswith('f32[4,32,128]')):
+            origin = 'products'  # (tokens a data rank, d) over model
+        else:
+            origin = 'sharded activations'
+        row = out.setdefault(kind, {}).setdefault(origin, [0, 0])
+        row[0] += trips[cur]
+        row[1] += trips[cur] * (shape.count('[') if shape[0] == '(' else 1)
+    return out
+
+
 out = {'shards': shards,
        'argument_size_in_bytes':
            compiled.memory_analysis().argument_size_in_bytes,
-       'census': {'coll_bytes': hc.coll_bytes, 'coll_counts': hc.coll_counts}}
+       'census': {'coll_bytes': hc.coll_bytes, 'coll_counts': hc.coll_counts},
+       'origins': origins(text)}
 with open(sys.argv[1], 'w') as f:
     json.dump(out, f)
 print('reference OK')
@@ -404,6 +458,38 @@ def test_shard_shapes_and_argument_bytes_equal_the_reference(small_cell):
         "argument_size_in_bytes"]
 
 
+#: The reference's HLO collectives in the small-mesh cell by origin, [ops,
+#: operands] (``origins`` in ``_REFERENCE``). The port's ``from_specs``
+#: prices ``products`` and ``gradients``; the other origins it does not,
+#: for the reasons in ``UNPRICED``.
+REFERENCE_ORIGINS = {
+    "all-reduce": {"products": [7, 11], "gradients": [3, 18],
+                   "sharded activations": [19, 19], "attention": [6, 12],
+                   "moe dispatch": [8, 12], "loss": [6, 18]},
+    "all-gather": {"sharded activations": [10, 10], "attention": [4, 4],
+                   "moe dispatch": [26, 26], "loss": [1, 1]},
+    "collective-permute": {"moe dispatch": [12, 12]},
+    "all-to-all": {"moe dispatch": [12, 24]},
+}
+#: What the reference's SPMD partitioner inserts that the port's spec
+#: census does not price, by origin, and why.
+UNPRICED = {
+    "sharded activations": "the partitioner keeps the residual stream's "
+    "hidden dim sharded over model between products: all-gathers before "
+    "the column-parallel products, all-reduces of the norms' sums and of "
+    "the router's logits; the census takes activations whole on each "
+    "model rank",
+    "attention": "the 2 kv heads shard over pairs of the 4 model ranks: "
+    "rope's gather and the chunked softmax's sums reduce over each pair",
+    "moe dispatch": "the reference's scatter into and gather from the "
+    "expert buffer, sharded over model and data: all-to-alls, permutes and "
+    "gathers; the port's two-stage dispatch (no a2a hint in this cell) "
+    "moves nothing between ranks",
+    "loss": "the cross-entropy's max, sum and label gather over the "
+    "model-sharded vocab (lm_head's columns), and the mean over data",
+}
+
+
 def test_census_from_specs_equals_a_hand_sum(small_cell):
     cfg, fn, args, specs, info, trees, mesh = _port_cell()
     art = dryrun.trace_cell(cfg, ShapeConfig("t", 32, 8, "train"), mesh, fn,
@@ -425,6 +511,35 @@ def test_census_from_specs_equals_a_hand_sum(small_cell):
     print(f"port from_specs: {got['total_count']} collectives, "
           f"{got['total_bytes']} B; the reference's HLO census: "
           f"{small_cell['census']}")
+
+    # Against the reference's census, kind by kind: the origins cover
+    # every op it counts, and each count that differs is named.
+    ref = small_cell["origins"]
+    assert ref == REFERENCE_ORIGINS
+    assert {k: sum(ops for ops, _ in v.values()) for k, v in ref.items()} \
+        == small_cell["census"]["coll_counts"]
+    # products: one operand per product the port prices; XLA's combiner
+    # packs a layer's three backward dx (wq, wk, wv) into one op
+    ops, operands = ref["all-reduce"]["products"]
+    assert operands == products and ops == products - 2 * cfg.n_layers
+    # gradients: the port all-reduces each of its leaves once; the
+    # reference's layer scan reduces each non-expert layer leaf once per
+    # layer, the expert stacks not at all (the dispatch's all-to-alls over
+    # data leave their gradients whole), one scalar of the loss's backward
+    # rides in the last op, and the combiner packs each layer's and the
+    # top-level reductions into one op each
+    paths = [path for path, _, _ in dryrun._pairs(params, pspecs)]
+    layer = [p for p in paths if p.startswith("moe_layers/")]
+    experts = [p for p in layer if "/moe/w_" in p]
+    ops, operands = ref["all-reduce"]["gradients"]
+    assert operands == (len(grads) + (cfg.n_layers - 1) * (
+        len(layer) - len(experts)) - len(experts) + 1)
+    assert ops == cfg.n_layers + 1
+    # every other origin is one the port does not price
+    assert set(got) - {"total_count", "total_bytes"} == {"all-reduce"}
+    for kind, row in ref.items():
+        unpriced = {o for o in row if o not in ("products", "gradients")}
+        assert unpriced <= set(UNPRICED), (kind, unpriced)
 
 
 # --------------------------------------------------------------------------

@@ -143,10 +143,11 @@ def test_decode_attention(rng, window):
 
 
 @pytest.mark.parametrize("name", ["qwen3-8b", "qwen3-8b+window",
-                                  "qwen2.5-32b"])
+                                  "qwen2.5-32b", "granite-34b",
+                                  "nemotron-4-15b"])
 def test_forward_logits(name, rng):
-    """qk-norm, a sliding window, qkv biases; the other activations are
-    held by test_mlp_apply."""
+    """qk-norm, a sliding window, qkv biases, MQA with GELU (granite) and
+    squared ReLU with GQA 6 (nemotron), each whole model against JAX's."""
     arch, _, extra = name.partition("+")
     jc, tc, params, model = _models(arch, 8 if extra else 0)
     tokens = rng.integers(0, tc.vocab, (2, 24)).astype(np.int32)

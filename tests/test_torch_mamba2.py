@@ -104,6 +104,39 @@ def test_ssd_chunked(n_groups, with_h0):
     _close(h, jh, LAYER_TOL)
 
 
+def test_ssd_chunked_gradient_is_finite_past_exp_overflow():
+    """A chunk whose decay passes exp's f32 range (cum down to ~ -230 over
+    128 steps, as Zamba2-7B's bf16 training step on the card reaches): the
+    output and its gradient with respect to every input equal autograd
+    through the step-by-step recurrence, the gradient finite (masking
+    exp's result left NaN there)."""
+    jc, _ = _cfgs(chunk=128)
+    b, S, H, P, N = 1, 256, 2, 4, 3
+    xh, Bm, Cm = _x(0, b, S, H, P), _x(1, b, S, 1, N), _x(2, b, S, 1, N)
+    dt = 1.0 + np.abs(_x(3, b, S, H))
+    dA = -dt
+    args = [torch.from_numpy(a).requires_grad_(True)
+            for a in (xh, dt, dA, Bm, Cm)]
+    y, _ = tm._ssd_chunked(*args, jc.ssm)
+    go = torch.from_numpy(_x(4, b, S, H, P))
+    got = torch.autograd.grad(y, args, go)
+
+    def sequential(xh, dt, dA, Bm, Cm):
+        h, ys = torch.zeros((b, H, P, N)), []
+        for t in range(S):
+            u = (xh[:, t] * dt[:, t, :, None])[..., None] * Bm[:, t, :, None]
+            h = h * torch.exp(dA[:, t])[..., None, None] + u
+            ys.append(torch.einsum("bhpn,bgn->bhp", h, Cm[:, t]))
+        return torch.stack(ys, dim=1)
+
+    seq = sequential(*args)
+    torch.testing.assert_close(y, seq, **SCAN_TOL)
+    want = torch.autograd.grad(seq, args, go)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, **SCAN_TOL)
+
+
 def test_ssd_chunked_rejects_an_untiled_sequence():
     jc, _ = _cfgs(chunk=8)
     args = [torch.zeros((1, 12, 2, 4)), torch.zeros((1, 12, 2)),

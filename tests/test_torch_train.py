@@ -309,12 +309,18 @@ def test_vlm_loss_drops_the_embeds_positions():
         pytest.approx(float(want), rel=1e-6)
 
 
-@pytest.mark.parametrize("num_microbatches", [1, 2])
-def test_train_step_equals_jax(num_microbatches):
-    """One ``make_train_step`` at 1 and 2 microbatches (f32 accumulation)
-    on the reduced dense model: parameters, both moments, step and the
-    metrics against the reference's jitted step."""
-    jc, tc, jb, params, _ = _family("dense")
+@pytest.mark.parametrize("fam,num_microbatches", [
+    pytest.param("dense", 1, id="1"), pytest.param("dense", 2, id="2"),
+    *(pytest.param(fam, 1, id=f"{fam}-1")
+      for fam in ("moe", "hybrid", "audio", "vlm"))])
+def test_train_step_equals_jax(fam, num_microbatches):
+    """One ``make_train_step`` (f32) against the reference's jitted step:
+    the reduced dense model at 1 and 2 microbatches (f32 accumulation),
+    and the MoE, hybrid, enc-dec and VLM families at one (the dispatch,
+    the SSD and the shared block, the frames and the cross-attention, the
+    embeds and the loss that drops their positions): parameters, both
+    moments, step and the metrics."""
+    jc, tc, jb, params, _ = _family(fam)
     tree = jax.tree_util.tree_map(np.asarray, params)
     model = params_from_jax(tree, tc, "cpu")
     kw = dict(lr=1e-3, eps=1e-4, warmup_steps=2, total_steps=100)
