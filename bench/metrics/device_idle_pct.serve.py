@@ -1,0 +1,7 @@
+"""Share of the traced window with nothing running on the card."""
+
+
+def read(r):
+    if r.kind != "serve" or r.peaks is None or r.trace is None or r.trace["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - r.trace["busy_s"] / r.trace["window_s"])
