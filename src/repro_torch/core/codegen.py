@@ -54,6 +54,7 @@ from typing import Mapping, Sequence
 
 import torch
 
+from ..tracing import timed
 from .compiler import CompiledCore, eval_expr, f32
 from .dfg import Bin, Call, Expr, Neg, Num, SPDError, Var
 from .legalize import launch_tile, resolve_run_plan, tile_smem_bytes
@@ -867,6 +868,7 @@ class _Flattener:
         return out
 
 
+@timed("setup.lower")
 def lower_stripe(compiled: CompiledCore, halo: int,
                  halo_x: int) -> StripeProgram:
     """Flatten a core and split it into phases (docs/port.md §ir)."""

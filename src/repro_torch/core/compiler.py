@@ -24,6 +24,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from ..tracing import timed
 from .dfg import (
     Bin,
     Call,
@@ -79,6 +80,7 @@ class Registry:
             return self._lib[name]
         raise SPDCompileError(f"unknown HDL module {name!r}")
 
+    @timed("setup.compile")
     def compile(self, core: Core) -> "CompiledCore":
         compiled = CompiledCore(core, self)
         self.register_core(compiled)

@@ -36,6 +36,7 @@ from typing import Sequence
 
 import numpy as np
 
+from ..tracing import timed
 from .dse import (
     DesignPoint,
     FPGAModel,
@@ -297,6 +298,7 @@ class Explorer:
             scalar_kwargs={"overlapped_passes": overlapped_passes},
         )
 
+    @timed("setup.sweep")
     def sweep_gpu(
         self,
         bh_values: Sequence[int] = (8, 16, 32, 64, 128, 256),

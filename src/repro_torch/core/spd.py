@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import re
 
+from ..tracing import timed
 from .dfg import (
     Bin,
     Call,
@@ -237,6 +238,7 @@ def _split_top_commas(text: str, maxsplit: int = -1) -> list[str]:
     return parts
 
 
+@timed("setup.parse")
 def parse_spd(text: str, *, name_hint: str = "core") -> Core:
     """Parse one SPD source into a :class:`Core`."""
     body = _strip_comments(text)

@@ -8,6 +8,9 @@ instantiation, a refused TMA descriptor) and :func:`check` raises on
 anything but 0. Libraries are cached under ``build/repro_torch/`` by a
 hash of their source, the headers they include and the flags, so a
 process builds each kernel once; nothing is compiled at import time.
+The set-up counters of :mod:`repro_torch.tracing` count the ``nvcc`` runs
+(``builds``) and time the waits for them (``setup.build``) and the loads
+(``setup.load``).
 
 Flags: ``sm_90a``, ``-O3`` and ``-fmad=false`` — no multiply-add is
 contracted, so a kernel's arithmetic is op for op that of its plain torch
@@ -28,6 +31,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from repro_torch.tracing import add, timed
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 
@@ -93,6 +98,7 @@ def _start(name: str, source: str):
            str(cu)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+    add("builds", 1)
     return so, (proc, tmp, cmd)
 
 
@@ -100,7 +106,8 @@ def _finish(so: Path, job) -> None:
     if job is None:
         return
     proc, tmp, cmd = job
-    out, _ = proc.communicate()
+    with timed("setup.build"):
+        out, _ = proc.communicate()
     so.with_suffix(".log").write_text(out)
     if proc.returncode != 0:
         raise RuntimeError(
@@ -125,7 +132,8 @@ def load(name: str, source: str) -> ctypes.CDLL:
     _finish(so, job)
     key = str(so)
     if key not in _LIBS:
-        _LIBS[key] = ctypes.CDLL(key)
+        with timed("setup.load"):
+            _LIBS[key] = ctypes.CDLL(key)
     return _LIBS[key]
 
 

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core.codegen import StripeProgram
 from repro_torch.core.legalize import blocking_plan, resolve_run_plan
+from repro_torch.tracing import span
 
 from .sharded import spd_multistep_halo
 from .spd_stream import spd_multistep
@@ -34,7 +35,8 @@ def stream_run_blocked(program: StripeProgram, state, regs, *, steps: int,
         return state.clone()
     bufs = None
     if state.device.type == "cuda":
-        bufs = (torch.empty_like(state), torch.empty_like(state))
+        with span("stream.alloc"):
+            bufs = (torch.empty_like(state), torch.empty_like(state))
     cur = state
     for i in range(steps // m):
         cur = spd_multistep_streamed(

@@ -32,9 +32,11 @@ The bound is then ``2·B·P·H·W·4`` bytes.
 guard-block-extended shard (``guard``), declarative or streamed — as the
 kernel source is one template: the contract checks, the column tile, the
 plain version on the CPU, the device checks, the shared-memory price, the
-call and the counts. A launch enqueued while a CUDA graph is captured
-(:func:`recording`) runs at each replay of the graph, not at the call: the
-wrapper records it there and the replay counts it (:func:`count`).
+call and the counts; on the card all but the library's lookup under the
+host span ``spd.launch``, which encloses the one kernel. A launch enqueued
+while a CUDA graph is captured (:func:`recording`) runs at each replay of
+the graph, not at the call: the wrapper records it there and the replay
+counts it (:func:`count`).
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from repro_torch.core.codegen import (
     gather_tiles,
     scatter_centers,
 )
+from repro_torch.tracing import span
 
 
 def check_plan(program: StripeProgram, state, m: int, block_h: int) -> None:
@@ -240,32 +243,38 @@ def launch(fn, program: StripeProgram, x, regs, *, m: int, block_h: int,
         check_plan(program, x, m, block_h)
         out_rows = None
     rows, w = x.shape[-2:]
-    block_w, double_buffer = program.tile(w, block_h, m, block_w=block_w,
-                                          double_buffer=double_buffer,
-                                          streamed=streamed)
     if x.device.type == "cpu":
+        block_w, _ = program.tile(w, block_h, m, block_w=block_w,
+                                  double_buffer=double_buffer,
+                                  streamed=streamed)
         plain = spd_multistep_halo_plain if guard else spd_multistep_plain
         return deliver(plain(program, x, regs, m=m, block_h=block_h,
                              block_w=block_w), out)
     from repro_torch.kernels.build import check, spd_regs
 
-    out = cuda_args(x, out, out_rows)
-    smem = program.smem_bytes(block_h, block_w, m, streamed=streamed,
-                              double_buffer=double_buffer)
-    args = [x.data_ptr(), out.data_ptr()]
-    if guard:
-        args += [rows, w, plane_rows(x), plane_rows(out)]
-    else:
-        args += [x.shape[0] if x.dim() == 4 else 1, rows, w]
-    args += [block_h, block_w, m]
-    if streamed:
-        args.append(int(double_buffer))
-    with torch.cuda.device(x.device):
-        check(getattr(program.library(), fn.__name__)(
-            *args, spd_regs(regs), smem, x.device.index,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        ), fn.__name__)
-    count(fn, program.name)
+    # The library is built or loaded outside the span: a set-up phase.
+    lib = program.library() if x.device.type == "cuda" else None
+    with span("spd.launch"):
+        block_w, double_buffer = program.tile(
+            w, block_h, m, block_w=block_w, double_buffer=double_buffer,
+            streamed=streamed)
+        out = cuda_args(x, out, out_rows)
+        smem = program.smem_bytes(block_h, block_w, m, streamed=streamed,
+                                  double_buffer=double_buffer)
+        args = [x.data_ptr(), out.data_ptr()]
+        if guard:
+            args += [rows, w, plane_rows(x), plane_rows(out)]
+        else:
+            args += [x.shape[0] if x.dim() == 4 else 1, rows, w]
+        args += [block_h, block_w, m]
+        if streamed:
+            args.append(int(double_buffer))
+        with torch.cuda.device(x.device):
+            check(getattr(lib, fn.__name__)(
+                *args, spd_regs(regs), smem, x.device.index,
+                torch.cuda.current_stream(x.device).cuda_stream,
+            ), fn.__name__)
+        count(fn, program.name)
     return out
 
 

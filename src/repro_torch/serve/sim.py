@@ -42,6 +42,15 @@ an engine on the CPU. A launch ends in ``torch.cuda.synchronize`` of its
 card, the counterpart of ``jax.block_until_ready``; a cohort's
 dissolution is one ``.cpu()`` of the stacked state.
 
+The tick's phases are host spans under a profiler
+(:mod:`repro_torch.tracing`): ``sim.admit`` a request, ``sim.form`` a
+width-1 cohort, ``sim.enqueue`` the call of the kernel (``spd.launch``
+inside it: the launch's own host work), ``sim.dissolve`` a cohort.
+:meth:`SimEngine.stats` splits the tick on the host clock: ``tick_s``
+inside :meth:`~SimEngine.step`, ``launch_wall_s`` from the call of the
+kernel to the end of its synchronize, ``enqueue_s`` the call alone,
+``dissolve_s`` the ``.cpu()`` and the completions.
+
 Accounting mirrors ``serve/engine.py``'s tick idioms: a bounded
 admission queue that rejects with backpressure when full
 (:meth:`SimEngine.submit` returns ``False``), per-request queue-wait /
@@ -59,6 +68,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.tracing import span
 
 __all__ = [
     "PlanResolver",
@@ -106,7 +117,6 @@ class SimCompletion:
     finished_tick: int
     submitted_s: float
     finished_s: float
-    queue_wait_ticks: int = 0
 
     @property
     def latency_s(self) -> float:
@@ -432,6 +442,9 @@ class SimEngine:
         self.launches = 0
         self.member_steps = 0  # Σ (fused steps × members) over launches
         self.launch_wall_s = 0.0
+        self.enqueue_s = 0.0  # inside kern(...), before the synchronize
+        self.dissolve_s = 0.0  # .cpu() of a cohort and its completions
+        self.tick_s = 0.0  # inside step()
         self.occupancy: dict[int, int] = {}  # launch width -> count
         self.tuning_ticks = 0  # ticks that advanced a search instead
 
@@ -448,6 +461,9 @@ class SimEngine:
         self.launches = 0
         self.member_steps = 0
         self.launch_wall_s = 0.0
+        self.enqueue_s = 0.0
+        self.dissolve_s = 0.0
+        self.tick_s = 0.0
         self.occupancy = {}
         self.tuning_ticks = 0
 
@@ -506,27 +522,30 @@ class SimEngine:
         from repro_torch.interop import from_numpy
 
         while self.queue and self._active_count() < self.max_active:
-            req, tick, t_s = self.queue.popleft()
-            fp, kern = self._kernel_for(req.core)
-            h, w = int(req.state.shape[-2]), int(req.state.shape[-1])
-            ctx = TrialContext(
-                fingerprint=fp, h=h, w=w,
-                regs=tuple(float(r) for r in req.regs),
-                device=kern.device.type,
-            )
-            group = self.groups.get(ctx)
-            if group is None:
-                group = self.groups[ctx] = _Group(kern=kern, ctx=ctx)
-            group.members.append(_Active(
-                req=req, state=from_numpy(req.state, kern.device),
-                remaining=int(req.steps), submitted_tick=tick,
-                submitted_s=t_s, admitted_tick=self.tick_count,
-            ))
+            # One span a request: each may copy its state to the card.
+            with span("sim.admit"):
+                req, tick, t_s = self.queue.popleft()
+                fp, kern = self._kernel_for(req.core)
+                h, w = int(req.state.shape[-2]), int(req.state.shape[-1])
+                ctx = TrialContext(
+                    fingerprint=fp, h=h, w=w,
+                    regs=tuple(float(r) for r in req.regs),
+                    device=kern.device.type,
+                )
+                group = self.groups.get(ctx)
+                if group is None:
+                    group = self.groups[ctx] = _Group(kern=kern, ctx=ctx)
+                group.members.append(_Active(
+                    req=req, state=from_numpy(req.state, kern.device),
+                    remaining=int(req.steps), submitted_tick=tick,
+                    submitted_s=t_s, admitted_tick=self.tick_count,
+                ))
 
     # ---- the tick loop ------------------------------------------------------
 
     def step(self) -> list[SimCompletion]:
         """One engine tick: admit, tune-or-launch per context, retire."""
+        t0 = time.perf_counter()
         self.tick_count += 1
         self._admit()
         done: list[SimCompletion] = []
@@ -546,6 +565,7 @@ class SimEngine:
                     self.tuning_ticks += 1
                     continue  # still tuning; members wait in the slot
             done.extend(self._launch(group))
+        self.tick_s += time.perf_counter() - t0
         return done
 
     def _launch(self, group: _Group) -> list[SimCompletion]:
@@ -565,24 +585,30 @@ class SimEngine:
                 group.members.popleft()
                 for _ in range(min(plan.b, len(group.members)))
             ]
-            stacked = (
-                from_numpy(batch[0].state, kern.device) if len(batch) == 1
-                else kern.pack_batch([a.state for a in batch])
-            )
+            if len(batch) == 1:
+                # A span encloses one copy at most: a stack of several
+                # host states goes without.
+                with span("sim.form"):
+                    stacked = from_numpy(batch[0].state, kern.device)
+            else:
+                stacked = kern.pack_batch([a.state for a in batch])
             group.cohort = _Cohort(batch, stacked)
         co = group.cohort
         mm = min([plan.m] + [a.remaining for a in co.members])
         t0 = time.perf_counter()
-        out = kern(
-            co.stacked, group.ctx.regs, m=mm, block_h=plan.block_h,
-            double_buffer=plan.double_buffer,
-        )
+        with span("sim.enqueue"):
+            out = kern(
+                co.stacked, group.ctx.regs, m=mm, block_h=plan.block_h,
+                double_buffer=plan.double_buffer,
+            )
+        t1 = time.perf_counter()
         if out.device.type == "cuda":
             torch.cuda.synchronize(out.device)
         wall = time.perf_counter() - t0
         co.stacked = out
         width = len(co.members)
         self.launches += 1
+        self.enqueue_s += t1 - t0
         self.launch_wall_s += wall
         self.member_steps += mm * width
         self.occupancy[width] = self.occupancy.get(width, 0) + 1
@@ -592,31 +618,31 @@ class SimEngine:
         done: list[SimCompletion] = []
         if not any(a.remaining <= 0 for a in co.members):
             return done  # cohort stays stacked and in flight
-        host = out.cpu().numpy()  # one transfer for the whole cohort
-        now = time.monotonic()
-        survivors = []
-        for i, active in enumerate(co.members):
-            state = host[i] if width > 1 else host
-            if active.remaining > 0:
-                active.state = state  # restacked into the next cohort
-                survivors.append(active)
-                continue
-            self.completed += 1
-            done.append(SimCompletion(
-                rid=active.req.rid,
-                state=state,
-                steps=int(active.req.steps),
-                submitted_tick=active.submitted_tick,
-                admitted_tick=active.admitted_tick,
-                finished_tick=self.tick_count,
-                submitted_s=active.submitted_s,
-                finished_s=now,
-                queue_wait_ticks=(
-                    active.admitted_tick - active.submitted_tick
-                ),
-            ))
-        group.members.extend(survivors)  # back of the FIFO
-        group.cohort = None
+        t0 = time.perf_counter()
+        with span("sim.dissolve"):
+            host = out.cpu().numpy()  # one transfer for the whole cohort
+            now = time.monotonic()
+            survivors = []
+            for i, active in enumerate(co.members):
+                state = host[i] if width > 1 else host
+                if active.remaining > 0:
+                    active.state = state  # restacked into the next cohort
+                    survivors.append(active)
+                    continue
+                self.completed += 1
+                done.append(SimCompletion(
+                    rid=active.req.rid,
+                    state=state,
+                    steps=int(active.req.steps),
+                    submitted_tick=active.submitted_tick,
+                    admitted_tick=active.admitted_tick,
+                    finished_tick=self.tick_count,
+                    submitted_s=active.submitted_s,
+                    finished_s=now,
+                ))
+            group.members.extend(survivors)  # back of the FIFO
+            group.cohort = None
+        self.dissolve_s += time.perf_counter() - t0
         return done
 
     def run_until_drained(self, max_ticks: int = 10_000) -> list[SimCompletion]:
@@ -669,6 +695,9 @@ class SimEngine:
             "launches": int(self.launches),
             "member_steps": int(self.member_steps),
             "launch_wall_s": float(self.launch_wall_s),
+            "enqueue_s": float(self.enqueue_s),
+            "dissolve_s": float(self.dissolve_s),
+            "tick_s": float(self.tick_s),
             "steps_per_s": (
                 self.member_steps / self.launch_wall_s
                 if self.launch_wall_s > 0 else 0.0

@@ -119,8 +119,9 @@ def test_usage_without_a_subcommand(capsys):
 
 def test_serve_on_the_cpu_writes_its_json(tmp_path, capsys):
     """``serve --device cpu``: the reference's tenant mix, every request
-    retired, the reference's stats keys (plus the served wall, the
-    end-to-end and launch-wall MLUPS and ``device``) in the JSON; a
+    retired, the reference's stats keys (plus the tick's split, the served
+    wall, the end-to-end and launch-wall MLUPS and ``device``) in the
+    JSON, the tick split in the summary; a
     second run on the same study directory takes 0 live timings and pins
     the same plans."""
     def serve(name):
@@ -133,9 +134,10 @@ def test_serve_on_the_cpu_writes_its_json(tmp_path, capsys):
     stats, got, out = serve("cold.json")
     assert set(got) == {
         "ticks", "submitted", "rejected", "completed", "launches",
-        "member_steps", "launch_wall_s", "steps_per_s", "occupancy",
-        "tuning_ticks", "live_timings", "plans", "latency", "served_s",
-        "mlups", "launch_mlups", "device"}
+        "member_steps", "launch_wall_s", "enqueue_s", "dissolve_s",
+        "tick_s", "steps_per_s", "occupancy", "tuning_ticks",
+        "live_timings", "plans", "latency", "served_s", "mlups",
+        "launch_mlups", "device"}
     assert got["completed"] == got["submitted"] == 6
     assert got["rejected"] == 0 and got["device"] == "cpu"
     assert set(got["latency"]) == {"p50_s", "p95_s", "p99_s"}
@@ -145,6 +147,7 @@ def test_serve_on_the_cpu_writes_its_json(tmp_path, capsys):
     assert got["served_s"] >= got["launch_wall_s"] > 0
     assert "diffusion-32x32-a0.2, diffusion-64x64-a0.1, lbm-tgv-32x32" in out
     assert "batch occupancy: b=" in out and "MLUPS end to end" in out
+    assert "tick split: enqueue " in out and "of the served wall" in out
     _, warm, out = serve("warm.json")
     assert warm["live_timings"] == 0 and "warm start" in out
     for key, plan in got["plans"].items():

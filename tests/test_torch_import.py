@@ -23,6 +23,7 @@ for name in list(sys.modules):
 sys.meta_path.insert(0, _Block())
 import repro_torch
 import repro_torch.interop
+import repro_torch.tracing
 import repro_torch.core
 import repro_torch.apps.diffusion
 import repro_torch.apps.lbm
