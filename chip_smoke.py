@@ -834,7 +834,7 @@ def sim_serving(record) -> None:
                          f"journal shared with {keys})")
 
         # One tick of a cohort in flight under set_sync_debug_mode: no
-        # admission, no dissolution, one launch and its synchronize.
+        # admission, no dissolution, one launch and no wait after it.
         eng = SimEngine(resolver())
         _, kern, state, regs = mix[0]
         zero()
@@ -853,8 +853,7 @@ def sim_serving(record) -> None:
         if eng.launches != n + 1 or out or eng.queue:
             fail("phase 9: the sync-debug tick did not launch one cohort")
         phase(f"  one tick under set_sync_debug_mode('error'): one launch "
-              f"of width {width}, no host sync but the launch's "
-              "synchronize")
+              f"of width {width}, no host sync")
         eng.run_until_drained()
         taken("by the sync-debug engine")
 

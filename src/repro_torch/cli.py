@@ -462,10 +462,11 @@ def serve_report(engine, completions, cells: dict) -> dict:
     updates of the completed requests, ``cells``: rid → H·W, over
     ``served_s``: the end-to-end served rate, tuning, admission, cohort
     dissolution and host gaps included) and ``launch_mlups`` (the same
-    updates over the launches' wall alone, a per-layer figure). One line
-    splits the tick: the kernel's enqueue a launch, and the shares of
-    ``served_s`` the dissolutions and the tick's other host work took
-    (``tick_s`` less the launches and the dissolutions)."""
+    updates over the launches' host calls alone, a per-layer figure:
+    nothing waits after a launch). One line splits the tick: the kernel's
+    enqueue a launch, the shares of ``served_s`` the dissolutions and the
+    tick's other host work took (``tick_s`` less the launches and the
+    dissolutions), and the host's waits on the card with their share."""
     stats = engine.stats()
     lat = sorted(c.latency_s for c in completions)
 
@@ -490,7 +491,8 @@ def serve_report(engine, completions, cells: dict) -> dict:
           f"ms / p99 {pct(99) * 1e3:.1f} ms")
     print(f"served {updates} lattice updates in {served:.3f} s from first "
           f"arrival to drained: {stats['mlups']:.1f} MLUPS end to end "
-          f"({stats['launch_mlups']:.1f} over the launches' wall alone)")
+          f"({stats['launch_mlups']:.1f} over the launches' host calls "
+          "alone)")
 
     def share(seconds):
         return 100 * seconds / served if served > 0 else 0.0
@@ -499,7 +501,8 @@ def serve_report(engine, completions, cells: dict) -> dict:
     host = stats["tick_s"] - wall - stats["dissolve_s"]
     print(f"tick split: enqueue {enqueue_us:.1f} us a launch; dissolution "
           f"{share(stats['dissolve_s']):.1f}% and the tick's other host "
-          f"work {share(host):.1f}% of the served wall")
+          f"work {share(host):.1f}% of the served wall; waits on the card: "
+          f"{stats['waits']} ({share(stats['wait_s']):.1f}%)")
     print("batch occupancy: " + ", ".join(
         f"b={k}: {v}" for k, v in stats["occupancy"].items()))
     print(f"tuning: {stats['live_timings']} live timing(s), "

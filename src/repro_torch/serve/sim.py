@@ -38,18 +38,31 @@ launches the kernel, a CPU state runs its plain version. So the engine
 moves every state to the kernel's device at admission (a request may
 arrive as numpy or as a CPU tensor) and again when it re-forms a cohort
 (survivors come back from the host), and refuses a CUDA state given to
-an engine on the CPU. A launch ends in ``torch.cuda.synchronize`` of its
-card, the counterpart of ``jax.block_until_ready``; a cohort's
-dissolution is one ``.cpu()`` of the stacked state.
+an engine on the CPU. A cohort's dissolution is one ``.cpu()`` of the
+stacked state.
+
+The engine waits on the card only where the host reads device data;
+everything else is ordered by the stream. A launch is the call of the
+kernel alone: the next launch of its cohort, and the launches of other
+contexts in the same tick, queue behind it on the current stream while
+the host goes on. The host blocks (``torch.cuda.synchronize`` of the
+card, the counterpart of ``jax.block_until_ready``) before a
+dissolution's ``.cpu()``, before a live tuning timing (so launches queued
+by other contexts never land in it) and before copying a host state to
+the card (a copy from pageable memory waits behind the queue anyway).
+The device type decides: a CPU engine has nothing to wait on.
 
 The tick's phases are host spans under a profiler
 (:mod:`repro_torch.tracing`): ``sim.admit`` a request, ``sim.form`` a
 width-1 cohort, ``sim.enqueue`` the call of the kernel (``spd.launch``
 inside it: the launch's own host work), ``sim.dissolve`` a cohort.
 :meth:`SimEngine.stats` splits the tick on the host clock: ``tick_s``
-inside :meth:`~SimEngine.step`, ``launch_wall_s`` from the call of the
-kernel to the end of its synchronize, ``enqueue_s`` the call alone,
-``dissolve_s`` the ``.cpu()`` and the completions.
+inside :meth:`~SimEngine.step`; ``launch_wall_s`` and ``enqueue_s`` the
+call of the kernel, the same interval now that nothing waits after it;
+``dissolve_s`` the wait for the card, the ``.cpu()`` and the completions.
+``waits`` counts the host's blocking waits on the card and ``wait_s``
+sums them: the dissolutions' are part of ``dissolve_s``, a tuning drain's
+or a host copy's part of the tick's other host work.
 
 Accounting mirrors ``serve/engine.py``'s tick idioms: a bounded
 admission queue that rejects with backpressure when full
@@ -441,10 +454,11 @@ class SimEngine:
         self.completed = 0
         self.launches = 0
         self.member_steps = 0  # Σ (fused steps × members) over launches
-        self.launch_wall_s = 0.0
-        self.enqueue_s = 0.0  # inside kern(...), before the synchronize
-        self.dissolve_s = 0.0  # .cpu() of a cohort and its completions
+        self.enqueue_s = 0.0  # inside kern(...): a launch's whole wall
+        self.dissolve_s = 0.0  # wait, .cpu() of a cohort, its completions
         self.tick_s = 0.0  # inside step()
+        self.waits = 0  # the host's blocking waits on the card
+        self.wait_s = 0.0
         self.occupancy: dict[int, int] = {}  # launch width -> count
         self.tuning_ticks = 0  # ticks that advanced a search instead
 
@@ -460,10 +474,11 @@ class SimEngine:
         self.completed = 0
         self.launches = 0
         self.member_steps = 0
-        self.launch_wall_s = 0.0
         self.enqueue_s = 0.0
         self.dissolve_s = 0.0
         self.tick_s = 0.0
+        self.waits = 0
+        self.wait_s = 0.0
         self.occupancy = {}
         self.tuning_ticks = 0
 
@@ -518,9 +533,33 @@ class SimEngine:
             for g in self.groups.values()
         )
 
-    def _admit(self) -> None:
+    def _wait(self, device) -> None:
+        """Block the host until ``device`` has run everything queued on
+        it, counted in ``waits`` and ``wait_s``; a CPU device has nothing
+        queued."""
+        if device.type != "cuda":
+            return
+        t0 = time.perf_counter()
+        torch.cuda.synchronize(device)
+        self.waits += 1
+        self.wait_s += time.perf_counter() - t0
+
+    @staticmethod
+    def _elsewhere(state, device) -> bool:
+        return not isinstance(state, torch.Tensor) or \
+            state.device.type != device.type
+
+    def _to_device(self, state, device):
+        """``state`` as an f32 tensor on ``device``. A host state's copy
+        would block behind the queued launches: wait for them first, so
+        the wait is counted."""
         from repro_torch.interop import from_numpy
 
+        if self._elsewhere(state, device):
+            self._wait(device)
+        return from_numpy(state, device)
+
+    def _admit(self) -> None:
         while self.queue and self._active_count() < self.max_active:
             # One span a request: each may copy its state to the card.
             with span("sim.admit"):
@@ -536,7 +575,7 @@ class SimEngine:
                 if group is None:
                     group = self.groups[ctx] = _Group(kern=kern, ctx=ctx)
                 group.members.append(_Active(
-                    req=req, state=from_numpy(req.state, kern.device),
+                    req=req, state=self._to_device(req.state, kern.device),
                     remaining=int(req.steps), submitted_tick=tick,
                     submitted_s=t_s, admitted_tick=self.tick_count,
                 ))
@@ -560,6 +599,10 @@ class SimEngine:
                     group.session = self.resolver.open(
                         group.kern, group.members[0].state, group.ctx,
                     )
+                if group.session.stepper is not None:
+                    # A live timing may follow: drain the launches other
+                    # contexts queued, so none lands inside it.
+                    self._wait(group.kern.device)
                 group.plan = group.session.advance()
                 if group.plan is None:
                     self.tuning_ticks += 1
@@ -575,9 +618,9 @@ class SimEngine:
         one from the member FIFO if none is in flight, every state moved
         to the kernel's device, a width-1 cohort included); the cohort's
         stacked state advances across ticks, and members are sliced back
-        out — one host transfer — only when the cohort dissolves."""
-        from repro_torch.interop import from_numpy
-
+        out — one host transfer — only when the cohort dissolves. The
+        launch is not waited for: the cohort's next launch and its
+        dissolution's ``.cpu()`` follow it on the stream."""
         plan = group.plan
         kern = group.kern
         if group.cohort is None:
@@ -589,8 +632,10 @@ class SimEngine:
                 # A span encloses one copy at most: a stack of several
                 # host states goes without.
                 with span("sim.form"):
-                    stacked = from_numpy(batch[0].state, kern.device)
+                    stacked = self._to_device(batch[0].state, kern.device)
             else:
+                if any(self._elsewhere(a.state, kern.device) for a in batch):
+                    self._wait(kern.device)  # host states to copy
                 stacked = kern.pack_batch([a.state for a in batch])
             group.cohort = _Cohort(batch, stacked)
         co = group.cohort
@@ -601,15 +646,10 @@ class SimEngine:
                 co.stacked, group.ctx.regs, m=mm, block_h=plan.block_h,
                 double_buffer=plan.double_buffer,
             )
-        t1 = time.perf_counter()
-        if out.device.type == "cuda":
-            torch.cuda.synchronize(out.device)
-        wall = time.perf_counter() - t0
+        self.enqueue_s += time.perf_counter() - t0
         co.stacked = out
         width = len(co.members)
         self.launches += 1
-        self.enqueue_s += t1 - t0
-        self.launch_wall_s += wall
         self.member_steps += mm * width
         self.occupancy[width] = self.occupancy.get(width, 0) + 1
         for active in co.members:
@@ -620,6 +660,7 @@ class SimEngine:
             return done  # cohort stays stacked and in flight
         t0 = time.perf_counter()
         with span("sim.dissolve"):
+            self._wait(out.device)  # the host reads the card: wait for it
             host = out.cpu().numpy()  # one transfer for the whole cohort
             now = time.monotonic()
             survivors = []
@@ -694,13 +735,16 @@ class SimEngine:
             "completed": int(self.completed),
             "launches": int(self.launches),
             "member_steps": int(self.member_steps),
-            "launch_wall_s": float(self.launch_wall_s),
+            # nothing waits after the call: a launch's wall is its enqueue
+            "launch_wall_s": float(self.enqueue_s),
             "enqueue_s": float(self.enqueue_s),
             "dissolve_s": float(self.dissolve_s),
             "tick_s": float(self.tick_s),
+            "waits": int(self.waits),
+            "wait_s": float(self.wait_s),
             "steps_per_s": (
-                self.member_steps / self.launch_wall_s
-                if self.launch_wall_s > 0 else 0.0
+                self.member_steps / self.enqueue_s
+                if self.enqueue_s > 0 else 0.0
             ),
             "occupancy": {
                 str(k): int(v) for k, v in sorted(self.occupancy.items())

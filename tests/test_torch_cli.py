@@ -135,9 +135,9 @@ def test_serve_on_the_cpu_writes_its_json(tmp_path, capsys):
     assert set(got) == {
         "ticks", "submitted", "rejected", "completed", "launches",
         "member_steps", "launch_wall_s", "enqueue_s", "dissolve_s",
-        "tick_s", "steps_per_s", "occupancy", "tuning_ticks",
-        "live_timings", "plans", "latency", "served_s", "mlups",
-        "launch_mlups", "device"}
+        "tick_s", "waits", "wait_s", "steps_per_s", "occupancy",
+        "tuning_ticks", "live_timings", "plans", "latency", "served_s",
+        "mlups", "launch_mlups", "device"}
     assert got["completed"] == got["submitted"] == 6
     assert got["rejected"] == 0 and got["device"] == "cpu"
     assert set(got["latency"]) == {"p50_s", "p95_s", "p99_s"}
@@ -148,6 +148,7 @@ def test_serve_on_the_cpu_writes_its_json(tmp_path, capsys):
     assert "diffusion-32x32-a0.2, diffusion-64x64-a0.1, lbm-tgv-32x32" in out
     assert "batch occupancy: b=" in out and "MLUPS end to end" in out
     assert "tick split: enqueue " in out and "of the served wall" in out
+    assert "waits on the card: 0 " in out  # the CPU has none
     _, warm, out = serve("warm.json")
     assert warm["live_timings"] == 0 and "warm start" in out
     for key, plan in got["plans"].items():

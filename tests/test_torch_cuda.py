@@ -411,6 +411,109 @@ def test_batched_run_blocked_and_engine_on_the_card(card):
             regs=(0.2,)))
 
 
+def _engine_tenants():
+    """Two contexts on the card: diffusion 64×96 at α 0.2 and the uLBM PE
+    (Couette) 64×96, with four member states each."""
+    sim = dif.DiffusionSimulation(64, 96)
+    u0, _ = dif.sine_init(64, 96)
+    pe, f, attr, pe_regs = _pe(64, 96)
+    return [
+        (sim.kernel, (0.2,),
+         [sim.state(_noisy(u0, i)) for i in range(4)]),
+        (pe.stream_kernel(), pe_regs,
+         [pe.stream_state(_noisy(f, i), attr) for i in range(4)]),
+    ]
+
+
+def test_engine_equals_synchronized_single_launches(card):
+    """A mixed stream over two contexts, host and card states, cohorts of
+    two with survivors: nothing waits after a launch, and every completion
+    is bitwise the same request run alone through ``kern(...)`` with a
+    synchronize after each launch (steps are multiples of the plan's m, so
+    every launch of a member fuses m steps)."""
+    import numpy as np
+
+    from repro_torch.serve.sim import PlanResolver, SimEngine, SimRequest
+
+    tenants = _engine_tenants()
+    eng = SimEngine(PlanResolver(budget=0, b_values=(2,), bh_values=(16,),
+                                 m_values=(4,)))
+    steps = [8, 20, 12, 32, 4, 16, 24, 8]
+    reqs = []
+    for rid, n in enumerate(steps):
+        kern, regs, states = tenants[rid % 2]
+        st = states[rid // 2]
+        reqs.append(SimRequest(rid=rid, core=kern, regs=regs, steps=n,
+                               state=st.cpu().numpy() if rid % 4 < 2
+                               else st))
+        assert eng.submit(reqs[-1])
+    done = {c.rid: c for c in eng.run_until_drained()}
+    plans = {g.ctx.regs: g.plan for g in eng.groups.values()}
+    for req in reqs:
+        plan = plans[tuple(float(r) for r in req.regs)]
+        assert plan.m == 4 and plan.b == 2
+        x = torch.as_tensor(req.state).to("cuda")
+        for _ in range(req.steps // plan.m):
+            x = req.core(x, req.regs, m=plan.m, block_h=plan.block_h,
+                         double_buffer=plan.double_buffer)
+            torch.cuda.synchronize()
+        assert np.array_equal(done[req.rid].state, x.cpu().numpy()), req.rid
+    s = eng.stats()
+    assert "2" in s["occupancy"] and s["launches"] > len(steps)
+    assert s["waits"] > 0 and 0 < s["wait_s"] <= s["tick_s"]
+
+
+def test_engine_waits_once_for_a_long_request(card):
+    """One 1,024-step request at m 8: 128 launches queued on the stream
+    and one wait, the dissolution's, inside ``dissolve_s``."""
+    import numpy as np
+
+    from repro_torch.serve.sim import PlanResolver, SimEngine, SimRequest
+
+    kern, regs, states = _engine_tenants()[0]
+    eng = SimEngine(PlanResolver(budget=0, b_values=(1,), bh_values=(16,),
+                                 m_values=(8,)))
+    eng.submit(SimRequest(rid=0, core=kern, state=states[0], steps=1024,
+                          regs=regs))
+    (done,) = eng.run_until_drained()
+    s = eng.stats()
+    assert (s["launches"], s["waits"]) == (128, 1)
+    assert 0 < s["wait_s"] <= s["dissolve_s"]
+    plan = next(iter(eng.groups.values())).plan
+    want = kern.run_blocked(states[0], regs, steps=1024, m=8,
+                            block_h=plan.block_h,
+                            double_buffer=plan.double_buffer)
+    assert np.array_equal(done.state, want.cpu().numpy())
+
+
+def test_engine_drains_the_card_before_a_live_timing(card, tmp_path):
+    """With a tuning budget, work queued on the stream before a tick (half
+    a second of ``torch.cuda._sleep``, standing in for other contexts'
+    launches) has finished when the injected timer is called."""
+    from repro_torch.serve.sim import PlanResolver, SimEngine, SimRequest
+
+    kern, regs, states = _engine_tenants()[0]
+    idle = []
+
+    def timer(plan, run, reps, warmup):
+        idle.append(torch.cuda.current_stream().query())
+        return 1e-3 * len(idle)
+
+    eng = SimEngine(PlanResolver(budget=2, b_values=(1,),
+                                 bh_values=(8, 16), m_values=(2, 4),
+                                 study_dir=str(tmp_path), timer=timer))
+    eng.submit(SimRequest(rid=0, core=kern, state=states[0], steps=16,
+                          regs=regs))
+    for _ in range(8):
+        torch.cuda._sleep(1 << 30)
+        eng.step()
+        if all(g.plan is not None for g in eng.groups.values()):
+            break
+    assert idle and all(idle)
+    assert eng.stats()["waits"] >= len(idle)
+    assert len(eng.run_until_drained()) == 1
+
+
 def test_launch_and_mesh_device_checks(card):
     """A halo launch writes into a row range of a larger buffer and
     refuses an output that overlaps its input; a CUDA state given to a

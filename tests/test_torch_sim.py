@@ -357,6 +357,85 @@ def test_reset_counters_opens_fresh_window_keeping_plans():
     assert plan is not None  # pinned plans survive the window reset
 
 
+def test_a_cpu_engine_never_waits_and_reset_zeroes_the_waits():
+    """Host states at admission, cohorts of two with survivors restacked
+    from the host: a CPU engine has nothing queued to wait on, so
+    ``waits`` and ``wait_s`` stay 0; ``reset_counters`` zeroes both."""
+    kern, mk, regs = _diffusion_tenant()
+    eng = _engine(_resolver(b_values=(2,), m_values=(2,)))
+    for rid, steps in enumerate((2, 6, 4)):
+        eng.submit(SimRequest(rid=rid, core=kern, state=mk(rid),
+                              steps=steps, regs=regs))
+    assert len(eng.run_until_drained()) == 3
+    s = eng.stats()
+    assert s["launches"] > 0 and s["occupancy"]["2"] > 0
+    assert s["waits"] == 0 and s["wait_s"] == 0.0
+    eng.waits, eng.wait_s = 3, 0.5  # as a card's engine would count
+    assert (eng.stats()["waits"], eng.stats()["wait_s"]) == (3, 0.5)
+    eng.reset_counters()
+    s = eng.stats()
+    assert s["waits"] == 0 and s["wait_s"] == 0.0
+
+
+def _record_waits(eng, log):
+    """Log ``("wait", launches so far)`` at each of the engine's waits,
+    then make the wait (a no-op on the CPU)."""
+    wait = eng._wait
+
+    def recorded(device):
+        log.append(("wait", eng.launches))
+        wait(device)
+
+    eng._wait = recorded
+
+
+def test_engine_waits_only_where_the_host_copies_or_reads():
+    """One 1,024-step request at m 8 from a host state: 128 launches and
+    two waits, before the admission's copy and before the dissolution's
+    ``.cpu()``; none after a launch."""
+    kern, mk, regs = _diffusion_tenant()
+    eng = _engine(_resolver(b_values=(1,), m_values=(8,)))
+    log = []
+    _record_waits(eng, log)
+    eng.submit(SimRequest(rid=0, core=kern, state=mk(0), steps=1024,
+                          regs=regs))
+    (done,) = eng.run_until_drained()
+    assert eng.stats()["launches"] == 128
+    assert log == [("wait", 0), ("wait", 128)]
+    assert done.steps == 1024
+
+
+def test_engine_drains_before_every_live_timing(tmp_path):
+    """With a tuning budget, each live timing of a context still tuning
+    follows a wait, while another context's cohort is in flight; the
+    CPU's waits count nothing."""
+    kd, mkd, rd = _diffusion_tenant()
+    kl, mkl, rl = _lbm_tenant()
+    log = []
+
+    class Timer(KeyTimer):
+        def __call__(self, plan, run, reps, warmup):
+            log.append(("time", None))
+            return super().__call__(plan, run, reps, warmup)
+
+    timer = Timer()
+    eng = _engine(_resolver(tmp_path, budget=3, timer=timer,
+                            m_values=(1,)))
+    _record_waits(eng, log)
+    eng.submit(SimRequest(rid=0, core=kd, state=torch.from_numpy(mkd(0)),
+                          steps=64, regs=rd))
+    while next(iter(eng.groups.values()), None) is None or \
+            next(iter(eng.groups.values())).cohort is None:
+        eng.step()  # the diffusion context tunes, then launches
+    eng.submit(SimRequest(rid=1, core=kl, state=torch.from_numpy(mkl(0)),
+                          steps=8, regs=rl))
+    assert len(eng.run_until_drained()) == 2
+    assert len(timer.calls) == eng.stats()["live_timings"] > 3
+    times = [i for i, (what, _) in enumerate(log) if what == "time"]
+    assert all(i > 0 and log[i - 1][0] == "wait" for i in times)
+    assert eng.stats()["waits"] == 0 and eng.stats()["wait_s"] == 0.0
+
+
 def test_smem_pricing_and_model_agree_on_b():
     """The reference's VMEM rule scales with b, as there; the H100's
     shared-memory rule is priced per member (a block holds one member's

@@ -120,9 +120,11 @@ def test_engine_stats_split_the_tick(trace):
     assert s["tick_s"] >= s["launch_wall_s"] + s["dissolve_s"]
     assert s["launch_wall_s"] >= s["enqueue_s"] > 0
     assert s["dissolve_s"] > 0
+    assert s["dissolve_s"] >= s["wait_s"]
     eng.reset_counters()
     s = eng.stats()
     assert s["enqueue_s"] == s["dissolve_s"] == s["tick_s"] == 0.0
+    assert s["wait_s"] == 0.0
 
 
 @pytest.mark.parametrize("name", ["setup.parse", "setup.compile",
