@@ -20,8 +20,12 @@ Kinds of mix:
     (``Explorer.sweep_gpu`` over the configuration's ``plan_lattice``, the
     first point by ``sustained_gflops``), each simulation starting from the
     last one's result, until ``--seconds`` have passed; every simulation
-    ends in ``torch.cuda.synchronize``. ``mlups``: all lattice updates of
-    the window over its seconds.
+    ends in ``torch.cuda.synchronize`` of every card the run uses.
+    ``mlups``: all lattice updates of the window over its seconds. Where
+    the lattice has ``d`` > 1 (and ``dx``), the point's ``(d, dx)`` mesh
+    runs ``ShardedStreamKernel.run_for_point``, one shard a card
+    (:func:`mesh_kernel`): the state is cut into shards and gathered back
+    to the first card for every simulation.
 ``serve``
     Open-loop arrivals on the wall clock (:func:`bench.loads.open_loop`)
     into one ``SimEngine`` whose contexts serve at the model's plan
@@ -126,9 +130,10 @@ class Reading:
 
     kind: str
     frozen: dict
-    peaks: dict | None
+    peaks: dict | None  # one card's
     cells: int
     window_s: float
+    devices: int = 1  # distinct cards the run used
     updates: int = 0
     launches: int = 0
     plan: dict = field(default_factory=dict)
@@ -152,11 +157,27 @@ class Spans:
         return record_function(name)
 
 
-def _sync(device) -> None:
+def _sync(devices) -> None:
+    """Wait for every CUDA card of ``devices``."""
     import torch
 
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    for dev in devices:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
+def distinct_devices(devices) -> list:
+    """The distinct devices of ``devices``, in order; a CUDA device with no
+    index is the current card."""
+    import torch
+
+    out = []
+    for dev in map(torch.device, devices):
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev not in out:
+            out.append(dev)
+    return out
 
 
 def max_abs_gap(out, ref) -> float:
@@ -173,8 +194,29 @@ def max_abs_gap(out, ref) -> float:
 def _model_plan(system, config: dict):
     lat = config["plan_lattice"]
     sweep = system.explorer().sweep_gpu(
-        bh_values=lat["block_h"], m_values=lat["m"], d_values=lat["d"])
+        bh_values=lat["block_h"], m_values=lat["m"], d_values=lat["d"],
+        dx_values=lat.get("dx", [1]))
     return sweep.best(key="sustained_gflops")
+
+
+def mesh_devices(device, d: int) -> list:
+    """One device a shard: the cards ``cuda:0 … cuda:d-1``, each once, or
+    the CPU d times."""
+    import torch
+
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(d)]
+    return [device] * d
+
+
+def mesh_kernel(kernel, d: int, dx: int, device):
+    """The kernel that runs a ``(d / dx, dx)`` mesh, and the devices it
+    uses: ``kernel`` itself where ``d`` is 1, else ``kernel.sharded`` on
+    :func:`mesh_devices`."""
+    if d == 1:
+        return kernel, [kernel.device]
+    devices = mesh_devices(device, d)
+    return kernel.sharded(d, devices, dx=dx), devices
 
 
 # --------------------------------------------------------------------------
@@ -186,41 +228,50 @@ def _run_kind(cell, app, seed, spans, device, log):
     import numpy as np
     import torch
 
-    from repro_torch.core.legalize import resolve_run_plan
-
     mix, config = cell.mix, cell.config
     h, w = mix["grid"]
     steps = int(mix["steps_per_simulation"])
     tenant = mix.get("tenant", {})
     system = app.build(config, (h, w), device)
-    kern, regs = system.kernel, system.regs(tenant)
+    regs = system.regs(tenant)
     gen = torch.Generator(device=device).manual_seed(seed)
     state = system.states(mix["init"], 1, gen)[0]
     with spans("explore"):
         point = _model_plan(system, config)
-    block_h, m, nsteps, _ = resolve_run_plan(h, point, steps,
-                                             halo=kern.halo, dx=1)
-    if nsteps != steps:
-        raise ValueError(f"plan {point} takes {nsteps} steps, not {steps}")
-    warm, plan = kern.run_for_point(state, regs, point=point, steps=2 * m)
-    _sync(device)
+    d, dx = int(point.detail.get("d", 1)), int(point.detail.get("dx", 1))
+    kern, devices = mesh_kernel(system.kernel, d, dx, device)
+    devices = distinct_devices([state.device] + devices)
+    # One fused launch at the point, legalized by the kernel itself.
+    warm, plan = kern.run_for_point(state, regs, point=point)
+    _sync(devices)
     del warm
-    block_w, db = kern.tile(w, plan[0], plan[1], double_buffer=plan[2])
-    log(f"plan: model's pick block_h {point.detail['block_rows']} m "
-        f"{point.m} ({point.sustained_gflops:.1f} GF/s predicted); run at "
-        f"block_h {plan[0]}, block_w {block_w}, m {plan[1]}, prefetch {db}")
+    block_h, m, db = plan
+    if steps % m:
+        raise ValueError(f"plan {point} fuses {m} steps, which do not "
+                         f"divide {steps}")
+    tile = ""
+    if d == 1:
+        block_w, db = kern.tile(w, block_h, m, double_buffer=db)
+        tile = f", block_w {block_w}"
+    log(f"plan: model's pick mesh ({d // dx}, {dx}) block_h "
+        f"{point.detail['block_rows']} m {point.m} "
+        f"({point.sustained_gflops:.1f} GF/s predicted); run at block_h "
+        f"{block_h}{tile}, m {m}, prefetch {db}, on "
+        f"{', '.join(map(str, devices))}")
     pick = int(np.random.default_rng(seed).integers(
         int(mix["sample_first"])))
-    name = kern.program.name
+    program = system.kernel.program
     return {
         "system": system, "kern": kern, "regs": regs, "tenant": tenant,
         "state": state, "point": point, "steps": steps, "pick": pick,
-        "plan": {"block_h": plan[0], "m": plan[1], "block_w": block_w},
-        "launch_count": lambda: kern.program.launches.get(name, 0),
+        "devices": devices,
+        "plan": {"block_h": block_h, "m": m, "d": d, "dy": d // dx,
+                 "dx": dx, **({"block_w": block_w} if d == 1 else {})},
+        "launch_count": lambda: program.launches.get(program.name, 0),
     }
 
 
-def _run_window(s, seconds, spans, device):
+def _run_window(s, seconds, spans):
     kern, regs, point, steps = s["kern"], s["regs"], s["point"], s["steps"]
     l0 = s["launch_count"]()
     prev, n, kept = s.pop("state"), 0, None
@@ -230,7 +281,7 @@ def _run_window(s, seconds, spans, device):
             with spans("run_for_point"):
                 out, _ = kern.run_for_point(prev, regs, point=point,
                                             steps=steps)
-                _sync(device)
+                _sync(s["devices"])
             if n == s["pick"]:
                 kept = (prev, out)
             last = (prev, out)
@@ -341,11 +392,11 @@ def _serve_kind(cell, app, seed, seconds, spans, device, log, study_dir):
     return {
         "system": system, "kern": kern, "engine": engine, "regs": regs,
         "pools": pools, "sched": sched, "sample": sample,
-        "request": SimRequest,
+        "request": SimRequest, "devices": distinct_devices([device]),
     }
 
 
-def _serve_window(s, seconds, spans, device, profiler_stop):
+def _serve_window(s, seconds, spans, profiler_stop):
     engine, kern, sched = s["engine"], s["kern"], s["sched"]
     offs, tenant, steps, pool_ix = (sched["due_s"], sched["tenant"],
                                     sched["steps"], sched["pool"])
@@ -401,7 +452,7 @@ def _serve_window(s, seconds, spans, device, profiler_stop):
         while i < n_total and due[i] < end:
             submit(i, now)
             i += 1
-        _sync(device)
+        _sync(s["devices"])
     window = time.monotonic() - base
     in_window = i
     stats = engine.stats()
@@ -487,16 +538,33 @@ def _serve_check(s, control):
 # --------------------------------------------------------------------------
 
 
-def _device_info(device) -> dict:
+def _device_info(devices) -> dict:
+    """The result line's ``device``, read from what the run did. On cards,
+    ``count`` is the cards of the machine on which the run allocated
+    memory (a peak above 0), ``memory_peak_bytes`` the fullest one's peak,
+    each one's beside it, and ``kind`` the first one's (the run fails
+    where they differ); ``devices``, those the run's system was given,
+    only tells cards from the CPU, which counts once."""
     import torch
 
-    if device.type != "cuda":
-        return {"platform": "cpu", "kind": "cpu", "count": 1,
+    devices = distinct_devices(devices)
+    if devices[0].type != "cuda":
+        return {"platform": "cpu", "kind": "cpu", "count": len(devices),
                 "memory_peak_bytes": 0}
-    return {"platform": "gpu",
-            "kind": torch.cuda.get_device_name(device),
-            "count": 1,
-            "memory_peak_bytes": int(torch.cuda.max_memory_allocated(device))}
+    cards = [torch.device("cuda", i)
+             for i in range(torch.cuda.device_count())]
+    peaks = {card: int(torch.cuda.max_memory_allocated(card))
+             for card in cards}
+    used = [card for card in cards if peaks[card] > 0]
+    if not used:
+        raise RuntimeError("the run allocated no memory on any card")
+    kinds = [torch.cuda.get_device_name(card) for card in used]
+    if len(set(kinds)) > 1:
+        raise RuntimeError(f"the run's cards differ in kind: {kinds}")
+    per_card = [peaks[card] for card in used]
+    return {"platform": "gpu", "kind": kinds[0], "count": len(used),
+            "memory_peak_bytes": max(per_card),
+            "memory_peak_bytes_per_device": per_card}
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
@@ -556,12 +624,13 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
                 s["mix_tenants"] = cell.mix["tenants"]
             else:
                 raise ValueError(f"unknown traffic kind {kind!r}")
-            _sync(dev)
+            devices = s["devices"]
+            _sync(devices)
             setup_s = time.time() - t0
             start_profiler()
             if kind == "run":
-                window, launches = _run_window(s, seconds, spans, dev)
-                _sync(dev)
+                window, launches = _run_window(s, seconds, spans)
+                _sync(devices)
                 stop_profiler()
                 h, w = cell.mix["grid"]
                 updates = s["sims"] * s["steps"] * h * w
@@ -571,7 +640,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
                     "simulations": s["sims"], "checked_simulation":
                     s["checked"], "plan": s["plan"]}
             else:
-                out = _serve_window(s, seconds, spans, dev, stop_profiler)
+                out = _serve_window(s, seconds, spans, stop_profiler)
                 window, launches, updates = out["window_s"], 0, 0
                 lat = out["latencies_ms"]
                 if not lat:
@@ -591,12 +660,13 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
                 out_info["latency_p95_ms"] = latency["p95_ms"]
                 out_info["latency_p99_ms"] = nearest_rank(lat, 99)
                 out_info["latency_max_ms"] = lat[-1]
-            device_info = _device_info(dev)
+            device_info = _device_info(devices)
             reduced = None
             if prof is not None:
                 from bench.tracing import reduce_profile
 
-                reduced = reduce_profile(prof)
+                reduced = reduce_profile(prof, [
+                    d.index for d in devices if d.type == "cuda"] or None)
                 prof = None
             with spans("check"):
                 gaps = (_run_check(s, control) if kind == "run"
@@ -612,7 +682,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
 
         peaks = peaks_for(device_info["kind"])
     reading = Reading(kind=kind, frozen=cell.config["frozen"], peaks=peaks,
-                      cells=h * w, window_s=window, updates=updates,
+                      cells=h * w, window_s=window,
+                      devices=device_info["count"], updates=updates,
                       launches=launches,
                       plan=out_info.get("plan", {}), engine=engine_stats,
                       latency=latency, trace=reduced)
@@ -630,8 +701,8 @@ def _result(cell, trace, e2e, reading, gaps, attempted, failed,
                 metrics[m["name"]] = {"value": float(value),
                                       "unit": m["unit"]}
         if reading.trace is not None and reading.peaks is not None:
-            device_info["busy_s"] = reading.trace["busy_s"]
-            device_info["window_s"] = reading.trace["window_s"]
+            for key in ("busy_s", "busy_s_per_device", "window_s"):
+                device_info[key] = reading.trace[key]
     else:
         for m in cell.end_to_end:
             metrics[m["name"]] = {"value": float(e2e[m["name"]]),

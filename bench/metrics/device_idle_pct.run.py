@@ -1,4 +1,6 @@
-"""Share of the traced window with nothing running on the card."""
+"""Share of the traced window with nothing running on the card: on a mesh,
+the mean over its cards of each card's idle share (``busy_s`` is the mean
+of the cards' busy seconds)."""
 
 
 def read(r):

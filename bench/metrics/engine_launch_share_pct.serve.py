@@ -1,5 +1,6 @@
 """Share of the window's wall the engine spent inside its launches
-(``SimEngine.stats()['launch_wall_s']``, each launch synchronized)."""
+(``SimEngine.stats()['launch_wall_s']``: the host's call of each launch,
+which enqueues it on the stream and does not wait for the card)."""
 
 
 def read(r):

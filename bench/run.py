@@ -11,8 +11,9 @@ error. ``--trace 1`` records the window with ``torch.profiler`` and
 reports the per-layer metrics instead of the end-to-end ones.
 
 Exits with 2, printing no result, without a CUDA card (or fewer cards
-than the cell asks for), and with 3 when ``jax``, ``jaxlib``, ``flax`` or
-the JAX package ``repro`` was loaded into the process.
+than the cell asks for), with 3 when ``jax``, ``jaxlib``, ``flax`` or the
+JAX package ``repro`` was loaded into the process, and with 4 when the
+run used fewer distinct cards than the cell's ``chips``.
 """
 
 import time
@@ -78,6 +79,11 @@ def main(argv=None) -> int:
         print(f"the run loaded {', '.join(found)}", file=sys.stderr)
         return 3
     result = out["result"]
+    used = result["device"]["count"]
+    if used < chips:
+        print(f"{args.workload} asks for {chips} card(s); the run used "
+              f"{used}", file=sys.stderr)
+        return 4
     print("info: " + json.dumps(out["info"], sort_keys=True), flush=True)
     print(json.dumps(result), flush=True)
     for name, c in result["checks"].items():

@@ -4,16 +4,18 @@ Each test drives a whole run of a cell on the CPU at a tiny size, the
 harness's look for a card skipped (``device="cpu"``: the stream kernels
 run their plain versions), with a fault planted in the port underneath:
 the kernel handing back the state it was given, one word of its answer
-altered, or (in a batched launch) half of the batch left out. The cells
-run on one card, so no exchange between cards can be left out. A sound
-run comes out correct; each fault, and the lower-precision control put in
-the program's place, comes out not correct.
+altered, (in a batched launch) half of the batch left out, or (in the
+mesh cell, its four shards on ``["cpu"] * 4``) the exchange between
+shards left out. A sound run comes out correct; each fault, and the
+lower-precision control put in the program's place, comes out not
+correct.
 """
 
 import pytest
 
 from bench import harness
 from repro_torch.core.codegen import StreamKernel
+from repro_torch.core.distribute import ShardBuffers, ShardedStreamKernel
 
 SEED = 2**31 + 11
 TINY = {
@@ -27,9 +29,11 @@ TINY = {
         "grid": [24, 32], "rate_per_s": 40,
         "steps": {"law": "log_uniform", "min": 16, "max": 64,
                   "multiple": 8}},
+    "lbm-tgv-8192.mesh4": {"grid": [64, 64], "steps_per_simulation": 32},
 }
 CELLS = list(TINY)
 RUN = [c for c in CELLS if c.endswith(".run")]
+MESH = [c for c in CELLS if c.endswith(".mesh4")]
 SERVE = [c for c in CELLS if c.endswith(".serve")]
 
 
@@ -73,6 +77,23 @@ def test_a_broken_run_is_not_correct(cell, fault, monkeypatch):
         return (state.clone() if fault == "unchanged" else alter(out)), plan
 
     monkeypatch.setattr(StreamKernel, "run_for_point", broken)
+    assert not run(cell)["result"]["correct"]
+
+
+@pytest.mark.parametrize("cell", MESH)
+@pytest.mark.parametrize("fault", ["unchanged", "altered", "no_exchange"])
+def test_a_broken_mesh_is_not_correct(cell, fault, monkeypatch):
+    real = ShardedStreamKernel.run_for_point
+
+    def broken(self, state, regs=(), *, point, steps=None):
+        out, plan = real(self, state, regs, point=point, steps=steps)
+        return (state.clone() if fault == "unchanged" else alter(out)), plan
+
+    if fault == "no_exchange":
+        for name in ("exchange_x", "exchange_y"):
+            monkeypatch.setattr(ShardBuffers, name, lambda self: None)
+    else:
+        monkeypatch.setattr(ShardedStreamKernel, "run_for_point", broken)
     assert not run(cell)["result"]["correct"]
 
 

@@ -39,7 +39,9 @@ def test_contract_shape():
     assert len(pairs) == len(CELLS)
     for w in SPEC["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and 1 <= len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and 1 <= len(w["why"]) <= 200
+    four = sum(w["chips"] == 4 for w in SPEC["workloads"])
+    assert four <= max(1, len(CELLS) // 4)
     e2e = {m["name"]: m for m in SPEC["end_to_end"]}
     assert e2e["setup_s"]["bound"] <= 0.25 and "workloads" not in \
         e2e["setup_s"]
@@ -72,7 +74,7 @@ def test_cell_resolves_to_its_files(name):
         assert callable(harness.load_reader(m["name"]))
 
 
-@pytest.mark.parametrize("config", ["ulbm-pe-d2q9", "diffusion-5pt"])
+@pytest.mark.parametrize("config", [c["name"] for c in SPEC["configs"]])
 def test_frozen_counts_match_the_census(config):
     """The frozen flops are the core's census; the planes its state's."""
     entry = next(c for c in SPEC["configs"] if c["name"] == config)

@@ -5,13 +5,21 @@ the host's work inside it with spans of its own (``run_for_point``,
 ``engine.step``, ``submit``, ``wait_arrival``, ``check``). From the raw
 kineto events this module takes:
 
-- ``busy_s``: the union of the device's activity intervals (kernels,
-  copies, fills) inside the window; the profiler's device-side copies of
-  the harness's spans are annotations, not activity, and are left out;
-- ``kernels``: device seconds and launches by kernel name;
-- ``idle_gaps``: the window's stretches with nothing on the device,
-  summed by what the host was doing there: the harness span open at the
-  gap's middle, and the innermost host operation open there.
+- ``busy_s``: for each card the run used, the union of its activity
+  intervals (kernels, copies, fills) inside the window, and the mean of
+  those over the cards (``busy_s_per_device`` keeps each), so that
+  ``busy_s / window_s`` stays a share of the window; the profiler's
+  device-side copies of the harness's spans are annotations, not
+  activity, and are left out;
+- ``kernels``: device seconds and launches by kernel name, summed over
+  the cards (card-seconds);
+- ``idle_gaps``: each card's stretches of the window with nothing on it,
+  labelled by what the host was doing there (the harness span open at
+  the gap's middle, and the innermost host operation open there), summed
+  by label over the cards and divided by their count, so that they add
+  up with ``busy_s`` to the window.
+
+With one card every number is that card's.
 """
 
 from __future__ import annotations
@@ -40,31 +48,7 @@ def _merge(intervals):
     return out
 
 
-def reduce_events(events) -> dict | None:
-    """``events``: ``(name, on_device, start_ns, end_ns)`` tuples. Returns
-    the window's numbers, or None when no window span was recorded."""
-    win = [(s, e) for n, dev, s, e in events if not dev and n == WINDOW]
-    if not win:
-        return None
-    w0, w1 = win[0]
-    device, host, spans = [], [], []
-    kernels: dict[str, list] = {}
-    for name, dev, s, e in events:
-        if e <= w0 or s >= w1:
-            continue
-        if dev:
-            if name in SPANS or name == WINDOW:
-                continue  # the device-side copy of a host span
-            s, e = max(s, w0), min(e, w1)
-            device.append((s, e))
-            k = kernels.setdefault(short_name(name), [0, 0.0])
-            k[0] += 1
-            k[1] += (e - s) / 1e9
-        elif name in SPANS:
-            spans.append((s, e, name))
-        elif name != WINDOW:
-            host.append((s, e, name))
-    busy = _merge(device)
+def _gaps(busy, w0, w1):
     gaps, t = [], w0
     for s, e in busy:
         if s > t:
@@ -72,41 +56,81 @@ def reduce_events(events) -> dict | None:
         t = max(t, e)
     if t < w1:
         gaps.append((t, w1))
+    return gaps
+
+
+def reduce_events(events, devices=None) -> dict | None:
+    """``events``: ``(name, on_device, start_ns, end_ns[, card])`` tuples,
+    ``card`` the index of a device event's card (0 where left out).
+    ``devices``: the indices of the cards the run used (default: the cards
+    with events, or card 0); a card with nothing in the window is idle all
+    through it. Returns the window's numbers, or None when no window span
+    was recorded."""
+    win = [(ev[2], ev[3]) for ev in events if not ev[1] and ev[0] == WINDOW]
+    if not win:
+        return None
+    w0, w1 = win[0]
+    by_card: dict[int, list] = {}
+    host, spans = [], []
+    kernels: dict[str, list] = {}
+    for name, dev, s, e, *card in events:
+        if e <= w0 or s >= w1:
+            continue
+        if dev:
+            if name in SPANS or name == WINDOW:
+                continue  # the device-side copy of a host span
+            s, e = max(s, w0), min(e, w1)
+            by_card.setdefault(card[0] if card else 0, []).append((s, e))
+            k = kernels.setdefault(short_name(name), [0, 0.0])
+            k[0] += 1
+            k[1] += (e - s) / 1e9
+        elif name in SPANS:
+            spans.append((s, e, name))
+        elif name != WINDOW:
+            host.append((s, e, name))
+    cards = list(devices) if devices is not None else sorted(by_card) or [0]
     spans.sort()
     host.sort()
     span_starts = [s for s, _, _ in spans]
     host_starts = [s for s, _, _ in host]
     labelled: dict[str, float] = {}
-    for g0, g1 in gaps:
-        mid = (g0 + g1) // 2
-        label = "no span"
-        i = bisect.bisect_right(span_starts, mid) - 1
-        if i >= 0 and spans[i][1] >= mid:
-            label = spans[i][2]
-        j = bisect.bisect_right(host_starts, mid) - 1
-        for k in range(j, max(j - 256, -1), -1):
-            if host[k][1] >= mid:
-                label += "/" + host[k][2]
-                break
-        labelled[label] = labelled.get(label, 0.0) + (g1 - g0) / 1e9
+    busy_s = []
+    for card in cards:
+        busy = _merge(by_card.get(card, []))
+        busy_s.append(sum(e - s for s, e in busy) / 1e9)
+        for g0, g1 in _gaps(busy, w0, w1):
+            mid = (g0 + g1) // 2
+            label = "no span"
+            i = bisect.bisect_right(span_starts, mid) - 1
+            if i >= 0 and spans[i][1] >= mid:
+                label = spans[i][2]
+            j = bisect.bisect_right(host_starts, mid) - 1
+            for k in range(j, max(j - 256, -1), -1):
+                if host[k][1] >= mid:
+                    label += "/" + host[k][2]
+                    break
+            labelled[label] = (labelled.get(label, 0.0)
+                               + (g1 - g0) / 1e9 / len(cards))
     return {
         "window_s": (w1 - w0) / 1e9,
-        "busy_s": sum(e - s for s, e in busy) / 1e9,
+        "busy_s": sum(busy_s) / len(cards),
+        "busy_s_per_device": busy_s,
         "kernels": {k: (n, sec) for k, (n, sec) in kernels.items()},
         "idle_gaps": sorted(labelled.items(), key=lambda kv: -kv[1]),
     }
 
 
-def reduce_profile(prof) -> dict | None:
-    """:func:`reduce_events` over a finished ``torch.profiler.profile``."""
+def reduce_profile(prof, devices=None) -> dict | None:
+    """:func:`reduce_events` over a finished ``torch.profiler.profile``;
+    ``devices``: the indices of the cards the run used."""
     from torch.autograd import DeviceType
 
     events = []
     for e in prof.profiler.kineto_results.events():
         s = e.start_ns()
         events.append((e.name(), e.device_type() == DeviceType.CUDA, s,
-                       s + e.duration_ns()))
-    return reduce_events(events)
+                       s + e.duration_ns(), e.device_index()))
+    return reduce_events(events, devices)
 
 
 def breakdown(reduced: dict) -> dict:
