@@ -7,7 +7,7 @@ files by name (``bench/README.md``):
   whose ``"app"`` names the adapter ``bench/apps/<app>.py`` that builds the
   port's system under test and hands the same inputs to the plain
   reference, and whose ``frozen`` holds the counts of the yardstick;
-- ``bench/traffic/<traffic>.json`` is the mix, of one of the two kinds
+- ``bench/traffic/<traffic>.json`` is the mix, of one of the three kinds
   below, read by the general generators of :mod:`bench.loads`;
 - ``bench/limits/<cell>.json`` holds the limit of each number compared;
 - ``bench/metrics/<metric>.py`` reads each per-layer metric.
@@ -37,14 +37,30 @@ Kinds of mix:
     ``failed``. The nearest-rank p50 and p95 of those latencies are
     per-layer metrics: above capacity the queue grows all through the
     window, so they swing with the smallest change.
+``train``
+    A language model's training step through the port's normal path
+    (``registry.build`` → ``make_train_step``, adapter
+    :mod:`bench.apps.lm_train`), with autograd on. Set-up runs the mix's
+    ``checked_steps`` first steps, which warm up every shape; the window
+    then runs steps back to back on fresh batches of
+    :func:`bench.loads.token_batch`, a closed loop, with no wait of the
+    harness's between steps, until ``--seconds`` have passed, and waits
+    for the card once at its end. ``tokens_per_s``: the tokens of the
+    window's steps over its seconds, the final wait included.
 
-``correct``: the plain reference (:mod:`bench.reference`) runs, after the
-window and once the peak memory is read, from the same inputs over the
-same steps as what the timed path produced: one simulation of the chain
-(its index drawn from the seed) in a run cell; in a serve cell a sample of
-the retired requests drawn from the seed, the longest among them, each
-compared with the state the engine handed back. The number compared is
-the widest absolute gap of any word of the state.
+``correct`` of a ``run`` or ``serve`` cell: the plain reference
+(:mod:`bench.reference`) runs, after the window and once the peak memory
+is read, from the same inputs over the same steps as what the timed path
+produced: one simulation of the chain (its index drawn from the seed) in
+a run cell; in a serve cell a sample of the retired requests drawn from
+the seed, the longest among them, each compared with the state the
+engine handed back. The number compared is
+the widest absolute gap of any word of the state. Of a ``train`` cell:
+the configuration's reference (``train``) runs the checked steps from the
+same weights on the same batches, after the window with the port's model
+and optimizer state freed, and :func:`train_gaps` compares each step's
+loss, each leaf's gradient norm at the first step and each leaf's change
+after the last.
 """
 
 from __future__ import annotations
@@ -56,6 +72,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import sys
 import tempfile
 import time
@@ -131,11 +148,13 @@ class Reading:
     kind: str
     frozen: dict
     peaks: dict | None  # one card's
-    cells: int
+    cells: int  # lattice cells of a run or serve mix, 0 for train
     window_s: float
     devices: int = 1  # distinct cards the run used
     updates: int = 0
     launches: int = 0
+    steps: int = 0  # training steps of the window
+    tokens: int = 0  # their tokens
     plan: dict = field(default_factory=dict)
     engine: dict = field(default_factory=dict)
     latency: dict = field(default_factory=dict)
@@ -534,6 +553,131 @@ def _serve_check(s, control):
 
 
 # --------------------------------------------------------------------------
+# train: a language model's training steps, back to back
+# --------------------------------------------------------------------------
+
+#: The control of a train cell: the reference put in the program's place
+#: with every matrix product's inputs rounded to float8.
+TRAIN_CONTROLS = ("fp8",)
+
+
+def _train_kind(cell, app, seed, spans, device, log):
+    system = app.build(cell.config, cell.mix, device, seed)
+    system.checked_steps(spans)
+    params = sum(math.prod(spec[1]) for spec in system.specs)
+    log(f"train: {system.cfg.name} at {system.cfg.n_layers} layers, "
+        f"{params:,} parameters, {system.tokens_per_step:,} tokens a step, "
+        f"{system.k} checked steps in set-up; set-up phases (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in system.phases.items()))
+    return {"system": system, "devices": distinct_devices([device]),
+            "phases": system.phases}
+
+
+def _train_window(s, seconds, spans):
+    system = s["system"]
+    n = 0
+    t0 = time.perf_counter()
+    with spans("bench.window"):
+        while True:
+            with spans("train.step"):
+                system.step()
+            n += 1
+            if time.perf_counter() - t0 >= seconds:
+                break
+        _sync(s["devices"])
+    return time.perf_counter() - t0, n, n * system.tokens_per_step
+
+
+def _gap(prog: float, ref: float, den: float) -> float:
+    """``|prog − ref| / den``, infinite where the program's number is not
+    finite."""
+    if not math.isfinite(prog):
+        return math.inf
+    if den == 0:
+        return 0.0 if prog == ref else math.inf
+    return abs(prog - ref) / den
+
+
+def leaf_gaps(prog: dict, ref: dict, key: str, names) -> dict:
+    """``{leaf: |prog − ref| / max(ref, the median leaf's ref)}`` of the
+    per-leaf norms ``key`` over the leaves ``names``."""
+    med = statistics.median(ref[key][n] for n in names)
+    return {n: _gap(prog[key][n], ref[key][n], max(ref[key][n], med))
+            for n in names}
+
+
+def train_gaps(prog: dict, ref: dict) -> dict:
+    """The numbers a train cell compares, from two ``train`` readings:
+
+    - ``loss_rel_gap``: the largest over the checked steps of
+      ``|loss − loss_ref| / loss_ref``;
+    - ``grad_norm_gap``: over the leaves, the largest gap of the first
+      step's gradient norms, ``|‖g‖ − ‖g_ref‖|``, over the larger of the
+      leaf's ``‖g_ref‖`` and the median leaf's;
+    - ``update_norm_gap``: the same of the leaves' changes after the last
+      checked step.
+
+    Leaves whose reference gradient is under a thousandth of the median
+    leaf's (nought to rounding, moved by round-off alone) are left out
+    of both (:func:`counted_leaves`)."""
+    names = counted_leaves(ref)
+    return {
+        "loss_rel_gap": max(_gap(p, r, abs(r)) for p, r in
+                            zip(prog["loss"], ref["loss"])),
+        "grad_norm_gap": max(leaf_gaps(prog, ref, "grad_norm",
+                                       names).values()),
+        "update_norm_gap": max(leaf_gaps(prog, ref, "change_norm",
+                                         names).values()),
+    }
+
+
+def counted_leaves(ref: dict) -> list:
+    """The leaves whose reference gradient is at least a thousandth of the
+    median leaf's."""
+    g = ref["grad_norm"]
+    floor = 1e-3 * statistics.median(g.values())
+    return [name for name, x in g.items() if x >= floor]
+
+
+def _train_check(s, control):
+    import gc
+
+    import torch
+
+    system = s.pop("system")
+    prog = system.readings()
+    ref_mod, config, seed, device = (system.ref, system.config, system.seed,
+                                     system.device)
+    batches = [system.batch(k) for k in range(int(system.mix[
+        "checked_steps"]))]
+    system.free()
+    del system
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    ref = ref_mod.train(config, seed, batches, device)
+    ref_s = time.perf_counter() - t0
+    gaps = train_gaps(prog, ref)
+    if control:
+        for mode in TRAIN_CONTROLS:
+            low = ref_mod.train(config, seed, batches, device, mode)
+            gaps.update({f"control_{mode}_{k}": v
+                         for k, v in train_gaps(low, ref).items()})
+    names = counted_leaves(ref)
+    gaps["checked"] = {"steps": len(batches), "reference_s": ref_s,
+                       "reference_peak_bytes": (
+                           torch.cuda.max_memory_allocated(device)
+                           if device.type == "cuda" else 0),
+                       "loss": prog["loss"],
+                       "loss_ref": ref["loss"], "dropped_ref": ref["dropped"],
+                       "leaf_gaps": {key: leaf_gaps(prog, ref, key, names)
+                                     for key in ("grad_norm",
+                                                 "change_norm")}}
+    return gaps
+
+
+# --------------------------------------------------------------------------
 # one cell, one seed
 # --------------------------------------------------------------------------
 
@@ -614,14 +758,19 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
             prof.__exit__(None, None, None)
             prof._bench_done = True
 
+    # A training step records its graph; the run and serve kinds none.
+    grad_mode = (contextlib.nullcontext() if kind == "train"
+                 else torch.no_grad())
     try:
-        with torch.no_grad():
+        with grad_mode:
             if kind == "run":
                 s = _run_kind(cell, app, seed, spans, dev, log)
             elif kind == "serve":
                 s = _serve_kind(cell, app, seed, seconds, spans, dev, log,
                                 os.path.join(tmp, "studies"))
                 s["mix_tenants"] = cell.mix["tenants"]
+            elif kind == "train":
+                s = _train_kind(cell, app, seed, spans, dev, log)
             else:
                 raise ValueError(f"unknown traffic kind {kind!r}")
             devices = s["devices"]
@@ -639,6 +788,14 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
                 engine_stats, out_info = {}, {
                     "simulations": s["sims"], "checked_simulation":
                     s["checked"], "plan": s["plan"]}
+            elif kind == "train":
+                window, steps, tokens = _train_window(s, seconds, spans)
+                stop_profiler()
+                e2e = {"tokens_per_s": tokens / window, "setup_s": setup_s}
+                attempted, failed, latency, engine_stats = steps, 0, {}, {}
+                launches, updates = 0, 0
+                out_info = {"steps": steps, "tokens": tokens,
+                            "setup_phases_s": s["phases"]}
             else:
                 out = _serve_window(s, seconds, spans, stop_profiler)
                 window, launches, updates = out["window_s"], 0, 0
@@ -666,25 +823,32 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
                 from bench.tracing import reduce_profile
 
                 reduced = reduce_profile(prof, [
-                    d.index for d in devices if d.type == "cuda"] or None)
+                    d.index for d in devices if d.type == "cuda"] or None,
+                    cell.config["frozen"].get("trace_ops"))
                 prof = None
             with spans("check"):
-                gaps = (_run_check(s, control) if kind == "run"
-                        else _serve_check(s, control))
+                if kind == "run":
+                    gaps = _run_check(s, control)
+                elif kind == "serve":
+                    gaps = _serve_check(s, control)
+                else:
+                    gaps = _train_check(s, control)
             del s
     finally:
         stop_profiler()
         shutil.rmtree(tmp, ignore_errors=True)
-    h, w = cell.mix["grid"]
+    cells = math.prod(cell.mix["grid"]) if "grid" in cell.mix else 0
     peaks = None
     if dev.type == "cuda":
         from bench.roofline import peaks_for
 
         peaks = peaks_for(device_info["kind"])
     reading = Reading(kind=kind, frozen=cell.config["frozen"], peaks=peaks,
-                      cells=h * w, window_s=window,
+                      cells=cells, window_s=window,
                       devices=device_info["count"], updates=updates,
                       launches=launches,
+                      steps=out_info.get("steps", 0),
+                      tokens=out_info.get("tokens", 0),
                       plan=out_info.get("plan", {}), engine=engine_stats,
                       latency=latency, trace=reduced)
     return _result(cell, trace, e2e, reading, gaps, attempted, failed,

@@ -1,4 +1,5 @@
-"""The general generator of open-loop serving traffic.
+"""The general generators of the traffic: open-loop serving requests, and
+the token batches of a training mix (:func:`token_batch`).
 
 A ``serve`` mix (``bench/traffic/<mix>.json``) gives ``rate_per_s``, its
 ``tenants``, a ``pool`` of initial states per tenant, and ``steps``: a
@@ -59,3 +60,18 @@ def open_loop(mix: dict, seed: int, seconds: float) -> dict:
     pool = rng.integers(int(mix["pool"]), size=n)
     return {"due_s": due.tolist(), "tenant": tenant, "steps": steps,
             "pool": pool, "in_window": int(np.sum(due < seconds))}
+
+
+def token_batch(mix: dict, vocab: int, seed: int, step: int) -> dict:
+    """Batch ``step`` of a ``train`` mix: ``batch`` rows of ``seq``
+    tokens uniform over ``[0, vocab)`` and the next token of each as its
+    label, numpy int32, a pure function of (seed, step) by Philox's
+    counter (the law of the port's ``train.data.SyntheticTokens``)."""
+    if mix["tokens"] != "uniform":
+        raise ValueError(f"unknown token law {mix['tokens']!r}")
+    rng = np.random.Generator(np.random.Philox(key=int(seed),
+                                               counter=[step, 0, 0, 0]))
+    toks = rng.integers(0, int(vocab),
+                        (int(mix["batch"]), int(mix["seq"]) + 1),
+                        dtype=np.int64).astype(np.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -1,4 +1,5 @@
-"""Peaks of the card and the operations and bytes of a stream launch.
+"""Peaks of the card and the operations and bytes of a stream launch; the
+share of the bf16 peak that a training cell's frozen flops make.
 
 The counts are frozen in each configuration's file (``frozen``): flops per
 lattice update from the core's census, and the state planes each launch
@@ -55,3 +56,11 @@ def mfu_pct(frozen: dict, peaks: dict, updates: int, seconds: float) -> float:
     ``seconds`` of wall clock make."""
     return (100.0 * frozen["flops_per_update"] * updates / seconds
             / peaks["fp32_flops_per_s"])
+
+
+def bf16_share_pct(flops: float, seconds: float, peaks: dict,
+                   devices: int = 1) -> float:
+    """Share of ``devices`` cards' bf16 peak that ``flops`` operations in
+    ``seconds`` make: a training step's model flops over the window, or a
+    kernel's over its device time."""
+    return 100.0 * flops / seconds / (devices * peaks["bf16_flops_per_s"])

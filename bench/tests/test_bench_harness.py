@@ -11,6 +11,9 @@ from bench import harness, loads, roofline, tracing
 
 SPEC = harness.load_spec()
 CELLS = [w["name"] for w in SPEC["workloads"]]
+#: The numbers each kind of cell compares, each with a limit.
+COMPARED = {"run": {"max_abs_gap"}, "serve": {"max_abs_gap"},
+            "train": {"loss_rel_gap", "grad_norm_gap", "update_norm_gap"}}
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 WIDTH = re.compile(r"(_dim|_rank)$|hidden|intermediate|latent|state|"
@@ -65,8 +68,9 @@ def test_cell_resolves_to_its_files(name):
     assert (harness.ROOT / cell.config["reference"]).exists()
     assert cell.config["name"] == cell.entry["config"]
     __import__(f"bench.apps.{cell.config['app']}")
-    assert cell.mix["kind"] in ("run", "serve")
-    assert cell.limits and cell.limits["max_abs_gap"]["limit"] > 0
+    assert cell.mix["kind"] in COMPARED
+    assert set(cell.limits) == COMPARED[cell.mix["kind"]]
+    assert all(lim["limit"] > 0 for lim in cell.limits.values())
     e2e = {m["name"] for m in cell.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2
     assert cell.per_layer
@@ -74,9 +78,13 @@ def test_cell_resolves_to_its_files(name):
         assert callable(harness.load_reader(m["name"]))
 
 
-@pytest.mark.parametrize("config", [c["name"] for c in SPEC["configs"]])
+@pytest.mark.parametrize("config", [
+    c["name"] for c in SPEC["configs"]
+    if "plan_lattice" in harness.read_json(harness.ROOT / c["file"])])
 def test_frozen_counts_match_the_census(config):
-    """The frozen flops are the core's census; the planes its state's."""
+    """The frozen flops are the core's census; the planes its state's
+    (every stream configuration; a training one's counts are held in
+    ``test_bench_train.py``)."""
     entry = next(c for c in SPEC["configs"] if c["name"] == config)
     cfg = harness.read_json(harness.ROOT / entry["file"])
     app = __import__(f"bench.apps.{cfg['app']}", fromlist=["build"])

@@ -4,8 +4,8 @@
 A subprocess blocks ``jax``, ``jaxlib``, ``flax`` and ``repro`` (top-level
 names compared whole, so the port ``repro_torch`` passes), records every
 file it opens, imports ``bench/run.py`` and drives every cell once on the
-CPU at a tiny size, which loads every module a run on the card loads but
-the kernels' libraries.
+CPU at a tiny size (a train cell's model at small widths), which loads
+every module a run on the card loads but the kernels' libraries.
 """
 
 import json
@@ -37,13 +37,19 @@ from bench.harness import load_spec, run_cell
 tiny = {"run": {"grid": [16, 32], "steps_per_simulation": 16},
         "serve": {"grid": [16, 32], "rate_per_s": 20,
                   "steps": {"law": "log_uniform", "min": 8, "max": 32,
-                            "multiple": 8}}}
+                            "multiple": 8}},
+        "train": {"batch": 2, "seq": 16}}
 for w in load_spec()["workloads"]:
     from bench.harness import find_cell
-    kind = find_cell(w["name"]).mix["kind"]
+    cell = find_cell(w["name"])
+    kind, config = cell.mix["kind"], None
+    if kind == "train":  # a model of the configuration's kind, small
+        config = {**cell.config, "d_model": 32, "n_heads": 2,
+                  "n_kv_heads": 1, "head_dim": 16, "vocab": 64,
+                  "moe": {**cell.config["moe"], "d_ff": 16}}
     for trace in (False, True):
         run_cell(w["name"], 2**31 + 5, 0.3, trace, device="cpu",
-                 overrides=tiny[kind], log=lambda m: None)
+                 overrides=tiny[kind], config=config, log=lambda m: None)
 print(json.dumps({
     "blocked": sorted({m.split(".")[0] for m in sys.modules}
                       & set(BLOCKED)),
