@@ -154,7 +154,17 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    noise keyed to each output so that the recompute moves it alike,
    Mixtral's experts held to the kernel run's; 3 steps of
    ``make_train_step`` (losses, step ms, tokens/s, peak memory, launches
-   by shape); each launch shape of the steps against its plain version;
+   by shape, and the fused AdamW pass's launches of each step, its
+   counters set to 0 first: one norm launch a table of parts, the
+   finalize and one update launch a table); each launch shape of the
+   steps against its plain version;
+   (e) the fused AdamW pass (``csrc/adamw.cu``) at the train cell's 23
+   parts (Mixtral-8x7B at 2 layers, 3.16 B parameters): its registers and
+   spills, the norm within 1e-5 of ``_global_norm``, the kernel pair, the
+   plain pass and ``torch._fused_adamw_`` (on f32 copies of p and g: it
+   takes one dtype) timed (CUDA events) beside the bound (each state word
+   read and written once), the pair at most 1.35x it; then one launch over
+   the 23-part table bitwise ``_update``'s on every part;
 12. the dry run against the card (docs/port.md §dryrun), after phase 11:
    ``launch/dryrun.py`` traces a step on the ``meta`` device; (a) Qwen3-8B's
    4x2048 prefill on a 1x1 mesh: its argument bytes within ``ARGS_RTOL``
@@ -2482,12 +2492,19 @@ def train_check(cfg, bundle, plain, model, batches, rate, label: str, *,
     recompute moves each output as its forward did); an MoE model's
     experts held to the kernel run's (:func:`routing_fixed`). Then
     ``DENSE_STEPS`` steps of ``make_train_step`` on ``batches(i)``, the
-    launches of each counted, by launch shape too. ``rate(seconds)``
-    words a step's throughput. Returns the state for further steps and
-    phase 5's numbers."""
+    launches of each counted, by launch shape too, and the fused AdamW
+    pass's launches of each held to one norm launch a table of parts, the
+    finalize and one update launch a table (the counters set to 0 first).
+    ``rate(seconds)`` words a step's throughput. Returns the state for
+    further steps and phase 5's numbers."""
     import torch
 
     from repro_torch.interop import Stacked, param_tree
+    from repro_torch.kernels.adamw.adamw import (
+        MAX_PARTS,
+        adamw_step,
+        adamw_sumsq,
+    )
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention,
     )
@@ -2575,6 +2592,10 @@ def train_check(cfg, bundle, plain, model, batches, rate, label: str, *,
     opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=DENSE_STEPS)
     opt = init_state(opt_cfg, tree)
     step = bundle.make_train_step(opt_cfg)
+    # the fused AdamW pass a step: a norm launch a table of MAX_PARTS parts
+    # and the finalize, an update launch a table
+    tables = -(-sum(1 for p in parts if p.numel()) // MAX_PARTS)
+    want_adamw = [(tables + 1, tables)] * DENSE_STEPS
     del tree, leaves, groups, parts, batch
     by_shape: dict = {}
 
@@ -2587,15 +2608,19 @@ def train_check(cfg, bundle, plain, model, batches, rate, label: str, *,
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    launches, times, losses = [], [], []
+    launches, times, losses, adamw = [], [], [], []
+    adamw_sumsq.launches = adamw_step.launches = 0
     with attention_through(tally):
         for i in range(DENSE_STEPS):
             n0 = flash_attention.launches
+            a0 = (adamw_sumsq.launches, adamw_step.launches)
             t0 = time.perf_counter()
             model, opt, metrics = step(model, opt, batches(i))
             losses.append(float(metrics["loss"]))
             times.append(time.perf_counter() - t0)
             launches.append(flash_attention.launches - n0)
+            adamw.append((adamw_sumsq.launches - a0[0],
+                          adamw_step.launches - a0[1]))
     peak = torch.cuda.max_memory_allocated() / 2**30
     phase(f"  {DENSE_STEPS} steps of make_train_step (remat 'none', the "
           "default): losses "
@@ -2603,12 +2628,17 @@ def train_check(cfg, bundle, plain, model, batches, rate, label: str, *,
           + f"; step ms {', '.join(f'{t * 1e3:.1f}' for t in times)} "
           f"({rate(times[-1])} at the last), peak memory "
           f"{peak:.2f} GiB (weights, gradients and moments included); "
-          f"flash launches per step {launches}")
+          f"flash launches per step {launches}; fused AdamW launches per "
+          f"step (adamw_sumsq, adamw_step) {adamw}")
     if not all(math.isfinite(x) for x in losses) or launches != [
             2 * sites] * DENSE_STEPS:
         fail(f"{label}: losses {losses}, launches {launches}")
+    if adamw != want_adamw:
+        fail(f"{label}: fused AdamW launches per step {adamw}, expected "
+             f"{want_adamw} ({tables} table(s) of parts)")
     return {"model": model, "opt": opt, "step": step, "times": times,
-            "launches": sum(launches), "by_shape": by_shape}
+            "launches": sum(launches), "by_shape": by_shape,
+            "adamw": sum(adamw[-1])}
 
 
 def dense_training() -> dict:
@@ -2728,7 +2758,8 @@ def family_training() -> dict:
     shared block, whisper's encoder and decoder layers), Mixtral's
     experts held to the kernel run's. Then each launch shape of the
     steps, through the dispatcher, against the plain version. Returns
-    phase 5's flash rows by name (docs/port.md §train)."""
+    phase 5's flash rows by name and each model's fused AdamW launches a
+    step (docs/port.md §train)."""
     import dataclasses
 
     import torch
@@ -2744,7 +2775,7 @@ def family_training() -> dict:
     t11 = time.perf_counter()
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(9)
-    rows = {}
+    rows, adamw = {}, {}
     for name, depth, (b, s) in TRAIN_FAMILIES:
         t0 = time.perf_counter()
         cfg = get_arch(name)
@@ -2777,7 +2808,7 @@ def family_training() -> dict:
             cfg, bundle, plain, model,
             lambda i: registry.make_batch(cfg, shape, seed=i, device=dev),
             rate, f"phase 11d {cfg.name}", sites=sites, keyed=True)
-        by_shape = run["by_shape"]
+        by_shape, adamw[name] = run["by_shape"], run["adamw"]
         if sum(by_shape.values()) != run["launches"]:
             fail(f"phase 11d {cfg.name}: launches by shape {by_shape} != "
                  f"{run['launches']}")
@@ -2808,7 +2839,165 @@ def family_training() -> dict:
                 "launches": n, "errs": [err]}
         phase(f"  phase 11d {cfg.name}: {time.perf_counter() - t0:.1f} s")
     phase(f"  phase 11d: {time.perf_counter() - t11:.1f} s")
-    return rows
+    return rows, adamw
+
+
+def adamw_pass() -> dict:
+    """Phase 11e: the fused AdamW pass (``csrc/adamw.cu``) at the train
+    cell's parts (Mixtral-8x7B at 2 layers: 13 leaves, 23 parts, 3.16 B
+    parameters; bf16 parameters and gradients, f32 moments, the cell's
+    optimizer settings). The library's registers and spills (a spill
+    fails); the norm against ``_global_norm``; the kernel pair (norm,
+    scale and update: ``apply_updates``' launches), the plain pass and
+    the library's ``torch._fused_adamw_`` timed by CUDA events beside the
+    bound (each state word read and written once over the card's HBM
+    rate); then one launch over the whole 23-part table from the state
+    the timing left, held bitwise to ``_update`` of each part from a host
+    copy of that state. Returns the ``kernels`` line's row."""
+    import torch
+
+    with torch.no_grad():
+        return _adamw_pass()
+
+
+def _adamw_pass() -> dict:
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.interop import Stacked, param_tree
+    from repro_torch.kernels import build
+    from repro_torch.kernels.adamw.adamw import adamw_step, adamw_sumsq
+    from repro_torch.models import registry
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.checkpoint import tree_map
+
+    t0 = time.perf_counter()
+    hbm = card_peaks(torch.cuda.get_device_name(0))[0]
+    dev = "cuda"
+    cfg = dataclasses.replace(get_arch("mixtral-8x7b"), n_layers=2)
+    opt_cfg = topt.AdamWConfig(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8,
+                               weight_decay=0.1, clip_norm=1.0)
+    model = registry.build(cfg, device="meta").init()
+    model.to_empty(device=dev)
+    params = param_tree(model)
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def draw(x, sd):
+        return torch.randn(x.shape, device=dev, generator=gen).mul_(sd).to(
+            x.dtype)
+
+    def like(leaf, sd):
+        if isinstance(leaf, Stacked):
+            return Stacked([draw(p, sd) for p in leaf.parts])
+        return draw(leaf, sd)
+
+    tree_map(lambda leaf: [p.copy_(draw(p, 0.02)) for p in (
+        leaf.parts if isinstance(leaf, Stacked) else [leaf])], params)
+    grads = tree_map(lambda leaf: like(leaf, 1e-4), params)
+    state = topt.init_state(opt_cfg, params)
+    parts = topt._parts(params, grads, state)
+    n = sum(p.p.numel() for p in parts)
+    nbytes = sum(p.p.numel() * (2 * p.p.element_size() + 2 * p.g.element_size()
+                                + 4 * p.m.element_size()) for p in parts)
+    bound_ms = nbytes / hbm * 1e3
+    phase(f"phase 11e: the fused AdamW pass at the train cell's parts: "
+          f"{len(parts)} parts of {cfg.name} at 2 layers, {n:,} parameters "
+          f"(bf16, f32 moments), {nbytes / 1e9:.2f} GB each state word "
+          f"once: bound {bound_ms:.2f} ms at {hbm / 1e12:.2f} TB/s")
+    # the library's registers and spills
+    log = build.library_path("adamw", build.adamw_source()).with_suffix(
+        ".log")
+    out = adamw_sumsq(parts, opt_cfg.clip_norm)
+    torch.cuda.synchronize()
+    for fn, (regs, spill) in sorted(build.ptxas_usage(log.read_text())
+                                    .items()):
+        phase(f"  ptxas {fn}: {regs} registers, {spill} spill bytes")
+        if spill:
+            fail(f"phase 11e: {fn} spills {spill} bytes")
+    want = topt._global_norm(grads)
+    rel = abs(float(out[0]) - float(want)) / float(want)
+    phase(f"  global norm {float(out[0]):.6e} vs _global_norm "
+          f"{float(want):.6e}: rel {rel:.2e} (<= 1e-5), scale "
+          f"{float(out[1]):.6e}")
+    if rel > 1e-5:
+        fail(f"phase 11e: the norm is {rel:.2e} from plain's")
+    step = state["step"] + 1
+    lr = topt.lr_at(opt_cfg, state["step"])
+    bc1 = 1 - opt_cfg.b1 ** step.float()
+    bc2 = 1 - opt_cfg.b2 ** step.float()
+    kw = dict(b1=opt_cfg.b1, b2=opt_cfg.b2, eps=opt_cfg.eps,
+              weight_decay=opt_cfg.weight_decay)
+
+    def fused():
+        o = adamw_sumsq(parts, opt_cfg.clip_norm)
+        adamw_step(parts, lr, o[1], bc1, bc2, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms, _ = cuda_ms(fused, iters=20)
+    fused_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    plain_ms, _ = cuda_ms(lambda: topt._plain_pass(opt_cfg, parts, lr, bc1,
+                                                   bc2), iters=3)
+    plain_peak = torch.cuda.max_memory_allocated() - base
+    # The library's fused AdamW takes one dtype for p, g, m and v, so it
+    # runs on f32 copies of p and g beside the f32 moments: 28 bytes a
+    # parameter, no norm and no clip.
+    p32 = [pt.p.float() for pt in parts]
+    g32 = [pt.g.float() for pt in parts]
+    steps = [torch.ones((), device=dev) for _ in parts]
+    lib_ms, _ = cuda_ms(lambda: torch._fused_adamw_(
+        p32, g32, [pt.m for pt in parts], [pt.v for pt in parts], [], steps,
+        lr=opt_cfg.lr, beta1=opt_cfg.b1, beta2=opt_cfg.b2,
+        weight_decay=opt_cfg.weight_decay, eps=opt_cfg.eps, amsgrad=False,
+        maximize=False), iters=5)
+    lib_bytes = 28 * n
+    del p32, g32, steps
+    torch.cuda.empty_cache()
+    phase(f"  kernel pair: {ms:.3f} ms a step, {bound_ms / ms:.1%} of the "
+          f"{bound_ms:.2f} ms bound ({nbytes / ms / 1e6:.0f} GB/s), "
+          f"{ms / bound_ms:.2f}x it; plain pass {plain_ms:.2f} ms "
+          f"({plain_ms / ms:.1f}x); temporaries {fused_peak / 2**30:.2f} vs "
+          f"{plain_peak / 2**30:.2f} GiB; library torch._fused_adamw_ "
+          f"{lib_ms:.3f} ms on f32 p and g ({lib_bytes / 1e9:.2f} GB, "
+          f"{lib_bytes / lib_ms / 1e6:.0f} GB/s, no norm)")
+    if ms > 1.35 * bound_ms:
+        fail(f"phase 11e: the kernel pair takes {ms / bound_ms:.2f}x its "
+             "bound (> 1.35)")
+    # One launch over the whole table, from the state the timing left,
+    # against _update of each part from a host copy of that state.
+    scalars = (lr, adamw_sumsq(parts, opt_cfg.clip_norm)[1], bc1, bc2)
+    before = [[x.cpu() for x in (pt.p, pt.m, pt.v)] for pt in parts]
+    n0 = adamw_step.launches
+    adamw_step(parts, *scalars, **kw)
+    if adamw_step.launches - n0 != 1:
+        fail(f"phase 11e: {adamw_step.launches - n0} launches for "
+             f"{len(parts)} parts")
+    err, unequal = 0.0, []
+    for pt, host in zip(parts, before):
+        p, m, v = (x.to(dev) for x in host)
+        topt._update(opt_cfg, p, pt.g, m, v, *scalars, pt.decay)
+        for role, ref in zip("pmv", (p, m, v)):
+            got = getattr(pt, role)
+            err = max(err, float((got.float() - ref.float()).abs().max()))
+            if not torch.equal(got, ref):
+                unequal.append(f"{pt.name} {role}")
+        del p, m, v
+    del before
+    verdict = ("unequal: " + ", ".join(unequal) if unequal
+               else "bitwise equal")
+    phase(f"  adamw_step, one launch over the {len(parts)}-part table, vs "
+          f"_update of each part: max abs err {err:.3e} (p, m, v; "
+          f"{verdict})")
+    if unequal:
+        fail(f"phase 11e: differs from _update's: {', '.join(unequal)}")
+    del model, params, grads, state, parts
+    torch.cuda.empty_cache()
+    phase(f"  phase 11e: {time.perf_counter() - t0:.1f} s")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "nbytes": nbytes, "ops": 20 * n, "n": n, "err": err}
 
 
 #: Argument bytes of the dry run against what the card allocates for the
@@ -3714,8 +3903,9 @@ def main() -> None:
                            for name, prog in clusters.items()})
     build_s = build.build_all({
         **stream_sources, "flash_attention": build.flash_source(),
+        "adamw": build.adamw_source(),
     })
-    phase(f"  built {len(stream_sources) + 1} kernel libraries in "
+    phase(f"  built {len(stream_sources) + 2} kernel libraries in "
           f"{build_s:.2f} s (nvcc in parallel)")
     flash_census(build)
     stream_census(build, stream_sources)
@@ -4089,7 +4279,8 @@ def main() -> None:
     ssm_training()
     dp_compression()
     train = dense_training()
-    fam = family_training()
+    fam, fam_adamw = family_training()
+    adamw = adamw_pass()
 
     # ---- 12. the dry run against the card ----------------------------
     dryrun_vs_card(card_line, lm[PREFILL]["wall"], train["step_s"])
@@ -4346,6 +4537,13 @@ def main() -> None:
         del q, k, v, views, want, got
         torch.cuda.empty_cache()
     del lm, hyb, mix, kimi, whisper, vlm, train, dense, fam, flash_rows
+    # phase 11e's fused AdamW pass, a step of the train cell's update
+    # (launches: phase 11d's Mixtral steps, a step)
+    record("adamw[mixtral-8x7b 2 layers, 23 parts, a step]",
+           "src/repro_torch/csrc/adamw.cu",
+           "none: the JAX package's AdamW is plain jnp",
+           fam_adamw["mixtral-8x7b"], adamw["ms"], adamw["plain_ms"],
+           adamw["nbytes"], adamw["ops"], adamw["err"], adamw["library_ms"])
 
     # The stencil kernels' design choices side by side, on the same
     # main-path inputs (three rounds after a warm-up).

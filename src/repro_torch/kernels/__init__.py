@@ -5,7 +5,9 @@
   declarative and a streamed (persistent, prefetching) launch;
 * ``lbm_stream`` — the hand-written fused m-step D2Q9 LBM kernel;
 * ``flash_attention`` — the hand-written blocked online-softmax attention
-  kernel that the LM prefill runs in every layer.
+  kernel that the LM prefill runs in every layer;
+* ``adamw`` — the fused AdamW pass of the training step: the gradients'
+  global norm and the update of every parameter in place.
 
 Each module keeps its kernel's plain torch version beside the wrapper and
 counts launches on the wrapper (``fn.launches``); ``build`` compiles the

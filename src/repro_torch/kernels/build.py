@@ -268,3 +268,27 @@ def load_flash_library() -> ctypes.CDLL:
     lib.flash_wgmma_probe.argtypes = [_P, _P, _P, _P, _P, _I, _P]
     lib.flash_wgmma_probe.restype = _I
     return lib
+
+
+def adamw_source() -> str:
+    return (CSRC / "adamw.cu").read_text()
+
+
+@functools.cache
+def load_adamw_library() -> ctypes.CDLL:
+    """Build and bind the fused AdamW pass (``csrc/adamw.cu``), once per
+    process."""
+    lib = load("adamw", adamw_source())
+    for fn in ("adamw_tile", "adamw_max_parts", "adamw_sumsq_blocks"):
+        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = _I
+    lib.adamw_table_bytes.argtypes = []
+    lib.adamw_table_bytes.restype = _LL
+    lib.adamw_sumsq.argtypes = [_P, _P, _P]
+    lib.adamw_sumsq.restype = _I
+    lib.adamw_finalize.argtypes = [_P, _I, ctypes.c_float, _P, _P]
+    lib.adamw_finalize.restype = _I
+    lib.adamw_step.argtypes = [_P, _P, _P, _P, _P, *[ctypes.c_float] * 6,
+                               _I, _P]
+    lib.adamw_step.restype = _I
+    return lib

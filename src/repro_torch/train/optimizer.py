@@ -11,6 +11,13 @@ the moments in place and returns them. A leaf may be an
 ``interop.Stacked`` (one stacked leaf of the reference's tree, held as
 per-layer tensors): its moments are one ``(L, ...)`` tensor each, and its
 decay follows the stacked ``ndim``, as in the reference.
+
+On CUDA parameters the norm and the update run as the fused pass of
+``kernels/adamw`` (``csrc/adamw.cu``): each state word read and written
+once, ``p``, ``m`` and ``v`` bitwise what :func:`_update` gives for the
+same clip scale, the norm summed in another fixed order. Elsewhere (the
+CPU, the dry run's ``meta``) :func:`_global_norm` and :func:`_update` run
+as plain torch, one kernel an op (docs/port.md §train).
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.interop import Stacked, leaf_parts
+from repro_torch.kernels.adamw.adamw import AdamWPart, adamw_step, adamw_sumsq
 from repro_torch.train.checkpoint import tree_flatten, tree_map
 
 
@@ -91,25 +99,66 @@ def _update(cfg, p, g, m, v, lr, scale, bc1, bc2, decay: bool) -> None:
     p.copy_(p.float() - lr * delta)
 
 
+def _names(tree, prefix: str = ""):
+    """A tree of ``tree``'s structure whose leaves are their dotted
+    paths."""
+    if isinstance(tree, dict):
+        return type(tree)((k, _names(v, f"{prefix}{k}."))
+                          for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        names = [_names(v, f"{prefix}{i}.") for i, v in enumerate(tree)]
+        return (type(tree)(*names) if hasattr(tree, "_fields")
+                else type(tree)(names))
+    return None if tree is None else prefix[:-1]
+
+
+def _parts(params, grads, state) -> list[AdamWPart]:
+    """The update's tensors in the tree's leaf order, a ``Stacked`` leaf
+    one part a layer (named ``leaf[i]``); a leaf decays by its own
+    ``ndim``."""
+    flat = zip(*(tree_flatten(t)[0] for t in
+                 (_names(params), params, grads, state["m"], state["v"])))
+    out = []
+    for name, p, g, m, v in flat:
+        decay = p.ndim >= 2  # decoupled weight decay on matrices only
+        gs = leaf_parts(g)
+        for i, part in enumerate(leaf_parts(p)):
+            if isinstance(p, Stacked):
+                out.append(AdamWPart(f"{name}[{i}]", part, gs[i], m[i], v[i],
+                                     decay))
+            else:
+                out.append(AdamWPart(name, part, gs[i], m, v, decay))
+    return out
+
+
+def _plain_pass(cfg, parts, lr, bc1, bc2):
+    """The plain version of the fused pass: the global norm of the parts'
+    gradients, the clip scale, then :func:`_update` of every part; ->
+    the norm."""
+    gnorm = _global_norm([part.g for part in parts])
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    for part in parts:
+        _update(cfg, part.p, part.g, part.m, part.v, lr, scale, bc1, bc2,
+                part.decay)
+    return gnorm
+
+
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params, grads, state):
     """-> (params, new_state, metrics), ``params`` and the moments updated
     in place. Update math runs in f32 even when the moments are stored
     bf16 (quantize on store)."""
     step = state["step"] + 1
-    gnorm = _global_norm(grads)
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
-                        max=1.0)
     lr = lr_at(cfg, state["step"])
     bc1 = 1 - cfg.b1 ** step.float()
     bc2 = 1 - cfg.b2 ** step.float()
-    flat = zip(*(tree_flatten(t)[0]
-                 for t in (params, grads, state["m"], state["v"])))
-    for p, g, m, v in flat:
-        decay = p.ndim >= 2
-        gs = leaf_parts(g)
-        for i, part in enumerate(leaf_parts(p)):
-            mi, vi = (m[i], v[i]) if isinstance(p, Stacked) else (m, v)
-            _update(cfg, part, gs[i], mi, vi, lr, scale, bc1, bc2, decay)
+    parts = _parts(params, grads, state)
+    if parts and parts[0].p.device.type == "cuda":
+        gnorm, scale = adamw_sumsq(parts, cfg.clip_norm)
+        adamw_step(parts, lr, scale, bc1, bc2, b1=cfg.b1, b2=cfg.b2,
+                   eps=cfg.eps, weight_decay=cfg.weight_decay)
+    else:
+        gnorm = _plain_pass(cfg, parts, lr, bc1, bc2)
     new_state = {"m": state["m"], "v": state["v"], "step": step}
     return params, new_state, {"grad_norm": gnorm, "lr": lr}

@@ -1468,3 +1468,225 @@ def test_pipelined_layers_on_the_card_are_bitwise_the_sequential_ones(card):
         got = run(stack_stage_params(model.layers, 2), micro)
     assert flash_attention.launches - n0 == 12
     assert torch.equal(got, want)
+
+
+# ----------------------------- fused AdamW -----------------------------
+
+ADAMW_DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _adamw_part(n, p, g, s, *, seed=0, offset=0, decay=True, name="x"):
+    """A part of ``n`` elements on the card with a mid-training state:
+    moments of a few steps, some elements still at zero. ``offset``
+    elements in, each tensor is a view whose pointer is not 16-byte
+    aligned."""
+    from repro_torch.kernels.adamw.adamw import AdamWPart
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(dt, fn):
+        x = fn(gen).to(dt)
+        return torch.cat([torch.zeros(offset, dtype=dt, device="cuda"),
+                          x])[offset:]
+
+    def randn(k):
+        return torch.randn(n, device="cuda", generator=k)
+
+    m = draw(s, lambda k: randn(k) * 1e-2)
+    v = draw(s, lambda k: torch.rand(n, device="cuda", generator=k) * 1e-4)
+    m[::7] = 0
+    v[::7] = 0
+    return AdamWPart(name, draw(p, randn), draw(g, lambda k: randn(k) * 3),
+                     m, v, decay)
+
+
+def _adamw_scalars(scale=0.37, step=3):
+    from repro_torch.train.optimizer import AdamWConfig, lr_at
+
+    cfg = AdamWConfig(warmup_steps=2, total_steps=50)
+    t = torch.tensor(step, dtype=torch.float32, device="cuda")
+    return cfg, (lr_at(cfg, t - 1),
+                 torch.tensor(scale, dtype=torch.float32, device="cuda"),
+                 1 - cfg.b1 ** t, 1 - cfg.b2 ** t)
+
+
+def _plain_then_kernel(parts, cfg, scalars):
+    """``_update`` on clones of ``parts``, the kernel on ``parts``; both
+    states after."""
+    from repro_torch.kernels.adamw.adamw import adamw_step
+    from repro_torch.train.optimizer import _update
+
+    clones = [pt._replace(p=pt.p.clone(), m=pt.m.clone(), v=pt.v.clone())
+              for pt in parts]
+    for pt in clones:
+        _update(cfg, pt.p, pt.g, pt.m, pt.v, *scalars, pt.decay)
+    adamw_step(parts, *scalars, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+               weight_decay=cfg.weight_decay)
+    return clones
+
+
+def _assert_states_equal(got, want):
+    for a, b in zip(got, want):
+        for role in ("p", "m", "v"):
+            x, y = getattr(a, role), getattr(b, role)
+            assert x.dtype == y.dtype
+            assert torch.equal(x, y), f"{a.name}: {role} differs"
+
+
+@pytest.mark.parametrize("decay", [True, False])
+@pytest.mark.parametrize("s", ADAMW_DTYPES)
+@pytest.mark.parametrize("g", ADAMW_DTYPES)
+@pytest.mark.parametrize("p", ADAMW_DTYPES)
+def test_adamw_step_equals_plain_update(card, p, g, s, decay):
+    """Every dtype case the kernel takes, with and without decay, over a
+    length that is no multiple of the vector width (three whole tiles and
+    a ragged tail): ``p``, ``m`` and ``v`` bitwise ``_update``'s."""
+    from repro_torch.kernels.adamw.adamw import TILE, adamw_step
+
+    cfg, scalars = _adamw_scalars()
+    parts = [_adamw_part(3 * TILE + 13, p, g, s, decay=decay),
+             _adamw_part(5, p, g, s, seed=1, decay=decay)]
+    n0 = adamw_step.launches
+    want = _plain_then_kernel(parts, cfg, scalars)
+    torch.cuda.synchronize()
+    assert adamw_step.launches == n0 + 1
+    _assert_states_equal(parts, want)
+
+
+@pytest.mark.parametrize("s", ADAMW_DTYPES)
+@pytest.mark.parametrize("p", ADAMW_DTYPES)
+def test_adamw_step_on_unaligned_views_equals_plain(card, p, s):
+    """Views one element in (pointers not 16-byte aligned) take the
+    scalar path, beside an aligned part: bitwise ``_update``'s."""
+    cfg, scalars = _adamw_scalars(scale=1.0, step=1)
+    parts = [_adamw_part(2 * 4096 + 3, p, torch.bfloat16, s, offset=1),
+             _adamw_part(777, p, torch.float32, s, seed=2, offset=3),
+             _adamw_part(4096, p, torch.bfloat16, s, seed=3)]
+    assert parts[0].p.data_ptr() % 16 and parts[1].m.data_ptr() % 16
+    want = _plain_then_kernel(parts, cfg, scalars)
+    torch.cuda.synchronize()
+    _assert_states_equal(parts, want)
+
+
+def test_adamw_step_chunks_a_long_part_table(card):
+    """More parts than one launch's table: one launch a table, every part
+    bitwise ``_update``'s."""
+    from repro_torch.kernels.adamw.adamw import MAX_PARTS, adamw_step
+
+    cfg, scalars = _adamw_scalars()
+    n = 2 * MAX_PARTS + 5
+    parts = [_adamw_part(1 + 97 * i, ADAMW_DTYPES[i % 2], torch.bfloat16,
+                         torch.float32, seed=i, decay=bool(i % 3),
+                         name=f"p{i}") for i in range(n)]
+    n0 = adamw_step.launches
+    want = _plain_then_kernel(parts, cfg, scalars)
+    torch.cuda.synchronize()
+    assert adamw_step.launches == n0 + 3
+    _assert_states_equal(parts, want)
+
+
+@pytest.mark.parametrize("g", ADAMW_DTYPES)
+def test_adamw_norm_is_plain_to_rounding_and_repeats(card, g):
+    """The global norm over two tables of parts, one of them large: within
+    1e-5 of ``_global_norm``, bitwise the same on a second call, and the
+    clip scale computed from it as ``apply_updates``' plain branch does."""
+    from repro_torch.kernels.adamw.adamw import (
+        MAX_PARTS,
+        adamw_sumsq,
+    )
+    from repro_torch.train.optimizer import _global_norm
+
+    parts = [_adamw_part(1 + 1013 * i, torch.bfloat16, g, torch.float32,
+                         seed=i) for i in range(MAX_PARTS + 7)]
+    parts.append(_adamw_part(3_000_001, torch.bfloat16, g, torch.float32,
+                             seed=99))
+    want = _global_norm([pt.g for pt in parts])
+    n0 = adamw_sumsq.launches
+    for clip in (1.0, 1e6):
+        out = adamw_sumsq(parts, clip)
+        again = adamw_sumsq(parts, clip)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        assert float(out[0]) == pytest.approx(float(want), rel=1e-5)
+        plain_scale = torch.clamp(clip / torch.clamp(out[0], min=1e-9),
+                                  max=1.0)
+        assert torch.equal(out[1], plain_scale)
+    assert adamw_sumsq.launches == n0 + 4 * 3
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def test_apply_updates_on_the_card_runs_the_kernels(card, state_dtype):
+    """``apply_updates`` on a CUDA tree of a bf16 matrix, an f32 vector and
+    a stacked leaf of three layers: one launch of each kernel pair a step,
+    and over three steps the parameters and moments bitwise the plain
+    path's (the gradients' norm under the clip, so both scales are 1)."""
+    from repro_torch.interop import Stacked
+    from repro_torch.kernels.adamw.adamw import adamw_step, adamw_sumsq
+    from repro_torch.train import optimizer as topt
+
+    cfg = topt.AdamWConfig(clip_norm=1e3, warmup_steps=2, total_steps=50,
+                           state_dtype=state_dtype)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def tree(dt_w=torch.bfloat16):
+        def r(*shape, dt=torch.float32):
+            return torch.randn(shape, device="cuda", generator=gen).to(dt)
+
+        return {"w": r(64, 40, dt=dt_w), "b": r(40),
+                "layers": {"s": Stacked([r(33, 7, dt=torch.bfloat16)
+                                         for _ in range(3)])}}
+
+    def clone(t):
+        return {"w": t["w"].clone(), "b": t["b"].clone(),
+                "layers": {"s": Stacked([x.clone()
+                                         for x in t["layers"]["s"].parts])}}
+
+    params = tree()
+    mine = clone(params)
+    state = topt.init_state(cfg, params)
+    ref_state = topt.init_state(cfg, mine)
+    for _ in range(3):
+        grads = tree()
+        n0 = (adamw_sumsq.launches, adamw_step.launches)
+        _, state, metrics = topt.apply_updates(cfg, params, grads, state)
+        assert (adamw_sumsq.launches, adamw_step.launches) == (n0[0] + 2,
+                                                               n0[1] + 1)
+        # the plain path, as apply_updates runs it off the card
+        step = ref_state["step"] + 1
+        lr = topt.lr_at(cfg, ref_state["step"])
+        bc1, bc2 = 1 - cfg.b1 ** step.float(), 1 - cfg.b2 ** step.float()
+        gnorm = topt._plain_pass(cfg, topt._parts(mine, grads, ref_state),
+                                 lr, bc1, bc2)
+        ref_state["step"] = step
+        assert float(gnorm) < cfg.clip_norm and float(
+            metrics["grad_norm"]) == pytest.approx(float(gnorm), rel=1e-5)
+        assert metrics["grad_norm"].device.type == "cuda"
+    torch.cuda.synchronize()
+    ours = topt._parts(params, params, state)
+    theirs = topt._parts(mine, mine, ref_state)
+    _assert_states_equal(ours, theirs)
+    assert torch.equal(state["step"], ref_state["step"])
+
+
+def test_adamw_wrapper_raises_on_what_it_does_not_take(card):
+    from repro_torch.kernels.adamw.adamw import adamw_step, adamw_sumsq
+
+    cfg, scalars = _adamw_scalars()
+    kw = dict(b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+              weight_decay=cfg.weight_decay)
+    half = _adamw_part(64, torch.float16, torch.bfloat16, torch.float32)
+    with pytest.raises(TypeError, match="x: p is torch.float16"):
+        adamw_step([half], *scalars, **kw)
+    with pytest.raises(TypeError, match="x: p is torch.float16"):
+        adamw_sumsq([half], 1.0)
+    part = _adamw_part(64, torch.bfloat16, torch.bfloat16, torch.float32)
+    strided = part._replace(
+        p=torch.zeros((8, 16), dtype=torch.bfloat16,
+                      device="cuda")[:, ::2])
+    with pytest.raises(ValueError, match="x: p is not contiguous"):
+        adamw_step([strided], *scalars, **kw)
+    cpu = part._replace(p=part.p.cpu())
+    with pytest.raises(ValueError, match="on cpu"):
+        adamw_step([part, cpu._replace(name="y")], *scalars, **kw)
+    with pytest.raises(TypeError, match="lr must be"):
+        adamw_step([part], scalars[0].double(), *scalars[1:], **kw)

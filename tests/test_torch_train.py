@@ -25,8 +25,15 @@ from repro.train import checkpoint as jckpt
 from repro.train import data as jdata
 from repro.train import loop as jloop
 from repro.train import optimizer as jopt
-from repro_torch.configs import ShapeConfig, get_arch
-from repro_torch.interop import Stacked, param_tree, params_from_jax
+from repro_torch.configs import ARCHS, ShapeConfig, get_arch
+from repro_torch.interop import (
+    Stacked,
+    leaf_parts,
+    param_tree,
+    params_from_jax,
+)
+from repro_torch.kernels import build
+from repro_torch.kernels.adamw import adamw
 from repro_torch.kernels.flash_attention.ops import (
     FlashAttentionFn,
     attention,
@@ -177,6 +184,160 @@ def test_apply_updates_equals_the_reference(state_dtype):
         for name in ("grad_norm", "lr"):
             assert float(tm[name]) == pytest.approx(float(jm[name]),
                                                     rel=1e-6)
+
+
+def _small_tree(device, dtype=torch.float32):
+    """A matrix, a vector and a stacked leaf of three layers, with
+    gradients and a fresh optimizer state."""
+    g = torch.Generator().manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g).to(device=device, dtype=dtype)
+
+    params = {"w": rand(3, 4), "b": rand(4),
+              "layers": {"s": Stacked([rand(2, 5) for _ in range(3)])}}
+    grads = {"w": rand(3, 4), "b": rand(4),
+             "layers": {"s": Stacked([rand(2, 5) for _ in range(3)])}}
+    return params, grads, topt.init_state(topt.AdamWConfig(), params)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_apply_updates_off_the_card_runs_the_plain_version(device):
+    """A CPU or ``meta`` tree takes ``_global_norm`` and ``_update``: the
+    kernels' launch counts stay as they were."""
+    before = (adamw.adamw_sumsq.launches, adamw.adamw_step.launches)
+    params, grads, state = _small_tree(device)
+    _, state, metrics = topt.apply_updates(topt.AdamWConfig(), params,
+                                           grads, state)
+    assert metrics["grad_norm"].device.type == device
+    assert state["m"]["layers"]["s"].shape == (3, 2, 5)
+    assert (adamw.adamw_sumsq.launches, adamw.adamw_step.launches) == before
+
+
+def test_parts_name_every_layer_and_decay_by_the_leaf():
+    params, grads, state = _small_tree("cpu")
+    parts = topt._parts(params, grads, state)
+    assert [(p.name, p.decay) for p in parts] == [
+        ("b", False), ("layers.s[0]", True), ("layers.s[1]", True),
+        ("layers.s[2]", True), ("w", True)]
+    assert parts[2].p is params["layers"]["s"].parts[1]
+    assert parts[2].m.data_ptr() == state["m"]["layers"]["s"][1].data_ptr()
+
+
+def _part(name, n, p=torch.float32, g=torch.float32, s=torch.float32,
+          decay=True, offset=0):
+    def x(dt):
+        return torch.zeros(n + offset, dtype=dt)[offset:]
+
+    return adamw.AdamWPart(name, x(p), x(g), x(s), x(s), decay)
+
+
+def _entries(table):
+    return [table.part[i] for i in range(table.n)]
+
+
+def test_pack_chunks_tables_and_numbers_tiles():
+    """More parts than a table holds: full tables in order, each part's
+    tiles counted from its table's start; an empty part left out."""
+    n = 2 * adamw.MAX_PARTS + 3
+    sizes = [1 + 1000 * i for i in range(n)]
+    parts = [_part(f"p{i}", k) for i, k in enumerate(sizes)]
+    parts.insert(5, _part("empty", 0))
+    tables = adamw.pack(parts)
+    assert [t.n for t in tables] == [adamw.MAX_PARTS, adamw.MAX_PARTS, 3]
+    flat = [e for t in tables for e in _entries(t)]
+    assert [e.numel for e in flat] == sizes
+    assert [e.p for e in flat] == [
+        p.p.data_ptr() for p in parts if p.name != "empty"]
+    for table in tables:
+        entries = _entries(table)
+        assert entries[0].tile0 == 0
+        assert table.tiles == entries[-1].tile_end
+        for a, b in zip(entries, entries[1:]):
+            assert b.tile0 == a.tile_end
+        for e in entries:
+            assert e.tile_end - e.tile0 == -(-e.numel // adamw.TILE)
+    (big,) = adamw.pack([_part("big", 3 * adamw.TILE + 5)])
+    assert (big.part[0].tile0, big.part[0].tile_end, big.tiles) == (0, 4, 4)
+
+
+@pytest.mark.parametrize("p,g,s,decay", [
+    (torch.float32, torch.float32, torch.float32, True),
+    (torch.bfloat16, torch.bfloat16, torch.float32, True),
+    (torch.bfloat16, torch.float32, torch.bfloat16, False),
+    (torch.float32, torch.bfloat16, torch.bfloat16, False),
+])
+def test_pack_dtype_codes_and_alignment(p, g, s, decay):
+    (table,) = adamw.pack([_part("x", 64, p, g, s, decay)])
+    codes = table.part[0].codes
+    bf16 = torch.bfloat16
+    want = ((adamw.P_BF16 if p == bf16 else 0)
+            | (adamw.G_BF16 if g == bf16 else 0)
+            | (adamw.S_BF16 if s == bf16 else 0)
+            | (adamw.DECAY if decay else 0))
+    assert codes & ~adamw.ALIGNED == want
+    # a fresh tensor is 16-byte aligned; a view one element in is not
+    assert codes & adamw.ALIGNED
+    (table,) = adamw.pack([_part("x", 64, p, g, s, decay, offset=1)])
+    assert not table.part[0].codes & adamw.ALIGNED
+
+
+def test_pack_rejects_what_the_kernel_does_not_take_by_name():
+    params, grads, state = _small_tree("cpu")
+    params["layers"]["s"].parts[1] = params["layers"]["s"].parts[1].half()
+    with pytest.raises(TypeError,
+                       match=r"layers\.s\[1\]: p is torch\.float16"):
+        adamw.pack(topt._parts(params, grads, state))
+    params, grads, state = _small_tree("cpu")
+    grads["w"] = grads["w"].t().contiguous().t()
+    with pytest.raises(ValueError, match="w: g is not contiguous"):
+        adamw.pack(topt._parts(params, grads, state))
+    with pytest.raises(TypeError, match="one moment dtype"):
+        adamw.pack([adamw.AdamWPart(
+            "mv", *(torch.zeros(4) for _ in range(3)),
+            torch.zeros(4, dtype=torch.bfloat16), True)])
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_every_arch_trains_through_the_kernel(arch, monkeypatch):
+    """Each architecture's training step, on the CPU at reduced width and
+    in the full config's parameter dtype, hands ``apply_updates`` parts the
+    kernel takes: the real gradients of ``make_train_step`` (one batch, and
+    two microbatches' f32 sums), with either moment dtype, packed as the
+    card packs them. A gradient's layout is autograd's, so a transpose or
+    einsum backward that left a view would fail here."""
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full.reduced(), dtype=full.dtype)
+    bundle = registry.build(cfg, device="cpu")
+    model = bundle.init(torch.Generator().manual_seed(0))
+    batch = registry.make_batch(cfg, ShapeConfig("t", 16, 2, "train"),
+                                device="cpu")
+    plain, packed = topt.apply_updates, []
+
+    def packing(opt_cfg, params, grads, state):
+        parts = topt._parts(params, grads, state)
+        packed.append((sum(t.n for t in adamw.pack(parts)),
+                       {p.g.dtype for p in parts}))
+        return plain(opt_cfg, params, grads, state)
+
+    monkeypatch.setattr(topt, "apply_updates", packing)
+    for state_dtype in ("float32", "bfloat16"):
+        opt_cfg = topt.AdamWConfig(state_dtype=state_dtype)
+        for nm in (1, 2):
+            state = topt.init_state(opt_cfg, param_tree(model))
+            model, _, _ = bundle.make_train_step(opt_cfg, nm)(model, state,
+                                                              batch)
+    n = sum(len(leaf_parts(x))
+            for x in ckpt.tree_flatten(param_tree(model))[0])
+    assert [k for k, _ in packed] == [n] * 4
+    assert getattr(torch, full.dtype) in packed[0][1]
+    assert packed[1][1] == {torch.float32}
+
+
+def test_adamw_library_keeps_fmad_off():
+    """The kernel is held bitwise to ``_update``: no multiply-add may be
+    contracted."""
+    assert "-fmad=false" in build.flags_for("adamw")
 
 
 # ----------------------------- data -----------------------------
