@@ -33,8 +33,8 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    ``StreamKernel.reference`` on the card;
 3b. spatial parallelism on one card, counts set to 0 again: the same
    inputs through ``ShardedStreamKernel`` on a device list that repeats
-   ``cuda:0`` — diffusion 8192² on a (4, 1) ring and a (2, 2) mesh, overlap
-   on and off (and the declarative twin), uLBM 4096² on a (2, 2) mesh, the
+   ``cuda:0`` — diffusion 8192² on a (4, 1) ring and a (2, 2) mesh (and
+   the declarative twin), uLBM 4096² on a (2, 2) mesh, the
    300×720 cavity through ``run_for_point`` on a (2, 2) mesh — each
    bitwise equal to its single-device run of phase 3, with its wall time,
    MLUPS and the exchange's time apart from the launches;
@@ -188,10 +188,7 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    dispatcher, on contiguous q/k/v and on the head-split views, with TFLOP/s,
    the share of its bound (the (query, key) pairs the mask keeps) and
    ``scaled_dot_product_attention`` (the window as a boolean mask, on the
-   fastest backend that takes it, named); then the two stencil
-   kernels' design
-   choices side by side (``kernels/lbm_stream/variants.py``,
-   ``kernels/spd_stream/variants.py``: three rounds after a warm-up);
+   fastest backend that takes it, named);
 7. the model → measure → search loop on the card (docs/port.md §dse),
    stream launch counts set to 0 just before and read just after: (a)
    ``python -m repro_torch.cli explore --devices 1 --topk 1 --strategy
@@ -369,14 +366,13 @@ def timed_pair(name, kernel_fn, plain_fn, plain_iters=2, iters=10):
     return ms, plain_ms, err
 
 
-def card_peaks(name: str) -> tuple[float, float, float]:
+def card_peaks() -> tuple[float, float, float]:
     """(HBM bytes/s, FP32 non-tensor FLOP/s, bf16 dense tensor-core
-    FLOP/s) from NVIDIA's data sheets."""
-    if "PCIe" in name:
-        return 2.0e12, 51e12, 756e12
-    if "NVL" in name:
-        return 3.9e12, 60e12, 835e12
-    return 3.35e12, 67e12, 989e12  # H100 SXM (80GB HBM3)
+    FLOP/s): the data-sheet peaks of ``GPUTarget``, the H100 SXM."""
+    from repro_torch.core.dse import GPUTarget
+
+    t = GPUTarget()
+    return t.hbm_gbs * 1e9, t.vpu_f32_tflops * 1e12, t.peak_bf16_tflops * 1e12
 
 
 #: Flash kernel vs its plain version on the same card inputs: f32 at the
@@ -1484,7 +1480,7 @@ def lm_serving(cfg, label: str, f32_layers: int, *,
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
     phase(f"  one decode step (4 slots, cache 256): {step * 1e3:.2f} ms, "
           f"host enqueue {enqueue * 1e3:.2f} ms, weight-read bound "
-          f"{weights / card_peaks(torch.cuda.get_device_name(0))[0] * 1e3:.2f}"
+          f"{weights / card_peaks()[0] * 1e3:.2f}"
           " ms")
     del eng, model, bundle, plain
     torch.cuda.empty_cache()
@@ -2140,7 +2136,7 @@ def ssm_serving() -> None:
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
     phase(f"  one decode step (4 slots): {step * 1e3:.2f} ms, host enqueue "
           f"{enqueue * 1e3:.2f} ms, weight-read bound "
-          f"{weights / card_peaks(torch.cuda.get_device_name(0))[0] * 1e3:.3f}"
+          f"{weights / card_peaks()[0] * 1e3:.3f}"
           " ms")
     del eng, model, bundle
     torch.cuda.empty_cache()
@@ -2874,7 +2870,7 @@ def _adamw_pass() -> dict:
     from repro_torch.train.checkpoint import tree_map
 
     t0 = time.perf_counter()
-    hbm = card_peaks(torch.cuda.get_device_name(0))[0]
+    hbm = card_peaks()[0]
     dev = "cuda"
     cfg = dataclasses.replace(get_arch("mixtral-8x7b"), n_layers=2)
     opt_cfg = topt.AdamWConfig(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8,
@@ -3035,7 +3031,7 @@ def dryrun_vs_card(card_line: str, prefill_wall: float,
     from repro_torch.train.optimizer import AdamWConfig, init_state
 
     t12 = time.perf_counter()
-    hbm, _, bf16 = card_peaks(torch.cuda.get_device_name(0))
+    hbm, _, bf16 = card_peaks()
     one = Mesh((1, 1), ("data", "model"), [torch.device("meta")])
     dev = "cuda"
     phase("phase 12: the dry run against the card")
@@ -3812,17 +3808,6 @@ def stream_programs(sims, hbm: float, record) -> None:
                        kern.compiled.hardware_report.flops * m
                        * state.shape[1] * state.shape[2], err, lib_ms)
         del buf
-    # The collide+stream cluster's design choices at its main-path launch
-    # (m 1): its printing orders and owner layouts side by side.
-    from repro_torch.kernels.spd_stream import variants as spd_variants
-
-    f01 = tprog.cluster_kernel(0, 1).program
-    res = spd_variants.run(f01, tstate, tregs[tprog.reg_slice(0, 1)], m=1,
-                           block_h=LBM_PLAN[0])
-    for line in spd_variants.report(f"{f01.name} 4096^2 m 1", res):
-        phase(line)
-    if not all(r["bitwise"] for r in res.values()):
-        fail(f"{f01.name}: a variant differs from the shipped launch")
     del tstate, astate, singles
     torch.cuda.empty_cache()
     phase(f"  phase 8: {time.perf_counter() - t8:.1f} s")
@@ -3909,7 +3894,7 @@ def main() -> None:
           f"{build_s:.2f} s (nvcc in parallel)")
     flash_census(build)
     stream_census(build, stream_sources)
-    hbm, fp32, bf16_peak = card_peaks(kind)
+    hbm, fp32, bf16_peak = card_peaks()
 
     # ---- 2. kernels against their plain versions at 512x1024 ----------
     phase("phase 2: kernels vs plain versions, 512x1024")
@@ -4203,11 +4188,8 @@ def main() -> None:
 
     dstate = big.state(u0)
     for dy, dx in ((4, 1), (2, 2)):
-        for overlap in (True, False):
-            mesh_run(
-                f"diffusion 8192^2 ({dy}, {dx}) overlap={overlap}",
-                big.kernel, dstate, (0.2,), dy, dx, dif_single[None], 64,
-                4, 32, runs["dif"], overlap=overlap)
+        mesh_run(f"diffusion 8192^2 ({dy}, {dx})", big.kernel, dstate,
+                 (0.2,), dy, dx, dif_single[None], 64, 4, 32, runs["dif"])
     ring = big.kernel.sharded(4, devices=["cuda:0"] * 4)
     decl = dstate
     for _ in range(16):
@@ -4456,6 +4438,8 @@ def main() -> None:
            launches["lbm_multistep"], ms, plain_ms,
            19 * 4096 * 4096 * 4, 131 * 4 * 4096 * 4096,
            max(errs["hand"] + [err]))
+    del f4, attr4, fbuf
+    torch.cuda.empty_cache()
 
     # Flash attention at each launch shape of the LM phases (bf16), through
     # the dispatcher the models call: the Qwen3-8B prefill's (D 128, causal;
@@ -4544,37 +4528,6 @@ def main() -> None:
            "none: the JAX package's AdamW is plain jnp",
            fam_adamw["mixtral-8x7b"], adamw["ms"], adamw["plain_ms"],
            adamw["nbytes"], adamw["ops"], adamw["err"], adamw["library_ms"])
-
-    # The stencil kernels' design choices side by side, on the same
-    # main-path inputs (three rounds after a warm-up).
-    from repro_torch.kernels.lbm_stream import variants as lbm_variants
-    from repro_torch.kernels.spd_stream import variants as spd_variants
-
-    phase("  design variants (CUDA events, 3 rounds after a warm-up):")
-    for name, r in lbm_variants.run(f4, attr4, 1 / 0.8).items():
-        phase(f"  lbm {name} ({r['block_h']}x{r['block_w']}): "
-              f"{sum(r['ms']) / len(r['ms']):.4f} ms "
-              f"({', '.join(f'{t:.4f}' for t in r['ms'])}); "
-              f"{r['regs']} registers, {r['spill']} spill bytes; max abs "
-              f"err vs plain {r['max_abs_err']:.3e}")
-        if r["max_abs_err"] > 0:
-            fail(f"LBM variant {name} differs from the plain version")
-    phase(f"  lbm library lookup per launch, host ms: "
-          f"{lbm_variants.library_lookup_ms()}")
-    del f4, attr4, fbuf
-    variant_runs = (
-        ("uLBM PE 4096^2 m 4", lprog, tstate, tregs, 16),
-        ("diffusion 8192^2 m 4", dprog,
-         big.state(dif.sine_init(8192, 8192)[0]), (0.2,), 32),
-    )
-    for label, prog, state, regs, bh in variant_runs:
-        res = spd_variants.run(prog, state, regs, m=4, block_h=bh)
-        for line in spd_variants.report(label, res):
-            phase(line)
-        if not all(r["bitwise"] for r in res.values()):
-            fail(f"{label}: a variant differs from the shipped launch")
-    del variant_runs, state
-    torch.cuda.empty_cache()
 
     phase(f"  mesh runs: {json.dumps(mesh)}")
     dse_loop(kind, hbm, fp32)

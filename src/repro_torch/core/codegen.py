@@ -67,11 +67,15 @@ _STREAM_1D = ("Delay", "StreamForward", "StreamBackward")
 #: (``SPD_MAX_REGS`` in ``csrc/spd_tile.cuh``).
 MAX_REGS = 16
 
+#: The owner layout of the generated kernels, printed into every
+#: translation unit as ``SPD_THREADS``, ``SPD_CPT`` and ``SPD_MIN_BLOCKS``
+#: (:meth:`StripeProgram.cuda_source`); each choice was timed against its
+#: alternatives on the card (docs/port.md §tile, "Why, measured").
+#:
 #: Blocks of a shared-state generated kernel one SM should hold: its 256
 #: threads' registers are sized for two (``SPD_MIN_BLOCKS``), so shared
 #: memory decides, and two blocks per SM beat one block of the widest
-#: tile that fits (kernels/spd_stream/variants.py, docs/port.md §tile).
-#: Both launches seek it when they choose ``block_w``.
+#: tile that fits. Both launches seek it when they choose ``block_w``.
 BLOCKS_PER_SM = 2
 
 #: Threads of a shared-state generated kernel's block (``SPD_THREADS``).
@@ -80,9 +84,8 @@ THREADS = 256
 #: A register-state kernel's block: 1,024 threads owning 2 stripe cells
 #: each (``REG_CPT``, one for a core of more than 10 state planes), their
 #: registers sized for one block per SM (64 a thread), on the widest tile
-#: whose stripe the owners hold. Measured against 256 threads × 5 cells
-#: at two blocks per SM, 512 × 2 and 512 × 4 at one, and shared state
-#: (kernels/spd_stream/variants.py, PERF.md §6).
+#: whose stripe the owners hold. It beat 256 threads × 5 cells at two
+#: blocks per SM, 512 × 2 and 512 × 4 at one, and shared state.
 REG_THREADS = 1024
 REG_CPT = 2
 
@@ -501,37 +504,27 @@ class StripeProgram:
 
     # ---- the CUDA printer --------------------------------------------------
 
-    def cuda_source(self, *, taps: str = "offset",
-                    reg_state: bool | None = None) -> str:
-        """The generated translation unit: the ``SpdCore`` tile steps,
-        then the shared launch scaffolding of ``csrc/spd_stream.cuh``.
+    def cuda_source(self) -> str:
+        """The generated translation unit: the owner layout, the
+        ``SpdCore`` tile steps, then the shared launch scaffolding of
+        ``csrc/spd_stream.cuh``.
 
         ``step`` walks the cells ``t, t + SPD_THREADS, …`` of a tile whose
         state lies in shared memory; a :attr:`reg_state` core also gets
         ``step_owned``, which steps its owned cells' state in registers.
-        ``taps="offset"`` (shipped) prints every stencil tap as one shared
-        load at a constant offset from the cell (``csrc/spd_tile.cuh``);
-        ``"checked"`` as ``spd_tap`` with two bounds compares, and
-        ``reg_state=False`` a register-state core with shared state only
-        (the variants of ``kernels/spd_stream/variants.py``).
+        Every stencil tap is one shared load at a constant offset from the
+        cell (``csrc/spd_tile.cuh``).
         """
-        if taps not in ("offset", "checked"):
-            raise ValueError(f"taps must be 'offset' or 'checked': {taps!r}")
-        reg = self.reg_state if reg_state is None else bool(reg_state)
-        if reg and not self.reg_state:
-            raise CodegenError(f"{self.name}: the step reads its state by "
-                               "stencil; it cannot keep it in registers")
+        reg = self.reg_state
         L = [
             f"// Generated from SPD core {self.name} by "
             "repro_torch.core.codegen; do not edit.",
+            f"#define SPD_THREADS {self.threads}",
         ]
         if reg:
-            # the owner layout, each macro open to a variant's override
-            for macro, v in (("SPD_THREADS", self.threads),
-                             ("SPD_CPT", self.cpt),
-                             ("SPD_MIN_BLOCKS", self.blocks_per_sm)):
-                L += [f"#ifndef {macro}", f"#define {macro} {v}", "#endif"]
-        L += ['#include "spd_tile.cuh"', ""]
+            L.append(f"#define SPD_CPT {self.cpt}")
+        L += [f"#define SPD_MIN_BLOCKS {self.blocks_per_sm}",
+              '#include "spd_tile.cuh"', ""]
         flag = lambda b: "true" if b else "false"  # noqa: E731
         L += [
             "struct SpdCore {",
@@ -548,38 +541,25 @@ class StripeProgram:
             "      float* __restrict__ mat, const SpdTile& t,",
             "      const SpdRegs& regs) {",
         ]
-        checked = taps == "checked"
-        # R is read by checked taps only
-        dims = ("    const int R = t.R, C = t.C, RC = t.RC;" if checked
-                else "    const int C = t.C, RC = t.RC;")
+        dims = "    const int C = t.C, RC = t.RC;"
         L.append(dims)
         for k in range(len(self.phases)):
-            # One thread per cell, cells SPD_THREADS apart; checked taps
-            # carry the cell's (r, c) by additions (SpdTile).
-            walk = checked and self._shifted(k)
-            L.append(f"    // phase {k}")
-            if walk:
-                L += ["    {", "    int r = t.r0, c = t.c0;"]
-            L.append("    for (int idx = threadIdx.x; idx < RC; "
-                     "idx += SPD_THREADS) {")
+            # one thread per cell, cells SPD_THREADS apart
+            L += [f"    // phase {k}",
+                  "    for (int idx = threadIdx.x; idx < RC; "
+                  "idx += SPD_THREADS) {"]
             body = self._phase_body(
                 k, lambda p: f"src[{p} * RC + idx]",
-                lambda p, v: f"dst[{p} * RC + idx] = {v};", checked)
-            if walk:
-                body += ["r += t.dr;", "c += t.dc;",
-                         "if (c >= C) { c -= C; ++r; }"]
+                lambda p, v: f"dst[{p} * RC + idx] = {v};")
             L.extend("      " + line for line in body)
-            L.append("    }")
-            if walk:
-                L.append("    }")
-            L.append("    __syncthreads();")
+            L += ["    }", "    __syncthreads();"]
         L.append("  }")
         if reg:
             L += [
                 "  // The owned cells' state in registers: s[q] is cell",
                 "  // t + q SPD_THREADS of the tile, owned while < RC.",
                 "  static __device__ __forceinline__ void step_owned(",
-                "      float (&s)[CPT][P], const SpdOwned<CPT>& own,",
+                "      float (&s)[CPT][P],",
                 "      float* __restrict__ mat, const SpdTile& t,",
                 "      const SpdRegs& regs) {",
                 dims,
@@ -589,21 +569,16 @@ class StripeProgram:
                       "    for (int q = 0; q < CPT; ++q) {",
                       "      const int idx = threadIdx.x + q * SPD_THREADS;",
                       "      if (idx >= RC) continue;"]
-                if checked and self._shifted(k):
-                    L.append("      const int r = own.r[q], c = own.c[q];")
                 body = self._phase_body(
                     k, lambda p: f"s[q][{p}]",
-                    lambda p, v: f"s[q][{p}] = {v};", checked)
+                    lambda p, v: f"s[q][{p}] = {v};")
                 L.extend("      " + line for line in body)
                 L += ["    }", "    __syncthreads();"]
             L.append("  }")
         L += ["};", "", '#include "spd_stream.cuh"', ""]
         return "\n".join(L)
 
-    def _shifted(self, k: int) -> bool:
-        return any(st.op == "shift" for st in self.phases[k])
-
-    def _phase_body(self, k: int, state, store, checked: bool) -> list:
+    def _phase_body(self, k: int, state, store) -> list:
         """Phase ``k`` of one cell ``idx``: its pointwise reads (a state
         plane through ``state(p)``), statements, taps, materialized
         stores and, in the last phase, the new state (``store(p, v)``)."""
@@ -619,9 +594,6 @@ class StripeProgram:
         def tap(key, dy, dx):
             arr, p = (("src", int(key[2:])) if key.startswith("in")
                       else ("mat", mat_idx[key]))
-            if checked:
-                return (f"spd_tap({arr} + {p} * RC, r - ({dy}), "
-                        f"c - ({dx}), R, C)")
             return f"{arr}[{p} * RC + idx - ({dy} * C + ({dx}))]"
 
         last = k == len(self.phases) - 1

@@ -38,15 +38,10 @@ Per fused launch (:meth:`ShardedStreamKernel.run_blocked`):
 
 Every shard is kept in two guard-extended buffers (:class:`ShardBuffers`):
 a launch reads one and writes the other's center rows, so no shard is
-ever copied whole and only boundary slices move. With ``overlap`` (off by
-default) and at least three blocks per shard, the launch is split into an
-interior launch over the shard's own rows (it needs the column exchange
-only) and two one-block edge launches; every shard's interior launch is
-issued before the row exchange and the edge launches. On one stream the
-split overlaps nothing and triples the launches, so it stays a plan knob
-until the launches run on side streams. Each block's stripe holds the
-same values either way, and every launch runs the same generated tile
-function, so a sharded run equals the single-device run bit for bit.
+ever copied whole and only boundary slices move. Each block's stripe
+holds the same values as on one device, and every launch runs the same
+generated tile function, so a sharded run equals the single-device run
+bit for bit.
 """
 
 from __future__ import annotations
@@ -136,7 +131,7 @@ class ShardBuffers:
         p, h, w = state.shape
         self.dy, self.dx = len(grid), len(grid[0])
         self.lh, self.lw = h // self.dy, w // self.dx
-        self.bh, self.mh, self.mhx = block_h, mh, mhx
+        self.mh, self.mhx = mh, mhx
         self.g = block_h if mh else 0
         shape = (p, self.lh + 2 * self.g, self.lw + 2 * mhx)
         self.bufs = {}
@@ -228,17 +223,16 @@ class ShardedStreamKernel:
     device list, ``(d,)`` for a ring and ``(dy, dx)`` nested otherwise.
     The state handed to a run must lie on the mesh's device type: a CUDA
     state on a CPU mesh (or the reverse) raises rather than moving the
-    work. ``overlap`` sets the default of the interior/edge split.
+    work.
     """
 
     def __init__(self, kernel, d: int, devices: Sequence | None = None,
-                 overlap: bool = False, dx: int = 1):
+                 dx: int = 1):
         self.kernel = kernel
         self.d = int(d)
         self.dy, self.dx = mesh_shape(self.d, dx)
         self.halo = kernel.halo
         self.halo_x = int(kernel.halo_x)
-        self.overlap = bool(overlap)
         if devices is None and kernel.device.type == "cpu":
             devices = [kernel.device] * self.d
         if self.d == 1:
@@ -292,46 +286,24 @@ class ShardedStreamKernel:
         return ShardBuffers(state, self.grid, block_h=block_h,
                             mh=m * self.halo, mhx=self._guard_x(m))
 
-    def _advance(self, sb: ShardBuffers, launch, *, overlap: bool) -> None:
-        """One fused launch of every shard: exchange, then
-        ``launch(ext, out=...)`` per shard (interior launches first under
-        ``overlap``), then swap the buffers."""
+    def _advance(self, sb: ShardBuffers, launch) -> None:
+        """One fused launch of every shard: exchange, then ``launch(ext,
+        out=...)`` per shard into the other buffer's center rows, then
+        swap the buffers. Without y reach there are no guard rows, and
+        the launch is the periodic one over the (column-extended)
+        shard."""
         sb.exchange_x()
-        keys = list(sb.bufs)
-        if sb.mh == 0:
-            # No y reach: shards read no neighbour rows, and the launch
-            # is the periodic one over the (column-extended) shard.
-            for i, j in keys:
-                launch(sb.src(i, j), out=sb.dst(i, j))
-            sb.swap()
-            return
-        g, lh, bh = sb.g, sb.lh, sb.bh
-        split = overlap and lh // bh >= 3
-        if split:
-            # Interior blocks read only the shard's own rows: the shard
-            # is their guard-extended array.
-            for i, j in keys:
-                launch(sb.src(i, j)[:, g:g + lh],
-                       out=sb.dst(i, j)[:, g + bh:g + lh - bh])
         sb.exchange_y()
-        for i, j in keys:
-            ext, out = sb.src(i, j), sb.dst(i, j)
-            if split:
-                launch(ext[:, :3 * bh], out=out[:, g:g + bh])
-                launch(ext[:, lh - bh:lh + 2 * bh],
-                       out=out[:, g + lh - bh:g + lh])
-            else:
-                launch(ext, out=out[:, g:g + lh])
+        for i, j in sb.bufs:
+            launch(sb.src(i, j), out=sb.dst(i, j)[:, sb.g:sb.g + sb.lh])
         sb.swap()
 
     # ---- launches (mirroring StreamKernel) ---------------------------------
 
     def _run(self, state, regs, *, steps: int, m: int, block_h: int,
-             overlap: bool | None, launch_fn, **launch_kw):
+             launch_fn, **launch_kw):
         """``steps // m`` fused launches of every shard through
         ``launch_fn``; the grid comes back on the mesh's first device."""
-        if overlap is None:
-            overlap = self.overlap
         mesh_dev = self.grid[0][0]
         if state.device.type != mesh_dev.type:
             n = len(self.grid) * len(self.grid[0])
@@ -349,16 +321,14 @@ class ShardedStreamKernel:
 
         sb = self.shards(state, m=m, block_h=block_h)
         for _ in range(steps // m):
-            self._advance(sb, launch, overlap=bool(overlap))
+            self._advance(sb, launch)
         return sb.gather(self.grid[0][0])
 
     def run_blocked(self, state, regs: Sequence = (), *, steps: int,
-                    m: int, block_h: int, double_buffer: bool = True,
-                    overlap: bool | None = None):
+                    m: int, block_h: int, double_buffer: bool = True):
         """Advance ``steps`` time steps, exchanging halos every m steps,
         through the streamed halo launch; returns the ``(P, H, W)`` grid
-        on the mesh's first device. ``overlap`` toggles the interior/edge
-        split (default: the construction-time setting)."""
+        on the mesh's first device."""
         if self.d == 1:
             return self.kernel.run_blocked(
                 state, regs, steps=steps, m=m, block_h=block_h,
@@ -369,12 +339,11 @@ class ShardedStreamKernel:
         )
 
         return self._run(state, regs, steps=steps, m=m, block_h=block_h,
-                         overlap=overlap,
                          launch_fn=spd_multistep_halo_streamed,
                          double_buffer=double_buffer)
 
     def multistep(self, state, regs: Sequence = (), *, m: int = 1,
-                  block_h: int = 32, overlap: bool | None = None):
+                  block_h: int = 32):
         """One fused m-step advance of every shard through the declarative
         halo launch, the twin of :meth:`run_blocked` (bitwise equal)."""
         if self.d == 1:
@@ -382,7 +351,7 @@ class ShardedStreamKernel:
         from repro_torch.kernels.spd_stream.sharded import spd_multistep_halo
 
         return self._run(state, regs, steps=m, m=m, block_h=block_h,
-                         overlap=overlap, launch_fn=spd_multistep_halo)
+                         launch_fn=spd_multistep_halo)
 
     def run_for_point(self, state, regs: Sequence = (), *, point,
                       steps: int | None = None):

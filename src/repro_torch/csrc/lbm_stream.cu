@@ -37,9 +37,7 @@
 //    g, streaming reads g and writes the slot), the threads walk every
 //    cell with a stride carrying (row, column) by additions, and there is
 //    no prefetch. Same 19 planes, same arithmetic op for op.
-// Shared memory: (9 + 10) planes of the stripe, 19 (LBM_SMEM_POPS, a
-// variant for measurement, keeps the populations in 9 more shared planes
-// instead of registers: 28).
+// Shared memory: (9 + 10) planes of the stripe, 19.
 //
 // Bound: HBM bytes per launch >= (9 + 1 + 9) H W 4 B (populations and
 // attributes read once, populations written once); m fused steps per
@@ -47,29 +45,10 @@
 
 #include "tile_copy.cuh"
 
-#ifndef LBM_THREADS
 #define LBM_THREADS 512
-#endif
-#ifndef LBM_CPT
-#define LBM_CPT 4  // stripe cells per thread: the owners hold <= 2048 cells
-#endif
-#ifndef LBM_SMEM_POPS
-#define LBM_SMEM_POPS 0
-#endif
-#ifndef LBM_PREFETCH
-#define LBM_PREFETCH 1
-#endif
-#ifndef LBM_MIN_BLOCKS
+#define LBM_CPT 4         // stripe cells per thread: the owners hold 2048
 #define LBM_MIN_BLOCKS 1  // blocks per SM the registers are sized for
-#endif
-
-#define LBM_PLANES (19 + 9 * LBM_SMEM_POPS)
-
-#if LBM_SMEM_POPS
-#define POP(k, i) fs[(i) * RC + cell[k]]
-#else
-#define POP(k, i) fr[k][i]
-#endif
+#define LBM_PLANES 19
 
 // BGK collision of one cell, gated to fluid cells: the post-collision
 // populations into g[i * RC + cell]. The tables are local constants, and
@@ -216,9 +195,6 @@ lbm_multistep_kernel(const float* __restrict__ f_in,
       __syncthreads();
     }
   } else {
-#if LBM_SMEM_POPS
-    float* fs = slot + 10 * RC;  // 9 planes: the populations
-#endif
     // The owned cells, their offsets and which of their neighbours lie
     // inside the tile (up, down, left, right).
     int cell[LBM_CPT];
@@ -235,33 +211,28 @@ lbm_multistep_kernel(const float* __restrict__ f_in,
       in_r[k] = c < C - 1;
       center[k] = r >= m && r < m + bh && c >= m && c < m + bw;
     }
-#if !LBM_SMEM_POPS
     float fr[LBM_CPT][9];
-#endif
     float at[LBM_CPT];
-    if (LBM_PREFETCH && blockIdx.x < ntiles) issue(blockIdx.x);
+    if (blockIdx.x < ntiles) issue(blockIdx.x);
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      if (!LBM_PREFETCH) issue(tile);
       cp_async_wait<0>();
       __syncthreads();
 #pragma unroll
       for (int k = 0; k < LBM_CPT; ++k) {
         if (!own[k]) continue;
 #pragma unroll
-        for (int i = 0; i < 9; ++i) POP(k, i) = slot[i * RC + cell[k]];
+        for (int i = 0; i < 9; ++i) fr[k][i] = slot[i * RC + cell[k]];
         at[k] = slot[9 * RC + cell[k]];
       }
       __syncthreads();
-      if (LBM_PREFETCH && tile + (int)gridDim.x < ntiles) {
-        issue(tile + gridDim.x);
-      }
+      if (tile + (int)gridDim.x < ntiles) issue(tile + gridDim.x);
       for (int s = 0; s < m; ++s) {
 #pragma unroll
         for (int k = 0; k < LBM_CPT; ++k) {
           if (!own[k]) continue;
           float fi[9];
 #pragma unroll
-          for (int i = 0; i < 9; ++i) fi[i] = POP(k, i);
+          for (int i = 0; i < 9; ++i) fi[i] = fr[k][i];
           lbm_collide(fi, at[k], one_tau, g, RC, cell[k]);
         }
         __syncthreads();
@@ -272,7 +243,7 @@ lbm_multistep_kernel(const float* __restrict__ f_in,
           lbm_stream(g, RC, C, cell[k], in_u[k], in_d[k], in_l[k], in_r[k],
                      at[k], u_lid, fo);
 #pragma unroll
-          for (int i = 0; i < 9; ++i) POP(k, i) = fo[i];
+          for (int i = 0; i < 9; ++i) fr[k][i] = fo[i];
         }
         __syncthreads();
       }
@@ -281,7 +252,7 @@ lbm_multistep_kernel(const float* __restrict__ f_in,
       for (int k = 0; k < LBM_CPT; ++k) {
         if (!own[k] || !center[k]) continue;
 #pragma unroll
-        for (int i = 0; i < 9; ++i) g[i * RC + cell[k]] = POP(k, i);
+        for (int i = 0; i < 9; ++i) g[i * RC + cell[k]] = fr[k][i];
       }
       __syncthreads();
       store(g, tile);

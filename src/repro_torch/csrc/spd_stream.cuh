@@ -6,8 +6,8 @@
 // its result over its input -- REG_STATE -- no phase reads a state plane
 // by stencil, so each thread may keep its cells' state in registers --
 // CPT, the cells each thread owns then, `step(src, dst, mat, tile, regs)`
-// over shared state and, for REG_STATE cores, `step_owned(s, own, mat,
-// tile, regs)` over register state). One kernel template,
+// over shared state and, for REG_STATE cores, `step_owned(s, mat, tile,
+// regs)` over register state). One kernel template,
 // spd_multistep_kernel<GUARD>, serves the four launches:
 //
 //   spd_multistep           one thread block per (block_h x block_w) tile;
@@ -195,23 +195,6 @@ __device__ __forceinline__ void spd_owned_walk(
     bool prefetch, const SpdRegs& regs) {
   constexpr int N = Core::CPT;
   const int C = w.tile.C, RC = w.tile.RC;
-  // (r, c) of each owned cell: the shipped step reads neither (each tap
-  // is an offset from the cell), the checked-tap variant both.
-  SpdOwned<N> own;
-  {
-    int r = w.tile.r0, c = w.tile.c0;
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      own.r[k] = r;
-      own.c[k] = c;
-      r += w.tile.dr;
-      c += w.tile.dc;
-      if (c >= C) {
-        c -= C;
-        ++r;
-      }
-    }
-  }
   float s[N][Core::P];
   if (prefetch && first.t < ntiles) issue(first);
   for (SpdAt a = first; a.t < ntiles; a = next(a)) {
@@ -231,7 +214,7 @@ __device__ __forceinline__ void spd_owned_walk(
       if (n.t < ntiles) issue(n);
     }
     for (int step = 0; step < m; ++step) {
-      Core::step_owned(s, own, mat, w.tile, regs);
+      Core::step_owned(s, mat, w.tile, regs);
     }
     // The center cells out from the registers, through the member's
     // base, (r, c) walked again by additions; columns at or past W (the

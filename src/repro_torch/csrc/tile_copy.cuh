@@ -156,13 +156,8 @@ __device__ __forceinline__ void store_center(const float* __restrict__ buf,
 
 // Whether a launch takes the 16-byte path: the width, the column tile and
 // the column guard m*halo_x multiples of 4 floats, both bases on 16 bytes.
-// TILE_COPY_SCALAR (a variant for measurement) keeps every launch on the
-// 4-byte path.
 static inline bool tile_vec4(const void* in, const void* out, int W, int bw,
                              int mw) {
-#ifdef TILE_COPY_SCALAR
-  return false;
-#endif
   return W % 4 == 0 && bw % 4 == 0 && mw % 4 == 0 &&
          ((uintptr_t)in & 15) == 0 && ((uintptr_t)out & 15) == 0;
 }

@@ -220,8 +220,11 @@ def lbm_source() -> str:
     return (CSRC / "lbm_stream.cu").read_text()
 
 
-def bind_lbm(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Bind the entry points of a built ``csrc/lbm_stream.cu``."""
+@functools.cache
+def load_lbm_library() -> ctypes.CDLL:
+    """Build and bind the hand-written D2Q9 kernel (``csrc/lbm_stream.cu``),
+    once per process: a launch then costs no hash of the source."""
+    lib = load("lbm_stream", lbm_source())
     lib.lbm_multistep.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
                                   ctypes.c_float, ctypes.c_float, _LL, _I,
                                   _P]
@@ -233,24 +236,11 @@ def bind_lbm(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-@functools.cache
-def load_lbm_library() -> ctypes.CDLL:
-    """Build and bind the hand-written D2Q9 kernel (``csrc/lbm_stream.cu``),
-    once per process: a launch then costs no hash of the source."""
-    return bind_lbm(load("lbm_stream", lbm_source()))
-
-
 class FlashStrides(ctypes.Structure):
     """``struct FlashStrides`` of ``csrc/flash_attention.cu``: the batch,
     head and sequence strides (elements) of q, k, v and the output."""
 
     _fields_ = [("s", ctypes.c_longlong * 12)]
-
-
-#: ``flash_attention_fwd(q, k, v, o, dtype, b, hq, hkv, sq, sk, d, strides,
-#: scale, causal, window, stream)``.
-FLASH_FWD_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                      FlashStrides, ctypes.c_float, _I, _I, _P]
 
 
 def flash_source() -> str:
@@ -263,7 +253,11 @@ def load_flash_library() -> ctypes.CDLL:
     (``csrc/flash_attention.cu``), once per process: a launch then costs
     no hash of the source on the host."""
     lib = load("flash_attention", flash_source())
-    lib.flash_attention_fwd.argtypes = FLASH_FWD_ARGTYPES
+    # (q, k, v, o, dtype, b, hq, hkv, sq, sk, d, strides, scale, causal,
+    # window, stream)
+    lib.flash_attention_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                        _I, _I, FlashStrides,
+                                        ctypes.c_float, _I, _I, _P]
     lib.flash_attention_fwd.restype = _I
     lib.flash_wgmma_probe.argtypes = [_P, _P, _P, _P, _P, _I, _P]
     lib.flash_wgmma_probe.restype = _I

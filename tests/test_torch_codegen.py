@@ -259,42 +259,6 @@ def test_in_place_step_only_without_input_stencils(dif_pair, lbm_pair):
             prog.planes(1 if prog.in_place else 2)
 
 
-def test_spd_variant_plans_undo_one_choice_each(dif_pair, lbm_pair):
-    """``kernels/spd_stream/variants.py`` times the shipped plan beside
-    plans that each undo one choice: for the uLBM PE its register state
-    (1,024 threads × 2 cells, 16×64, one slot, prefetched: 132,480 B)
-    beside shared state, checked taps, no prefetch, other owner layouts
-    and the declarative launch at both layouts; diffusion has no
-    register-state variant, and its declarative tile is the same at both
-    rules."""
-    from repro_torch.kernels.spd_stream.variants import variant_plans
-
-    S, D = "spd_multistep_streamed", "spd_multistep"
-    plans, srcs = variant_plans(lbm_pair[0].program, 4096, 16, 4)
-    assert plans["kernel"] == (S, 64, True, 132_480)
-    assert plans["kernel"] == plans["checked_taps"] == plans["t512c4"] \
-        == plans["scalar_copies"]
-    assert plans["shared_state"] == (S, 32, True, 112_000)
-    assert plans["ring1"] == (S, 64, False, 132_480)
-    assert plans["t256c5"] == plans["t512c2"] == (S, 32, True, 73_600)
-    assert plans["declarative"] == (D, 64, False, 132_480)
-    assert plans["declarative_t256c5"] == (D, 32, False, 73_600)
-    assert set(srcs) == {"shared_state", "checked_taps", "t256c5", "t512c2",
-                         "t512c4", "declarative_t256c5", "scalar_copies"}
-    assert srcs["declarative_t256c5"] == srcs["t256c5"]
-    assert "REG_STATE = false" in srcs["shared_state"]
-    assert "spd_tap(" in srcs["checked_taps"]
-    assert srcs["t512c2"].startswith(
-        "#define SPD_THREADS 512\n#define SPD_CPT 2\n"
-        "#define SPD_MIN_BLOCKS 1\n")
-    assert srcs["scalar_copies"].startswith("#define TILE_COPY_SCALAR 1\n")
-    plans, srcs = variant_plans(dif_pair[0].kernel.program, 8192, 32, 4)
-    assert set(plans) == {"kernel", "checked_taps", "ring1", "declarative",
-                          "scalar_copies"}
-    assert plans["declarative"] == (D, 128, False, 45_696)
-    assert set(srcs) == {"checked_taps", "scalar_copies"}
-
-
 def _core(text):
     from repro_torch.core import Registry, parse_spd
 
@@ -318,8 +282,7 @@ LATE_STATE_STENCIL = """
 def test_register_state_only_without_state_stencils(bndry, dif_pair):
     """A core keeps its state in registers when no phase reads a state
     plane by stencil: the uLBM PE (both boundary variants), not diffusion
-    (it taps its input) nor a core that taps its state in a later phase;
-    asking to print such a core with register state raises."""
+    (it taps its input) nor a core that taps its state in a later phase."""
     prog = tlbm.LBMSimulation(tlbm.LBMProblem(16, 64), bndry=bndry,
                               device="cpu").stream_kernel().program
     assert prog.reg_state and prog.in_place
@@ -329,16 +292,20 @@ def test_register_state_only_without_state_stencils(bndry, dif_pair):
     for other in (dif_pair[0].kernel.program, late):
         assert not other.reg_state and other.owner_cells == 0
         assert "REG_STATE = false" in other.cuda_source()
-        with pytest.raises(CodegenError, match="registers"):
-            other.cuda_source(reg_state=True)
 
 
 def test_printed_register_step_and_offset_taps(dif_pair, lbm_pair):
     """The uLBM PE's printed source keeps each owned cell's state in
     registers (``step_owned`` reads and writes ``s[q][p]``, never a shared
     state plane) and no stencil tap checks bounds; diffusion prints the
-    shared-state step only, its taps unchecked too."""
+    shared-state step only, its taps unchecked too. Every printed unit
+    (diffusion, the PE at either boundary, a cluster core of the uLBM
+    program) fixes its owner layout once, from codegen's constants, with
+    nothing left to override, and neither it nor the headers it includes
+    has a bounds-checked tap or per-cell (r, c) of the owned cells."""
     import re
+
+    from repro_torch.kernels.build import CSRC
 
     src = lbm_pair[0].program.cuda_source()
     assert "static constexpr bool REG_STATE = true;" in src
@@ -347,11 +314,29 @@ def test_printed_register_step_and_offset_taps(dif_pair, lbm_pair):
     assert "src[" not in owned and "dst[" not in owned
     assert len(re.findall(r"= s\[q\]\[\d\];", owned)) == 10 + 1  # in9
     assert len(re.findall(r"s\[q\]\[\d\] = ", owned)) == 10
-    assert "spd_tap(" not in src.split("struct SpdCore", 1)[1]
     assert len(re.findall(r"mat\[\d \* RC \+ idx - \(", owned)) == 9
     dsrc = dif_pair[0].kernel.program.cuda_source()
     assert "step_owned" not in dsrc and "SPD_CPT" not in dsrc
-    assert "spd_tap(" not in dsrc.split("struct SpdCore", 1)[1]
+    cluster = tlbm.LBMSimulation(tlbm.LBMProblem(16, 64),
+                                 device="cpu").program().cluster_kernel(0, 1)
+    headers = "".join((CSRC / h).read_text()
+                      for h in ("spd_tile.cuh", "spd_stream.cuh",
+                                "tile_copy.cuh"))
+    for prog in (dif_pair[0].kernel.program, lbm_pair[0].program,
+                 cluster.program):
+        unit = prog.cuda_source()
+        layout = {"SPD_THREADS": prog.threads,
+                  "SPD_MIN_BLOCKS": prog.blocks_per_sm}
+        if prog.reg_state:
+            layout["SPD_CPT"] = prog.cpt
+        for macro, value in layout.items():
+            assert len(re.findall(rf"#define {macro} ", unit)) == 1
+            assert f"#define {macro} {value}\n" in unit
+        assert ("SPD_CPT" in unit) == prog.reg_state
+        assert "#ifndef SPD_" not in unit + headers
+        for name in ("spd_tap", "SpdOwned"):
+            assert name not in unit + headers
+    assert cluster.program.reg_state
 
 
 def test_tile_takes_the_owner_rule_of_the_kernel(dif_pair, lbm_pair):

@@ -311,10 +311,8 @@ def test_mesh_on_one_card_equals_single(card, case):
     state = sim.stream_state(f, attr)
     single = kern.run_blocked(state, regs, steps=8, m=4, block_h=8)
     sk = kern.sharded(4, devices=["cuda:0"] * 4, dx=2)
-    for overlap in (True, False):
-        assert torch.equal(sk.run_blocked(state, regs, steps=8, m=4,
-                                          block_h=8, overlap=overlap),
-                           single)
+    assert torch.equal(sk.run_blocked(state, regs, steps=8, m=4, block_h=8),
+                       single)
     assert torch.equal(sk.multistep(state, regs, m=4, block_h=8),
                        kern.run_blocked(state, regs, steps=4, m=4,
                                         block_h=8))

@@ -173,7 +173,8 @@ def test_halo_launches_agree_bitwise_and_write_into_out(apps):
                              out=buf[:, 2:18])
     assert out.data_ptr() == buf[:, 2:18].data_ptr()
     assert torch.equal(buf[:, 2:18], a)
-    # The interior launch of the overlap split: a shard's own rows.
+    # A launch over a shard's own rows takes their first and last blocks
+    # as guards and computes the blocks between, bitwise.
     inner = spd_multistep_halo(tk.program, x[:, 4:20], regs, m=2, block_h=4)
     assert torch.equal(inner, a[:, 4:12])
 
@@ -226,7 +227,6 @@ def test_sharded_rejects_a_state_off_the_mesh_device(dif):
     off = torch.empty(sim.state(u0).shape, device="meta")
     for sk in (sim.kernel.sharded(2),
                sim.kernel.sharded(4, devices=["cpu"] * 4, dx=2)):
-        assert sk.overlap is False  # the split is a plan knob, off by default
         with pytest.raises(ValueError, match=r"state on meta but mesh on cpu"):
             sk.run_blocked(off, (0.2,), steps=2, m=2, block_h=4)
         with pytest.raises(ValueError, match="mesh on cpu"):

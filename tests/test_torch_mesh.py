@@ -65,25 +65,41 @@ def test_mesh_equals_single_device(kernels, app, dy, dx, m, db):
 
 @pytest.mark.parametrize("dy,dx", [(1, 2), (2, 2), (4, 1)])
 @pytest.mark.parametrize("app", ["diffusion", "fluid"])
-def test_overlap_on_equals_off_equals_single(kernels, app, dy, dx):
-    """Shards of 16/dy rows at block_h 2 have >= 3 blocks, so the
-    interior/edge split engages."""
+def test_each_shard_takes_one_launch_a_fused_step(kernels, app, dy, dx,
+                                                  monkeypatch):
+    """Every fused step launches each shard once, over its whole
+    guard-extended buffer (block_h guard rows a side), into its own rows
+    of the other buffer; shards of 16/dy rows at block_h 2 hold 2 to 8
+    blocks."""
+    from repro_torch.kernels.spd_stream import streaming
+
     kern, state, regs = kernels[app]
     single = kern.run_blocked(state, regs, steps=4, m=2, block_h=2)
+    launch = streaming.spd_multistep_halo_streamed
+    seen = []
+
+    def spy(program, ext, regs, *, out, **kw):
+        seen.append((tuple(ext.shape[-2:]), tuple(out.shape[-2:])))
+        return launch(program, ext, regs, out=out, **kw)
+
+    monkeypatch.setattr(streaming, "spd_multistep_halo_streamed", spy)
     sk = kern.sharded(dy * dx, devices=["cpu"] * (dy * dx), dx=dx)
-    on = sk.run_blocked(state, regs, steps=4, m=2, block_h=2, overlap=True)
-    off = sk.run_blocked(state, regs, steps=4, m=2, block_h=2,
-                         overlap=False)
-    assert torch.equal(on, off)
-    assert torch.equal(on, single)
+    got = sk.run_blocked(state, regs, steps=4, m=2, block_h=2)
+    lh, lw = H // dy, W // dx
+    ew = lw + 2 * 2 * kern.halo_x if dx > 1 else lw
+    assert seen == [((lh + 2 * 2, ew), (lh, ew))] * (dy * dx * 2)
+    assert torch.equal(got, single)
 
 
-def test_overlap_falls_back_below_three_blocks(kernels):
+@pytest.mark.parametrize("block_h", [4, 8], ids=["2blocks", "1block"])
+def test_shards_of_one_or_two_blocks_equal_single(kernels, block_h):
+    """8-row shards of 2 blocks, then of 1: the launch over a shard's
+    guard-extended buffer needs no interior block."""
     kern, state, regs = kernels["diffusion"]
-    single = kern.run_blocked(state, regs, steps=2, m=1, block_h=4)
-    on = kern.sharded(2, devices=["cpu"] * 2).run_blocked(  # nblk = 2
-        state, regs, steps=2, m=1, block_h=4, overlap=True)
-    assert torch.equal(on, single)
+    single = kern.run_blocked(state, regs, steps=2, m=1, block_h=block_h)
+    sk = kern.sharded(2, devices=["cpu"] * 2)
+    assert torch.equal(sk.run_blocked(state, regs, steps=2, m=1,
+                                      block_h=block_h), single)
 
 
 @pytest.mark.parametrize("dy,dx", [(2, 2), (1, 4)])
