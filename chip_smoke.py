@@ -135,13 +135,17 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    the seconds of a save and a restore; (b) Qwen3-8B at full width and 8
    of its 36 layers, B 2 x 2048: step 0's gradients through the kernel
    (8 launches forward and 8 in the backward, which recomputes each
-   layer under the default remat ``"none"``) against plain attention's,
+   layer under the default remat ``"none"``, and 8 of the backward
+   kernel) against plain attention's,
    every leaf within the larger of ``GRAD_REL_L2`` and 1.5x its rounding
    floor, then 3 steps of ``make_train_step`` and ``REMAT_STEPS`` more
    under each of the remat policies ``"sublayers"`` and ``"off"`` (step
-   ms, peak memory, launches), and at the training shape the kernel's
-   forward, ``FlashAttentionFn``'s backward (the plain recompute) and
-   ``scaled_dot_product_attention`` forward + backward; (c) xLSTM-125m's
+   ms, peak memory, launches, the backward kernel's a step), and at the
+   training shape the kernel's forward, the backward kernel (alone and
+   through ``FlashAttentionFn``, against its five-product bound, two
+   launches bitwise equal, its gradients held to the plain recompute's),
+   the plain recompute it replaced and ``scaled_dot_product_attention``
+   forward + backward; (c) xLSTM-125m's
    8x2048 batch over 2 data ranks of ``["cuda:0"] * 2``, each rank's
    gradients and ``compressed_psum``: ``none`` bitwise the f32 mean of
    ``make_train_step(num_microbatches=2)``, int8 within its bound, top-k
@@ -521,9 +525,10 @@ SPILL_ALLOWANCE: dict[str, int] = {}
 
 def flash_census(build) -> None:
     """Phase 1's view of the compiled flash library: ptxas's registers and
-    spill bytes for each kernel, and the SASS counts of the Hopper
-    instructions (HGMMA: wgmma, UTMALDG: TMA loads, SYNCS: mbarriers).
-    Fails when the Hopper kernels spill or lack wgmma or TMA."""
+    spill bytes for each kernel (the forward's and the backward's), and
+    the SASS counts of the Hopper instructions (HGMMA: wgmma, UTMALDG: TMA
+    loads, SYNCS: mbarriers). Fails when the Hopper kernels or the
+    backward's spill or lack wgmma or TMA."""
     import re
     import shutil
 
@@ -560,6 +565,22 @@ def flash_census(build) -> None:
     if hopper != 3:
         fail(f"ptxas log lists {hopper} Hopper flash kernels, expected 3 "
              "(D 64, 112, 128)")
+    # the backward's kernels: the D pre-pass, dK dV and dQ at each head dim
+    backward = 0
+    for name, info in sorted(kernels.items()):
+        m = re.search(r"hopper\d+(flash_bwd_\w+?_kernel)(?:ILi(\d+)E)?", name)
+        if not m:
+            continue
+        backward += 1
+        label = f"hopper::{m.group(1)}" + (f"<D {m.group(2)}>"
+                                           if m.group(2) else "")
+        phase(f"  ptxas {label}: {info.get('regs')} registers, "
+              f"{info.get('spill')} spill bytes")
+        if info.get("spill") != 0:
+            fail(f"{label} spills {info.get('spill')} bytes")
+    if backward != 7:
+        fail(f"ptxas log lists {backward} backward kernels, expected 7 (the "
+             "D pre-pass; dK dV and dQ at D 64, 112, 128)")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
                           text=True, timeout=120).stdout
@@ -2479,8 +2500,9 @@ def train_check(cfg, bundle, plain, model, batches, rate, label: str, *,
     """Step 0's gradients of ``model`` on ``batches(0)`` through the flash
     kernel (``FlashAttentionFn``: ``sites`` launches forward and, under
     the default remat ``"none"``, which runs each site's forward again in
-    the backward, as many there; the Function's own backward launches
-    nothing) against plain attention's, every leaf of the reference's
+    the backward, as many there; the Function's own backward launches the
+    backward kernel once a site on the Hopper path, bf16 at D 64, 112 or
+    128) against plain attention's, every leaf of the reference's
     tree within the larger of ``GRAD_REL_L2`` and ``FLOOR_FACTOR`` x its
     rounding floor (the plain twin's gradient with every attention output
     moved at the rounding level: :func:`rounding_noise` with remat off,
@@ -2488,7 +2510,8 @@ def train_check(cfg, bundle, plain, model, batches, rate, label: str, *,
     recompute moves each output as its forward did); an MoE model's
     experts held to the kernel run's (:func:`routing_fixed`). Then
     ``DENSE_STEPS`` steps of ``make_train_step`` on ``batches(i)``, the
-    launches of each counted, by launch shape too, and the fused AdamW
+    launches of each counted (the backward kernel's too), by launch shape
+    too, and the fused AdamW
     pass's launches of each held to one norm launch a table of parts, the
     finalize and one update launch a table (the counters set to 0 first).
     ``rate(seconds)`` words a step's throughput. Returns the state for
@@ -2502,12 +2525,18 @@ def train_check(cfg, bundle, plain, model, batches, rate, label: str, *,
         adamw_sumsq,
     )
     from repro_torch.kernels.flash_attention.flash_attention import (
+        HOPPER_HEAD_DIMS,
         flash_attention,
+        flash_attention_bwd,
     )
     from repro_torch.parallel.hints import sharding_hints
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.optimizer import AdamWConfig, init_state
 
+    # bf16 at D 64, 112 or 128 takes the Hopper path: one backward launch a
+    # site
+    bwd_sites = sites if (cfg.dtype == "bfloat16" and cfg.head_dim
+                          in HOPPER_HEAD_DIMS) else 0
     tree = param_tree(model)
     leaves = ckpt.tree_flatten(tree)[0]
     names = leaf_names(tree)
@@ -2531,13 +2560,14 @@ def train_check(cfg, bundle, plain, model, batches, rate, label: str, *,
         if cfg.moe:
             ctx.enter_context(routing_fixed(routes, flips.setdefault(run,
                                                                       [])))
-        n0 = flash_attention.launches
+        n0, nb = flash_attention.launches, flash_attention_bwd.launches
         with ctx:
             loss = which.loss(model, batch)
             n1 = flash_attention.launches
             gs = torch.autograd.grad(loss, parts)
-        return float(loss.detach()), gs, (n1 - n0,
-                                          flash_attention.launches - n1)
+        return float(loss.detach()), gs, (
+            n1 - n0, flash_attention.launches - n1,
+            flash_attention_bwd.launches - nb)
 
     def per_leaf(gs, ref):
         """The relative L2 of ``gs`` against ``ref`` per leaf of the
@@ -2551,13 +2581,15 @@ def train_check(cfg, bundle, plain, model, batches, rate, label: str, *,
             i += len(g)
         return out
 
-    loss_k, gk, (fwd, bwd) = grads(bundle)
+    loss_k, gk, (fwd, bwd, kbwd) = grads(bundle)
     phase(f"  step 0 through the kernel: loss {loss_k:.4f}, flash launches "
-          f"{{'forward': {fwd}, 'backward': {bwd}}}")
-    if fwd != sites or bwd != sites:
+          f"{{'forward': {fwd}, 'backward': {bwd}}}, backward kernel "
+          f"launches {kbwd}")
+    if fwd != sites or bwd != sites or kbwd != bwd_sites:
         fail(f"{label}: flash launched {fwd} times forward and {bwd} "
              f"backward (expected {sites} each: remat recomputes every "
-             "site)")
+             f"site), the backward kernel {kbwd} times (expected "
+             f"{bwd_sites})")
     loss_p, gp, _ = grads(plain, run="plain")
     rels = per_leaf(gk, gp)
     del gk
@@ -2604,17 +2636,18 @@ def train_check(cfg, bundle, plain, model, batches, rate, label: str, *,
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    launches, times, losses, adamw = [], [], [], []
+    launches, bwd_launches, times, losses, adamw = [], [], [], [], []
     adamw_sumsq.launches = adamw_step.launches = 0
     with attention_through(tally):
         for i in range(DENSE_STEPS):
-            n0 = flash_attention.launches
+            n0, nb = flash_attention.launches, flash_attention_bwd.launches
             a0 = (adamw_sumsq.launches, adamw_step.launches)
             t0 = time.perf_counter()
             model, opt, metrics = step(model, opt, batches(i))
             losses.append(float(metrics["loss"]))
             times.append(time.perf_counter() - t0)
             launches.append(flash_attention.launches - n0)
+            bwd_launches.append(flash_attention_bwd.launches - nb)
             adamw.append((adamw_sumsq.launches - a0[0],
                           adamw_step.launches - a0[1]))
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2624,17 +2657,20 @@ def train_check(cfg, bundle, plain, model, batches, rate, label: str, *,
           + f"; step ms {', '.join(f'{t * 1e3:.1f}' for t in times)} "
           f"({rate(times[-1])} at the last), peak memory "
           f"{peak:.2f} GiB (weights, gradients and moments included); "
-          f"flash launches per step {launches}; fused AdamW launches per "
+          f"flash launches per step {launches}, backward kernel launches "
+          f"per step {bwd_launches}; fused AdamW launches per "
           f"step (adamw_sumsq, adamw_step) {adamw}")
     if not all(math.isfinite(x) for x in losses) or launches != [
-            2 * sites] * DENSE_STEPS:
-        fail(f"{label}: losses {losses}, launches {launches}")
+            2 * sites] * DENSE_STEPS or bwd_launches != [
+                bwd_sites] * DENSE_STEPS:
+        fail(f"{label}: losses {losses}, launches {launches}, backward "
+             f"kernel launches {bwd_launches}")
     if adamw != want_adamw:
         fail(f"{label}: fused AdamW launches per step {adamw}, expected "
              f"{want_adamw} ({tables} table(s) of parts)")
     return {"model": model, "opt": opt, "step": step, "times": times,
-            "launches": sum(launches), "by_shape": by_shape,
-            "adamw": sum(adamw[-1])}
+            "launches": sum(launches), "bwd_launches": sum(bwd_launches),
+            "by_shape": by_shape, "adamw": sum(adamw[-1])}
 
 
 def dense_training() -> dict:
@@ -2643,9 +2679,12 @@ def dense_training() -> dict:
     ``TRAIN_DENSE`` synthetic tokens: :func:`train_check` (8 launches a
     pass, the generator's noise with remat off); then the steps under
     each of the remat policies ``"sublayers"`` and ``"off"``, and at the
-    training shape the kernel's forward, the Function's backward (the
-    plain recompute) and ``scaled_dot_product_attention`` forward +
-    backward timed (docs/port.md §train). Returns phase 5's flash row."""
+    training shape the kernel's forward, the backward kernel (alone and
+    through the Function, against its bound, two launches bitwise equal),
+    the plain recompute it replaced and ``scaled_dot_product_attention``
+    forward + backward timed, the kernel's gradients held to the
+    recompute's (docs/port.md §train). Returns phase 5's flash row and
+    the backward's."""
     import dataclasses
 
     import torch
@@ -2654,9 +2693,13 @@ def dense_training() -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention,
+        flash_attention_bwd,
         flash_attention_plain,
     )
-    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ops import (
+        attention,
+        attention_chunked_ref,
+    )
     from repro_torch.models import registry
     from repro_torch.parallel.hints import sharding_hints
     from repro_torch.train.data import DataConfig, SyntheticTokens
@@ -2682,14 +2725,14 @@ def dense_training() -> dict:
                       sites=cfg.n_layers)
     model, opt, step, times = (run["model"], run["opt"], run["step"],
                                run["times"])
-    n_train = run["launches"]
+    n_train, n_bwd = run["launches"], run["bwd_launches"]
     # The same steps under the other policies: the last step's ms and the
     # peak memory of each.
     for policy, per_step in (("sublayers", 2 * cfg.n_layers),
                              ("off", cfg.n_layers)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        got = []
+        got, nb = [], flash_attention_bwd.launches
         with sharding_hints(remat=policy):
             for i in range(REMAT_STEPS):
                 n0 = flash_attention.launches
@@ -2699,18 +2742,26 @@ def dense_training() -> dict:
                 float(metrics["loss"])
                 got.append((time.perf_counter() - t0,
                             flash_attention.launches - n0))
+        nb = flash_attention_bwd.launches - nb
         phase(f"  remat {policy!r}: step ms "
               f"{', '.join(f'{t * 1e3:.1f}' for t, _ in got)}, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, flash "
-              f"launches per step {[n for _, n in got]}")
-        if [n for _, n in got] != [per_step] * REMAT_STEPS:
-            fail(f"phase 11b remat {policy}: launches {got}")
+              f"launches per step {[n for _, n in got]}, backward kernel "
+              f"launches {nb}")
+        if ([n for _, n in got] != [per_step] * REMAT_STEPS
+                or nb != cfg.n_layers * REMAT_STEPS):
+            fail(f"phase 11b remat {policy}: launches {got}, backward "
+                 f"kernel launches {nb}")
         n_train += sum(n for _, n in got)
+        n_bwd += nb
     del model, opt, step, run, metrics
     torch.cuda.empty_cache()
 
-    # At the training shape: the kernel's forward, the Function's backward
-    # (the plain recompute) and SDPA forward + backward.
+    # At the train cell's launch shape (Qwen3-8B's here, and Mixtral-8x7B's
+    # with its window of 4096, which does not bind at 2048): the kernel's
+    # forward, the backward kernel alone and through the Function, the
+    # plain recompute (the Function's backward before the kernel) and SDPA
+    # forward + backward.
     g = torch.Generator(device=dev).manual_seed(6)
     q, k, v = flash_inputs(g, b, cfg.n_heads, cfg.n_kv_heads, s, s,
                            cfg.head_dim, torch.bfloat16)
@@ -2718,31 +2769,62 @@ def dense_training() -> dict:
                       f"{tuple(k.shape)} bf16", flash_attention(
                           q, k, v).float(), flash_attention_plain(
                               q, k, v).float(), FLASH_TOL["bfloat16"])
+    win = 4096
     xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
-    out = attention(*xs)
+    out = attention(*xs, window=win)
     go = torch.randn(out.shape, generator=g, device=dev).to(out.dtype)
-    fwd_ms, _ = cuda_ms(lambda: attention(q, k, v), 10)
-    bwd_ms, got = cuda_ms(lambda: torch.autograd.grad(
-        out, xs, go, retain_graph=True), 3)
+    _, lse, o = flash_attention(q, k, v, window=win, for_backward=True)
+    fwd_ms, _ = cuda_ms(lambda: attention(q, k, v, window=win), 10)
+    kern_ms, got = cuda_ms(lambda: flash_attention_bwd(
+        q, k, v, o, lse, go, window=win), 20)
+    again = flash_attention_bwd(q, k, v, o, lse, go, window=win)
+    if not all(torch.equal(a, w) for a, w in zip(got, again)):
+        fail("flash backward: two launches on the same inputs differ")
+    fn_ms, _ = cuda_ms(lambda: torch.autograd.grad(
+        out, xs, go, retain_graph=True), 20)
+
+    def recompute():
+        ref = attention_chunked_ref(*xs, window=win, chunk=512)
+        return torch.autograd.grad(ref, xs, go)
+
+    plain_ms, want = cuda_ms(recompute, 3)
+    bwd_errs = [check_close(f"flash backward {name} at the training shape "
+                            "vs the plain recompute", a.float(), w.float(),
+                            FLASH_TOL["bfloat16"])
+                for name, a, w in zip(("dq", "dk", "dv"), got, want)]
+    bwd_rel = max(rel_l2(a, w) for a, w in zip(got, want))
+    del want
 
     def sdpa_fb():
-        o = F.scaled_dot_product_attention(*xs, is_causal=True,
-                                           enable_gqa=True)
-        return torch.autograd.grad(o, xs, go)
+        oo = F.scaled_dot_product_attention(*xs, is_causal=True,
+                                            enable_gqa=True)
+        return torch.autograd.grad(oo, xs, go)
 
     sdpa_fb_ms, want = cuda_ms(sdpa_fb, 10)
     sdpa_f_ms, _ = sdpa_ms(q, k, v, 0)
-    grad_rel = max(rel_l2(a, w) for a, w in zip(got, want))
-    phase(f"  flash at the training shape: kernel forward {fwd_ms:.4f} ms, "
-          f"the Function's backward (plain recompute, chunk 512) "
-          f"{bwd_ms:.3f} ms; SDPA forward {sdpa_f_ms:.4f} ms, forward + "
-          f"backward {sdpa_fb_ms:.4f} ms; dq, dk, dv vs SDPA's: rel L2 <= "
-          f"{grad_rel:.3e} (not gated)")
-    del xs, out, go, got, want
+    sdpa_rel = max(rel_l2(a, w) for a, w in zip(got, want))
+    # five products of 2 D flops per kept (query, key) pair and head
+    bwd_ops = 5 * 2 * cfg.head_dim * b * cfg.n_heads * kept_pairs(
+        s, s, True, win)
+    bwd_bound = bwd_ops / card_peaks()[2] * 1e3
+    phase(f"  flash at the training shape: kernel forward {fwd_ms:.4f} ms; "
+          f"backward kernel {kern_ms:.4f} ms ({bwd_bound / kern_ms:.1%} of "
+          f"its {bwd_bound:.4f} ms bound, five products), through the "
+          f"Function {fn_ms:.4f} ms, bitwise equal over two launches; the "
+          f"plain recompute (chunk 512, the Function's backward before the "
+          f"kernel) {plain_ms:.3f} ms; SDPA forward {sdpa_f_ms:.4f} ms, "
+          f"forward + backward {sdpa_fb_ms:.4f} ms; dq, dk, dv vs the "
+          f"recompute: rel L2 <= {bwd_rel:.3e}, vs SDPA's {sdpa_rel:.3e}")
+    del xs, out, go, got, want, again, o, lse
     torch.cuda.empty_cache()
     phase(f"  phase 11b: {time.perf_counter() - t11:.1f} s")
     return {"qkv": (q, k, v), "window": 0, "launches": n_train,
-            "errs": [err], "step_s": times[-1]}
+            "errs": [err], "step_s": times[-1],
+            "bwd": {"ms": kern_ms, "plain_ms": plain_ms, "ops": bwd_ops,
+                    # q, o, dO and dQ; k, v, dK and dV: each moved once
+                    "nbytes": 2 * 4 * (q.numel() + k.numel()),
+                    "library_ms": sdpa_fb_ms, "err": max(bwd_errs),
+                    "launches": n_bwd}}
 
 
 def family_training() -> dict:
@@ -4454,6 +4536,7 @@ def main() -> None:
     )
     from repro_torch.kernels.flash_attention.ops import attention
 
+    train_bwd = train.pop("bwd")
     # The expert-parallel prefill (6e) launches the kernel at the same
     # shape as phase 6's 4x2048 prefill; its launches join that row.
     lm[PREFILL]["launches"] += mix["resident"]["launches"]
@@ -4521,6 +4604,14 @@ def main() -> None:
         del q, k, v, views, want, got
         torch.cuda.empty_cache()
     del lm, hyb, mix, kimi, whisper, vlm, train, dense, fam, flash_rows
+    # the backward kernel at the train cell's launch shape (phase 11b;
+    # launches: 11b's steps under each remat policy); replaces no kernel
+    record("flash_attention_bwd[D 128, GQA 4, training]",
+           "src/repro_torch/csrc/flash_attention.cu",
+           "none: the JAX package differentiates its chunked reference",
+           train_bwd["launches"], train_bwd["ms"], train_bwd["plain_ms"],
+           train_bwd["nbytes"], train_bwd["ops"], train_bwd["err"],
+           train_bwd["library_ms"], peak=bf16_peak)
     # phase 11e's fused AdamW pass, a step of the train cell's update
     # (launches: phase 11d's Mixtral steps, a step)
     record("adamw[mixtral-8x7b 2 layers, 23 parts, a step]",

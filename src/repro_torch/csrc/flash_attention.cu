@@ -49,6 +49,24 @@
 // there, so a row whose first reachable tile is wholly masked adds exp(0)
 // terms that a later unmasked key wipes out (alpha = 0); scores of keys
 // past Sk (a ragged last tile, zero-filled by TMA) are -inf and add 0.
+// Asked for it (lse not null), the Hopper kernel also writes each row's
+// log-sum-exp of the scaled logits and the output in f32, for the
+// backward.
+//
+// The backward (flash_attention_bwd; docs/port.md §train) replaces no
+// TPU kernel: the JAX package differentiates its chunked reference
+// (kernels/flash_attention/ops.py: attention), which the port ran as an
+// f32 recompute under autograd, ~24 ms a layer at the train cell's shape.
+// Bound: operations. Five products of 2 D flops per kept (query, key)
+// pair and head (S and dP recomputed, dV, dK, dQ): 171.9 GFLOP at the
+// Mixtral training launch (B 2, Hq 32, Hkv 8, S 2048, D 128, causal),
+// 0.174 ms at 989 TFLOP/s, against ~200 MB of q, k, v, the f32 o, dO
+// and the gradients moved once. The design keeps S, P, dP and dS in registers
+// (wgmma accumulators, P and dS rounded to bf16 only as the A operand of
+// the next product) and pays two recomputed products for determinism:
+// dK and dV a key tile a block, dQ a query tile a block in a pass of its
+// own, each element summed by one block in a fixed order, no atomics
+// (7 products: 0.243 ms bound).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -326,6 +344,7 @@ constexpr int STAGES = 2;      // K/V ring depth
 constexpr int BOX = 64;        // bf16 per 128-byte swizzled row (TMA box)
 constexpr int THREADS = 384;   // consumer warpgroups 0, 1; producer 2
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr float kLn2 = 0.6931471805599453f, kLog2e = 1.4426950408889634f;
 static_assert(PRODUCER_REGS * 128 + 2 * CONSUMER_REGS * 128 <= 65536,
               "setmaxnreg split exceeds the SM's register file");
 
@@ -717,7 +736,10 @@ template <int D>
 __device__ __forceinline__ void consume(const Buffers<D>& sm, const Tile& t,
                                         int wg, bf16* __restrict__ o, int sk,
                                         const FlashStrides& st, float scale2,
-                                        int causal, int window) {
+                                        int causal, int window, int sq,
+                                        float* __restrict__ lse,
+                                        long long lse_b, long long lse_h,
+                                        float* __restrict__ o32) {
   constexpr int ON = kCols<D> / 2;  // O floats a consumer thread holds
   const int tid = threadIdx.x % 128, lane = tid % 32;
   const int rl = (tid / 32) * 16 + lane / 4;  // first of the thread's rows
@@ -792,10 +814,34 @@ __device__ __forceinline__ void consume(const Buffers<D>& sm, const Tile& t,
   // Epilogue: normalise, round to bf16 and stage this group's rows in its
   // own rows of the Q tile (same 128-byte swizzle), then 16-byte stores of
   // the D columns (the zero ones past D stay in registers).
-  const float i0 = 1.0f / fmaxf(quad_sum(l0), 1e-30f);
-  const float i1 = 1.0f / fmaxf(quad_sum(l1), 1e-30f);
+  const float sum0 = quad_sum(l0), sum1 = quad_sum(l1);
+  const float i0 = 1.0f / fmaxf(sum0, 1e-30f);
+  const float i1 = 1.0f / fmaxf(sum1, 1e-30f);
   const uint32_t qb = sm.q();
   const int r0 = wg * 64 + rl;  // block row; r0 + 8 has the same r0 % 8
+  // For the backward (only FlashAttentionFn's forward asks): the rows'
+  // log-sum-exp of the scaled logits (natural log), and the output in f32,
+  // (B, Hq, Sq, D) contiguous, from which the backward's D = rowsum(dO o
+  // O) is exact (D from the bf16 output breaks sum_k dS = 0, which dQ
+  // leans on where the keys share a large mean).
+  if (lse != nullptr) {
+    if (lane % 4 == 0) {
+      float* lrow = lse + t.b * lse_b + t.h * lse_h + t.q0;
+      if (r0 < t.qrows) lrow[r0] = (m0 + log2f(sum0)) * kLn2;
+      if (r0 + 8 < t.qrows) lrow[r0 + 8] = (m1 + log2f(sum1)) * kLn2;
+    }
+    float* orow = o32 + ((static_cast<long long>(t.b) * gridDim.x + t.h) *
+                             sq + t.q0 + r0) * D + cq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      if (r0 < t.qrows)
+        *reinterpret_cast<float2*>(orow + 8 * j) =
+            make_float2(acc[4 * j] * i0, acc[4 * j + 1] * i0);
+      if (r0 + 8 < t.qrows)
+        *reinterpret_cast<float2*>(orow + 8 * D + 8 * j) =
+            make_float2(acc[4 * j + 2] * i1, acc[4 * j + 3] * i1);
+    }
+  }
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const uint32_t p = qb + (j / 8) * BQ * 128 +
@@ -825,7 +871,8 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
              int group, int sq, int sk, FlashStrides st, float scale2,
-             int causal, int window) {
+             int causal, int window, float* __restrict__ lse,
+             long long lse_b, long long lse_h, float* __restrict__ o32) {
   extern __shared__ unsigned char smem_raw[];
   // Broadcast so the compiler sees the role as uniform in each warp.
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
@@ -849,7 +896,8 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
                  :: "n"(CONSUMER_REGS));
     consume<D>(Buffers<D>(smem_raw), tile_of(group, sq, sk, causal, window),
-               wg, o, sk, st, scale2, causal, window);
+               wg, o, sk, st, scale2, causal, window, sq, lse, lse_b, lse_h,
+               o32);
   }
 }
 
@@ -900,6 +948,430 @@ probe_kernel(const __grid_constant__ CUtensorMap ta,
 #pragma unroll
   for (int i = 0; i < D / 2; ++i)  // the n8 groups of the D columns
     o_out[(row + (i & 2 ? 8 : 0)) * D + 8 * (i / 4) + cq + (i & 1)] = acc[i];
+}
+
+// ------------------------------------------------------------- backward
+//
+// Three launches (flash_attention_bwd below): flash_bwd_dot_kernel, the
+// rows' D = rowsum(dO o O) in f32 from the forward's f32 output;
+// flash_bwd_dkdv_kernel, a block per
+// 64-key tile of one KV head, dK and dV summed in registers over every
+// query tile that reaches the key tile and every query head of the group;
+// flash_bwd_dq_kernel, a block per 64-query tile of one head, dQ summed in
+// registers over the reachable key tiles. Each output element is summed
+// by one block in a fixed order, so a launch is deterministic. Both main
+// kernels are one warpgroup of 128 threads, two blocks to an SM: two
+// resident tiles loaded once, a ring of two stages of two streamed tiles
+// that one thread refills by TMA once every thread is done with a stage.
+
+constexpr int BT = 64;            // rows of every backward tile
+constexpr int BWD_THREADS = 128;  // one warpgroup
+constexpr int BWD_STAGES = 2;
+
+// Shared memory of a main backward kernel: two resident tiles, the ring of
+// two tiles a stage, then (dK dV only) each stage's 64 log-sum-exps and
+// 64 D values, then the barriers: one per stage and one for the resident
+// tiles.
+template <int D> struct BwdSmem {
+  static constexpr int tile = BT * kCols<D> * 2;
+  static constexpr int res = 0;
+  static constexpr int ring = res + 2 * tile;
+  static constexpr int vec = ring + BWD_STAGES * 2 * tile;
+  static constexpr int bar = vec + BWD_STAGES * 2 * BT * 4;
+  static constexpr int bytes = bar + 8 * (BWD_STAGES + 1);
+  static constexpr int alloc = bytes + 1024;  // slack to align the base
+};
+
+// One 1-D bulk copy (16-byte aligned, a multiple of 16 bytes).
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(bar)
+      : "memory");
+}
+
+// A 64 x 64 product over D of two K-major 64-row tiles (a's rows are M,
+// b's rows are N): D / 16 k-slices, issued, not committed.
+template <int D>
+__device__ __forceinline__ void ss_tiles(float (&acc)[32], uint32_t a,
+                                         uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int box = kk / 4, off = (kk % 4) * 32;
+    wgmma_ss_n64(acc, kmajor_desc(a + box * BT * 128 + off),
+                 kmajor_desc(b + box * BT * 128 + off), kk > 0);
+  }
+}
+
+// acc (64 x N) += A (64 x 64, the k16 fragments in registers) B, B the 64
+// rows of an MN-major tile: 4 k-slices, issued, not committed.
+template <int N>
+__device__ __forceinline__ void rs_tile(float (&acc)[N / 2],
+                                        const uint32_t (&pa)[4][4],
+                                        uint32_t b) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    pv_product<N>(acc, pa[j], mnmajor_desc<BT>(b + j * 16 * 128));
+}
+
+// The A fragments stay live until the products that read them retire.
+__device__ __forceinline__ void hold(uint32_t (&pa)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pa[j][e])::"memory");
+}
+
+// A 64 x 64 fragment as the k16 A fragments of a product.
+__device__ __forceinline__ void pack_frag(const float (&x)[32],
+                                          uint32_t (&pa)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      pa[j][e] = pack_bf16(x[8 * j + 2 * e], x[8 * j + 2 * e + 1]);
+}
+
+// Store a 64-row accumulator (times mul, rounded to bf16) to rows [0,
+// rows) of g (row stride ld): staged through the 64-row tile at smem
+// address tile in its own 128-byte swizzle, then 16-byte stores of the D
+// columns. Every product that read the tile has retired.
+template <int D>
+__device__ __forceinline__ void store_tile(const float (&acc)[kCols<D> / 2],
+                                           float mul, uint32_t tile,
+                                           bf16* __restrict__ g,
+                                           long long ld, int rows) {
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int r0 = (tid / 32) * 16 + lane / 4, cq = 2 * (lane % 4);
+  __syncthreads();  // every thread is past its last read of the tile
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const uint32_t p = tile + (j / 8) * BT * 128 +
+                       (((j % 8) ^ (r0 % 8)) * 16) + cq * 2;
+    st_shared(p + r0 * 128, pack_bf16(acc[4 * j] * mul,
+                                      acc[4 * j + 1] * mul));
+    st_shared(p + (r0 + 8) * 128, pack_bf16(acc[4 * j + 2] * mul,
+                                            acc[4 * j + 3] * mul));
+  }
+  __syncthreads();
+  constexpr int CH = D / 8;  // 16-byte chunks in a row
+  for (int idx = tid; idx < BT * CH; idx += BWD_THREADS) {
+    const int row = idx / CH, c = idx % CH;
+    if (row >= rows) break;
+    const uint4 val = ld_shared16(tile + (c / 8) * BT * 128 + row * 128 +
+                                  ((c % 8) ^ (row % 8)) * 16);
+    *reinterpret_cast<uint4*>(g + row * ld + c * 8) = val;
+  }
+}
+
+// Whether score (query row qr, key kc) is kept: inside both sequences and
+// the forward's causal and window rules (the diagonal at Sk - Sq).
+__device__ __forceinline__ bool kept(int qr, int kc, int sq, int sk,
+                                     int causal, int window) {
+  const int d = sk - sq + qr - kc;  // query position - key position
+  return qr < sq && kc < sk && (!causal || d >= 0) &&
+         (window <= 0 || d < window);
+}
+
+// Whether some score of the 64 x 64 tile (queries from q0, keys from k0)
+// is cut by a rule: only such tiles run the mask.
+__device__ __forceinline__ bool edge_tile(int q0, int k0, int sq, int sk,
+                                          int causal, int window) {
+  const int lo = sk - sq + q0 - (k0 + BT - 1);  // least query - key
+  return q0 + BT > sq || k0 + BT > sk || (causal && lo < 0) ||
+         (window > 0 && lo + 2 * (BT - 1) >= window);
+}
+
+// D = rowsum(dO o O) in f32 for rows [0, sqp) of each (batch, head), 0
+// past Sq, from the forward's f32 output: 16 threads a row, 4 columns a
+// thread at a time.
+__global__ void __launch_bounds__(256)
+flash_bwd_dot_kernel(const float* __restrict__ o,
+                     const bf16* __restrict__ dout, float* __restrict__ dvec,
+                     int hq, int sq, int sqp, int d, long long vs,
+                     FlashStrides in, FlashStrides grad, int rows) {
+  const int row = blockIdx.x * 16 + threadIdx.x / 16, part = threadIdx.x % 16;
+  const int s = row % sqp, bh = row / sqp, h = bh % hq, b = bh / hq;
+  float acc = 0.0f;
+  if (row < rows && s < sq) {
+    const float* orow = o + b * in.o[0] + h * in.o[1] + s * in.o[2];
+    const bf16* drow = dout + b * grad.o[0] + h * grad.o[1] + s * grad.o[2];
+    for (int c = part * 4; c < d; c += 64) {
+      const float4 x = *reinterpret_cast<const float4*>(orow + c);
+      const uint2 y = *reinterpret_cast<const uint2*>(drow + c);
+      const float2 y0 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&y.x));
+      const float2 y1 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&y.y));
+      acc += x.x * y0.x + x.y * y0.y + x.z * y1.x + x.w * y1.y;
+    }
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && part == 0) dvec[bh * vs + s] = acc;
+}
+
+// dK and dV of one 64-key tile of KV head blockIdx.x in batch blockIdx.y;
+// blockIdx.z is the key tile, the lowest (under a causal mask the most
+// query tiles) first. In the transposed products the keys are M: S^T =
+// K Q^T and dP^T = V dO^T from shared memory, P^T = exp(S^T - LSE) and
+// dS^T = P^T (dP^T - D) in f32 on the fragment, then dV += P^T dO and dK
+// += dS^T Q with P^T and dS^T rounded to bf16 in registers.
+template <int D>
+__global__ void __launch_bounds__(BWD_THREADS, 2)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ dvec, long long vs,
+                      bf16* __restrict__ dk, bf16* __restrict__ dv,
+                      FlashStrides grad, int hq, int group, int sq, int sk,
+                      float scale, float scale2, int causal, int window) {
+  using S = BwdSmem<D>;
+  constexpr int ON = kCols<D> / 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = smem_base(smem_raw);
+  const uint32_t sK = base + S::res, sV = sK + S::tile;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int rl = (tid / 32) * 16 + lane / 4, cq = 2 * (lane % 4);
+  const int kvh = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * BT;
+  // The query tiles that reach the key tile: causal, from the one whose
+  // last position reaches k0; the window, up to k0 + 63 + window - 1.
+  const int off = sk - sq, nqt = (sq + BT - 1) / BT;
+  int qt_lo = 0, qt_hi = nqt - 1;
+  if (causal) {
+    const int first = k0 - off;
+    qt_lo = first > 0 ? first / BT : 0;
+  }
+  if (window > 0) {
+    const int last = k0 + BT - 1 + window - 1 - off;
+    qt_hi = last < 0 ? -1 : min(qt_hi, last / BT);
+  }
+  const int nq = max(qt_hi - qt_lo + 1, 0), total = nq * group;
+  const CUtensorMap *pq = &tq, *pdo = &tdo;
+  auto full = [&](int s) { return base + S::bar + 8 * s; };
+  const uint32_t rbar = base + S::bar + 8 * BWD_STAGES;
+  auto ring = [&](int s, int i) {
+    return base + S::ring + (2 * s + i) * S::tile;
+  };
+  auto vec = [&](int s, int i) {
+    return base + S::vec + (2 * s + i) * BT * 4;
+  };
+  // Item n: query head kvh * group + n / nq, query tile qt_lo + n % nq.
+  auto load = [&](int n) {
+    const int s = n % BWD_STAGES, h = kvh * group + n / nq;
+    const int q0 = (qt_lo + n % nq) * BT;
+    mbar_expect_tx(full(s), 2 * S::tile + 2 * BT * 4);
+    for (int nb = 0; nb < kCols<D> / BOX; ++nb) {
+      tma_load(ring(s, 0) + nb * BT * 128, pq, full(s), nb * BOX, q0, h, b);
+      tma_load(ring(s, 1) + nb * BT * 128, pdo, full(s), nb * BOX, q0, h, b);
+    }
+    const long long row = (static_cast<long long>(b) * hq + h) * vs + q0;
+    bulk_load(vec(s, 0), lse + row, BT * 4, full(s));
+    bulk_load(vec(s, 1), dvec + row, BT * 4, full(s));
+  };
+  if (tid == 0) {
+    for (int s = 0; s < BWD_STAGES; ++s) mbar_init(full(s), 1);
+    mbar_init(rbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(rbar, 2 * S::tile);
+    for (int nb = 0; nb < kCols<D> / BOX; ++nb) {
+      tma_load(sK + nb * BT * 128, &tk, rbar, nb * BOX, k0, kvh, b);
+      tma_load(sV + nb * BT * 128, &tv, rbar, nb * BOX, k0, kvh, b);
+    }
+    for (int n = 0; n < min(total, BWD_STAGES); ++n) load(n);
+  }
+  __syncthreads();
+
+  float acc_dk[ON], acc_dv[ON];
+#pragma unroll
+  for (int i = 0; i < ON; ++i) acc_dk[i] = acc_dv[i] = 0.0f;
+  mbar_wait(rbar, 0);
+  for (int n = 0; n < total; ++n) {
+    const int s = n % BWD_STAGES;
+    const int q0 = (qt_lo + n % nq) * BT;
+    mbar_wait(full(s), (n / BWD_STAGES) & 1);
+    const uint32_t sQ = ring(s, 0), sDO = ring(s, 1);
+    float sc[32], dp[32];
+    wg_fence();
+    ss_tiles<D>(sc, sK, sQ);
+    ss_tiles<D>(dp, sV, sDO);
+    wg_commit();
+    retire(sc);
+    fence_regs(dp);
+
+    // Fragment element i: key k0 + rl (+ 8 if i & 2), query q0 + 8 (i /
+    // 4) + cq + (i & 1): each thread's queries come in pairs.
+    const bool edge = edge_tile(q0, k0, sq, sk, causal, window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t c = 4 * (8 * j + cq);
+      uint32_t l0, l1, d0, d1;
+      asm volatile("ld.shared.v2.b32 {%0, %1}, [%2];\n"
+                   : "=r"(l0), "=r"(l1) : "r"(vec(s, 0) + c));
+      asm volatile("ld.shared.v2.b32 {%0, %1}, [%2];\n"
+                   : "=r"(d0), "=r"(d1) : "r"(vec(s, 1) + c));
+      const float lse2[2] = {__uint_as_float(l0) * kLog2e,
+                             __uint_as_float(l1) * kLog2e};
+      const float dd[2] = {__uint_as_float(d0), __uint_as_float(d1)};
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * r + e;
+          float p = exp2f(sc[i] * scale2 - lse2[e]);
+          if (edge && !kept(q0 + 8 * j + cq + e, k0 + rl + 8 * r, sq, sk,
+                            causal, window))
+            p = 0.0f;
+          sc[i] = p;
+          dp[i] = p * (dp[i] - dd[e]);
+        }
+    }
+    uint32_t pa[4][4], pb[4][4];
+    pack_frag(sc, pa);
+    pack_frag(dp, pb);
+    fence_regs(acc_dv);
+    fence_regs(acc_dk);
+    wg_fence();
+    rs_tile<kCols<D>>(acc_dv, pa, sDO);
+    rs_tile<kCols<D>>(acc_dk, pb, sQ);
+    wg_commit();
+    wg_wait0();
+    fence_regs(acc_dv);
+    fence_regs(acc_dk);
+    hold(pa);
+    hold(pb);
+    __syncthreads();  // every thread is done with stage s
+    if (tid == 0 && n + BWD_STAGES < total) load(n + BWD_STAGES);
+  }
+
+  const int rows = min(BT, sk - k0);
+  store_tile<D>(acc_dk, scale, sK,
+                dk + b * grad.k[0] + kvh * grad.k[1] + k0 * grad.k[2],
+                grad.k[2], rows);
+  store_tile<D>(acc_dv, 1.0f, sV,
+                dv + b * grad.v[0] + kvh * grad.v[1] + k0 * grad.v[2],
+                grad.v[2], rows);
+}
+
+// dQ of one 64-query tile of head blockIdx.x in batch blockIdx.y;
+// blockIdx.z picks the tile, under a causal mask the last (the most key
+// tiles) first. S = Q K^T and dP = dO V^T, P and dS as in the dK dV
+// kernel with the row's LSE and D in registers, dQ += dS K.
+template <int D>
+__global__ void __launch_bounds__(BWD_THREADS, 2)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ dvec, long long vs,
+                    bf16* __restrict__ dq, FlashStrides grad, int hq,
+                    int group, int sq, int sk, float scale, float scale2,
+                    int causal, int window) {
+  using S = BwdSmem<D>;
+  constexpr int ON = kCols<D> / 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = smem_base(smem_raw);
+  const uint32_t sQ = base + S::res, sDO = sQ + S::tile;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int rl = (tid / 32) * 16 + lane / 4, cq = 2 * (lane % 4);
+  const int h = blockIdx.x, b = blockIdx.y, kvh = h / group;
+  const int nqt = (sq + BT - 1) / BT;
+  const int qt = causal ? nqt - 1 - static_cast<int>(blockIdx.z)
+                        : static_cast<int>(blockIdx.z);
+  const int q0 = qt * BT, qoff = sk - sq + q0;
+  int kt_lo = 0, kt_hi = (sk + BT - 1) / BT - 1;
+  if (causal) {
+    const int last = qoff + min(BT, sq - q0) - 1;
+    kt_hi = last < 0 ? -1 : min(kt_hi, last / BT);
+  }
+  if (window > 0) {
+    const int first = qoff - window + 1;
+    kt_lo = first > 0 ? first / BT : 0;
+  }
+  const int total = max(kt_hi - kt_lo + 1, 0);
+  const CUtensorMap *pk = &tk, *pv = &tv;
+  auto full = [&](int s) { return base + S::bar + 8 * s; };
+  const uint32_t rbar = base + S::bar + 8 * BWD_STAGES;
+  auto ring = [&](int s, int i) {
+    return base + S::ring + (2 * s + i) * S::tile;
+  };
+  auto load = [&](int n) {
+    const int s = n % BWD_STAGES, kk0 = (kt_lo + n) * BT;
+    mbar_expect_tx(full(s), 2 * S::tile);
+    for (int nb = 0; nb < kCols<D> / BOX; ++nb) {
+      tma_load(ring(s, 0) + nb * BT * 128, pk, full(s), nb * BOX, kk0, kvh,
+               b);
+      tma_load(ring(s, 1) + nb * BT * 128, pv, full(s), nb * BOX, kk0, kvh,
+               b);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < BWD_STAGES; ++s) mbar_init(full(s), 1);
+    mbar_init(rbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(rbar, 2 * S::tile);
+    for (int nb = 0; nb < kCols<D> / BOX; ++nb) {
+      tma_load(sQ + nb * BT * 128, &tq, rbar, nb * BOX, q0, h, b);
+      tma_load(sDO + nb * BT * 128, &tdo, rbar, nb * BOX, q0, h, b);
+    }
+    for (int n = 0; n < min(total, BWD_STAGES); ++n) load(n);
+  }
+  // This thread's two rows: their log-sum-exp (log2 units) and D.
+  const long long row = (static_cast<long long>(b) * hq + h) * vs + q0 + rl;
+  const float lse2[2] = {lse[row] * kLog2e, lse[row + 8] * kLog2e};
+  const float dd[2] = {dvec[row], dvec[row + 8]};
+  __syncthreads();
+
+  float acc[ON];
+#pragma unroll
+  for (int i = 0; i < ON; ++i) acc[i] = 0.0f;
+  mbar_wait(rbar, 0);
+  for (int n = 0; n < total; ++n) {
+    const int s = n % BWD_STAGES, k0 = (kt_lo + n) * BT;
+    mbar_wait(full(s), (n / BWD_STAGES) & 1);
+    const uint32_t sK = ring(s, 0), sV = ring(s, 1);
+    float sc[32], dp[32];
+    wg_fence();
+    ss_tiles<D>(sc, sQ, sK);
+    ss_tiles<D>(dp, sDO, sV);
+    wg_commit();
+    retire(sc);
+    fence_regs(dp);
+
+    // Fragment element i: query q0 + rl (+ 8 if i & 2), key k0 + 8 (i /
+    // 4) + cq + (i & 1).
+    const bool edge = edge_tile(q0, k0, sq, sk, causal, window);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i & 2) ? 1 : 0;
+      float p = exp2f(sc[i] * scale2 - lse2[r]);
+      if (edge && !kept(q0 + rl + 8 * r, k0 + 8 * (i / 4) + cq + (i & 1),
+                        sq, sk, causal, window))
+        p = 0.0f;
+      dp[i] = p * (dp[i] - dd[r]);
+    }
+    uint32_t pa[4][4];
+    pack_frag(dp, pa);
+    fence_regs(acc);
+    wg_fence();
+    rs_tile<kCols<D>>(acc, pa, sK);
+    wg_commit();
+    wg_wait0();
+    fence_regs(acc);
+    hold(pa);
+    __syncthreads();  // every thread is done with stage s
+    if (tid == 0 && n + BWD_STAGES < total) load(n + BWD_STAGES);
+  }
+  store_tile<D>(acc, scale, sQ,
+                dq + b * grad.q[0] + h * grad.q[1] + q0 * grad.q[2],
+                grad.q[2], min(BT, sq - q0));
 }
 
 }  // namespace hopper
@@ -968,7 +1440,9 @@ int launch_simple(const void* q, const void* k, const void* v, void* o,
 template <int D>
 int launch_hopper(const void* q, const void* k, const void* v, void* o,
                   int b, int hq, int hkv, int sq, int sk, FlashStrides st,
-                  float scale, int causal, int window, cudaStream_t stream) {
+                  float scale, int causal, int window, float* lse,
+                  long long lse_b, long long lse_h, float* o32,
+                  cudaStream_t stream) {
   using namespace hopper;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, D, sq, hq, b, st.q, BQ) ||
@@ -982,7 +1456,51 @@ int launch_hopper(const void* q, const void* k, const void* v, void* o,
   dim3 grid(hq, b, (sq + BQ - 1) / BQ);
   flash_kernel<D><<<grid, THREADS, bytes, stream>>>(
       tq, tk, tv, static_cast<bf16*>(o), hq / hkv, sq, sk, st,
-      scale * 1.4426950408889634f, causal, window);
+      scale * kLog2e, causal, window, lse, lse_b, lse_h, o32);
+  return (int)cudaGetLastError();
+}
+
+// The backward's three launches on one stream: D, then dK dV, then dQ.
+template <int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, float* dvec, void* dq,
+               void* dk, void* dv, int b, int hq, int hkv, int sq, int sk,
+               long long vs, FlashStrides in, FlashStrides grad, float scale,
+               int causal, int window, cudaStream_t stream) {
+  using namespace hopper;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!make_map(&tq, q, D, sq, hq, b, in.q, BT) ||
+      !make_map(&tk, k, D, sk, hkv, b, in.k, BT) ||
+      !make_map(&tv, v, D, sk, hkv, b, in.v, BT) ||
+      !make_map(&tdo, dout, D, sq, hq, b, grad.o, BT))
+    return -3;
+  const int sqp = (sq + BT - 1) / BT * BT, rows = b * hq * sqp;
+  flash_bwd_dot_kernel<<<(rows + 15) / 16, 256, 0, stream>>>(
+      static_cast<const float*>(o), static_cast<const bf16*>(dout), dvec, hq,
+      sq, sqp, D, vs, in, grad, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  constexpr int bytes = BwdSmem<D>::alloc;
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int group = hq / hkv;
+  flash_bwd_dkdv_kernel<D><<<dim3(hkv, b, (sk + BT - 1) / BT), BWD_THREADS,
+                             bytes, stream>>>(
+      tq, tk, tv, tdo, lse, dvec, vs, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), grad, hq, group, sq, sk, scale,
+      scale * kLog2e, causal, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dq_kernel<D><<<dim3(hq, b, sqp / BT), BWD_THREADS, bytes,
+                           stream>>>(
+      tq, tk, tv, tdo, lse, dvec, vs, static_cast<bf16*>(dq), grad, hq,
+      group, sq, sk, scale, scale * kLog2e, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -1008,31 +1526,66 @@ int launch_probe(const void* a, const void* k, const void* v, float* s,
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16. Returns cudaGetLastError(), -2 for a head
-// dim or dtype this file does not instantiate, -3 for a TMA descriptor
-// the CUDA driver refuses. bf16 at D 64, 112 and 128 runs the Hopper
-// kernel; f32 and bf16 at D 32 the simple one.
+// dim or dtype this file does not instantiate (or an LSE asked of the
+// simple kernel, which writes none), -3 for a TMA descriptor that
+// cuTensorMapEncodeTiled refuses. bf16 at D 64, 112 and 128 runs the
+// Hopper kernel, which also writes, when lse is not null, each row's
+// log-sum-exp at lse[b * lse_b + h * lse_h + s] and the output in f32 to
+// o32, (B, Hq, Sq, D) contiguous; f32 and bf16 at D 32 run the simple one.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int dtype, int b,
                                    int hq, int hkv, int sq, int sk, int d,
                                    FlashStrides st, float scale, int causal,
-                                   int window, void* stream) {
+                                   int window, float* lse, long long lse_b,
+                                   long long lse_h, float* o32,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_CASE(LAUNCH, DD)                                              \
+#define FLASH_CASE(LAUNCH, DD, ...)                                         \
   if (d == DD)                                                              \
     return LAUNCH(q, k, v, o, b, hq, hkv, sq, sk, st, scale, causal, window, \
-                  s);
+                  __VA_ARGS__);
+  if (dtype == 1) {
+    FLASH_CASE(launch_hopper<64>, 64, lse, lse_b, lse_h, o32, s)
+    FLASH_CASE(launch_hopper<112>, 112, lse, lse_b, lse_h, o32, s)
+    FLASH_CASE(launch_hopper<128>, 128, lse, lse_b, lse_h, o32, s)
+  }
+  if (lse != nullptr || o32 != nullptr) return -2;
   if (dtype == 0) {
-    FLASH_CASE((launch_simple<float, 32>), 32)
-    FLASH_CASE((launch_simple<float, 64>), 64)
-    FLASH_CASE((launch_simple<float, 112>), 112)
-    FLASH_CASE((launch_simple<float, 128>), 128)
+    FLASH_CASE((launch_simple<float, 32>), 32, s)
+    FLASH_CASE((launch_simple<float, 64>), 64, s)
+    FLASH_CASE((launch_simple<float, 112>), 112, s)
+    FLASH_CASE((launch_simple<float, 128>), 128, s)
   } else if (dtype == 1) {
-    FLASH_CASE((launch_simple<bf16, 32>), 32)
-    FLASH_CASE(launch_hopper<64>, 64)
-    FLASH_CASE(launch_hopper<112>, 112)
-    FLASH_CASE(launch_hopper<128>, 128)
+    FLASH_CASE((launch_simple<bf16, 32>), 32, s)
   }
 #undef FLASH_CASE
+  return -2;
+}
+
+// The backward of the Hopper path (bf16, D 64, 112 or 128): dq, dk and dv
+// (the strides of grad.q, grad.k, grad.v) from q, k, v, the forward's f32
+// output o (in.o) and its log-sum-exp, and dout (grad.o). lse and dvec
+// (D's scratch) are f32 (B, Hq, vs) with vs a multiple of 4 and at least
+// Sq rounded up to 64; the rows past Sq are read and never used. Returns
+// as flash_attention_fwd.
+extern "C" int flash_attention_bwd(const void* q, const void* k,
+                                   const void* v, const void* o,
+                                   const void* dout, const float* lse,
+                                   float* dvec, void* dq, void* dk, void* dv,
+                                   int b, int hq, int hkv, int sq, int sk,
+                                   int d, long long vs, FlashStrides in,
+                                   FlashStrides grad, float scale, int causal,
+                                   int window, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define BWD_CASE(DD)                                                         \
+  if (d == DD)                                                               \
+    return launch_bwd<DD>(q, k, v, o, dout, lse, dvec, dq, dk, dv, b, hq,    \
+                          hkv, sq, sk, vs, in, grad, scale, causal, window,  \
+                          s);
+  BWD_CASE(64)
+  BWD_CASE(112)
+  BWD_CASE(128)
+#undef BWD_CASE
   return -2;
 }
 

@@ -21,17 +21,23 @@ a simple kernel (scalar FMAs or WMMA fragments).
 the CUDA tiles are the kernel's own, and the output does not depend on
 them. On a CPU tensor :func:`flash_attention` runs
 :func:`flash_attention_plain`; on a CUDA tensor it launches the kernel or
-raises. The kernel has no backward: on a CUDA input that requires grad
-(grad mode on) the call raises rather than return an output that drops
-the gradient; ``ops.attention`` wraps it in ``FlashAttentionFn`` there
-(docs/port.md §train).
+raises. :func:`flash_attention` itself records no gradient: on a CUDA
+input that requires grad (grad mode on) the call raises rather than
+return an output that drops the gradient; ``ops.attention`` wraps it in
+``FlashAttentionFn`` there (docs/port.md §train). On the Hopper path the
+forward can also write what the backward needs (``for_backward``: each
+row's log-sum-exp and the output in f32), and :func:`flash_attention_bwd`
+is that path's backward, a kernel of its own (three launches: D =
+rowsum(dO o O), then dK and dV a key tile a block summed over the query
+heads of the group, then dQ a query tile a block), with
+:func:`flash_attention_bwd_plain` its plain version.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .ref import attention_chunked_ref
+from .ref import _mask, _repeat_kv, attention_chunked_ref, attention_lse_ref
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
@@ -39,6 +45,23 @@ DEFAULT_BLOCK_K = 128
 #: Head dims the CUDA file instantiates, and the dtypes it takes.
 HEAD_DIMS = (32, 64, 112, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: Head dims of the Hopper kernels (bf16), the backward's too.
+HOPPER_HEAD_DIMS = (64, 112, 128)
+#: Rows of the backward's tiles; its log-sum-exp and D rows are padded to
+#: a multiple of it.
+BWD_TILE = 64
+
+
+def takes_hopper_path(q: torch.Tensor) -> bool:
+    """Whether the forward on ``q`` runs the Hopper kernel (the C entry's
+    rule: bf16 at D 64, 112 or 128 on the card), and so whether its
+    backward is :func:`flash_attention_bwd`."""
+    return (q.device.type == "cuda" and q.dtype == torch.bfloat16
+            and q.shape[-1] in HOPPER_HEAD_DIMS)
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -78,11 +101,17 @@ def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: float | None = None,
                     block_q: int = DEFAULT_BLOCK_Q,
-                    block_k: int = DEFAULT_BLOCK_K):
+                    block_k: int = DEFAULT_BLOCK_K,
+                    for_backward: bool = False):
     """q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D).
 
     The output has ``q``'s dtype and is laid out ``(B, Sq, Hq, D)`` in
-    memory (a transposed view), so merging its heads is free.
+    memory (a transposed view), so merging its heads is free. With
+    ``for_backward`` it returns ``(out, lse, out_f32)``: each row's f32
+    log-sum-exp of the masked scaled logits, ``(B, Hq, Sq)`` (a view of
+    rows padded to :data:`BWD_TILE`), and the output before its rounding
+    to ``q``'s dtype, f32 and contiguous, what :func:`flash_attention_bwd`
+    takes; on a CUDA tensor only the Hopper kernel writes them.
     """
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"need q (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D), "
@@ -104,6 +133,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     scale = scale if scale is not None else d ** -0.5
     if q.device.type == "cpu":
+        if for_backward:
+            # the plain version computes in f32 and rounds at the end
+            out = flash_attention_plain(q.float(), k.float(), v.float(),
+                                        causal=causal, window=window,
+                                        scale=scale, block_k=block_k)
+            return out.to(q.dtype), attention_lse_ref(
+                q, k, causal=causal, window=window, scale=scale), out
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale, block_k=block_k)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
@@ -116,6 +152,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                          f"{HEAD_DIMS}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
+    if for_backward and not takes_hopper_path(q):
+        raise ValueError("the log-sum-exp and the f32 output are written by "
+                         f"the Hopper kernel alone (bf16 at D "
+                         f"{HOPPER_HEAD_DIMS}), not for {q.dtype} at D {d}")
     from repro_torch.kernels.build import (
         FlashStrides,
         check,
@@ -129,15 +169,159 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     for i, x in enumerate((q, k, v, out)):
         for j, s in enumerate(_strides(x)):
             st.s[3 * i + j] = s
+    lse = out32 = None
+    if for_backward:
+        lse = torch.empty((b, hq, _round_up(sq, BWD_TILE)),
+                          dtype=torch.float32, device=q.device)[..., :sq]
+        out32 = torch.empty((b, hq, sq, d), dtype=torch.float32,
+                            device=q.device)
     lib = load_flash_library()
     check(lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         DTYPES[q.dtype], b, hq, hkv, sq, sk, d, st, float(scale),
         int(causal), int(window),
+        None if lse is None else lse.data_ptr(),
+        0 if lse is None else lse.stride(0),
+        0 if lse is None else lse.stride(1),
+        None if out32 is None else out32.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     ), "flash_attention")
     flash_attention.launches += 1
-    return out
+    return (out, lse, out32) if for_backward else out
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              window: int = 0, scale: float | None = None):
+    """The backward's plain version: ``(dq, dk, dv)`` of attention at the
+    forward's output ``o`` and log-sum-exp ``lse`` for the output's
+    gradient ``do``. In f32: S = scale Q K^T under the forward's mask, P =
+    exp(S - LSE) (0 where masked), D = rowsum(dO o O), dP = dO V^T, dS =
+    P (dP - D); then dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K with
+    P and dS rounded to ``q``'s dtype as the kernel rounds its MMA
+    operands, dK and dV summed over each KV head's group of query heads.
+    The gradients take the inputs' dtypes."""
+    _, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    kf = _repeat_kv(k, hq // hkv).float()
+    vf = _repeat_kv(v, hq // hkv).float()
+    qf, of, dof = q.float(), o.float(), do.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    mask = _mask(sq, sk, sk - sq, 0, causal, window, q.device)
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - (dof * of).sum(-1, keepdim=True))
+    p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+
+    def per_kv_head(x):
+        b = x.shape[0]
+        return x.view(b, hkv, hq // hkv, sk, d).sum(2)
+
+    return (dq.to(q.dtype), per_kv_head(dk).to(k.dtype),
+            per_kv_head(dv).to(v.dtype))
+
+
+def _lse_operand(lse: torch.Tensor, sq: int) -> torch.Tensor:
+    """``lse`` itself when the backward can read its rows whole, else a
+    copy into rows padded to :data:`BWD_TILE`.
+
+    The kernel reads a 64-row tile's log-sum-exps with one 16-byte-aligned
+    bulk copy, past Sq in the last tile: it needs unit stride along Sq, a
+    row stride that is a multiple of 4 floats and holds the padded rows,
+    the batch stride of whole rows, and storage under every padded row.
+    :func:`flash_attention` returns such a view.
+    """
+    b, h, _ = lse.shape
+    vs, rows = lse.stride(1), _round_up(sq, BWD_TILE)
+    if (lse.stride(2) == 1 and vs % 4 == 0 and vs >= rows
+            and lse.stride(0) == h * vs and lse.data_ptr() % 16 == 0
+            and lse.untyped_storage().nbytes() // 4
+            >= lse.storage_offset() + (b * h - 1) * vs + rows):
+        return lse
+    out = lse.new_empty((b, h, rows))[..., :sq]
+    out.copy_(lse)
+    return out
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0, scale: float | None = None):
+    """The Hopper path's backward: ``(dq, dk, dv)`` from q ``(B, Hq, Sq,
+    D)``, k and v ``(B, Hkv, Sk, D)``, the forward's f32 output ``o`` and
+    log-sum-exp ``lse`` ``(B, Hq, Sq)`` (``flash_attention(...,
+    for_backward=True)``), and the output's gradient ``do``; q, k, v and
+    ``do`` bf16 at D 64, 112 or 128; the forward's ``causal``, ``window``
+    and ``scale``. ``o`` in f32 makes D = rowsum(dO o O) exact: from the
+    bf16 output, D's error breaks sum_k dS = 0, which dQ and the keys'
+    summed dK lean on where the keys share a large mean (whisper's
+    cross-attention: dQ off by ~10%). Each gradient is laid out ``(B, S,
+    H, D)`` in memory, as the forward's output is. On a CPU tensor it runs
+    :func:`flash_attention_bwd_plain`; on a CUDA tensor it launches the
+    kernels or raises. A launch is deterministic: each gradient element is
+    summed by one block in a fixed order."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"need q (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or hq % hkv:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         "in batch or head dim, or Hq is no multiple of Hkv")
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"have q's shape {tuple(q.shape)}")
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 {(b, hq, sq)}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if any(x.dtype != torch.bfloat16 for x in (q, k, v, do)):
+        raise TypeError("the backward kernel takes bf16 q, k, v and do, got "
+                        f"{[str(x.dtype) for x in (q, k, v, do)]}")
+    if o.dtype != torch.float32:
+        raise TypeError(f"o must be the forward's f32 output, got {o.dtype}")
+    if d not in HOPPER_HEAD_DIMS:
+        raise ValueError(f"head dim D={d} is not one of the backward "
+                         f"kernel's {HOPPER_HEAD_DIMS}")
+    scale = scale if scale is not None else d ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         window=window, scale=scale)
+    if any(x.device != q.device for x in (k, v, o, lse, do)):
+        raise ValueError("every operand must be on one device")
+    from repro_torch.kernels.build import (
+        FlashStrides,
+        check,
+        load_flash_library,
+    )
+
+    q, k, v, o, do = (_kernel_operand(x) for x in (q, k, v, o, do))
+    lse = _lse_operand(lse, sq)
+    vs = lse.stride(1)
+    dvec = torch.empty((b, hq, vs), dtype=torch.float32, device=q.device)
+    dq = torch.empty((b, sq, hq, d), dtype=q.dtype,
+                     device=q.device).transpose(1, 2)
+    dk, dv = (torch.empty((b, sk, hkv, d), dtype=q.dtype,
+                          device=q.device).transpose(1, 2) for _ in range(2))
+    st_in, st_grad = FlashStrides(), FlashStrides()
+    for st, xs in ((st_in, (q, k, v, o)), (st_grad, (dq, dk, dv, do))):
+        for i, x in enumerate(xs):
+            for j, s in enumerate(_strides(x)):
+                st.s[3 * i + j] = s
+    lib = load_flash_library()
+    check(lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, sk, d, vs, st_in,
+        st_grad, float(scale), int(causal), int(window),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    ), "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

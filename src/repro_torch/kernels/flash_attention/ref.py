@@ -5,6 +5,9 @@ package's ``kernels/flash_attention/ref.py``).
 ``attention_chunked_ref``  — online softmax over key chunks, O(S) memory;
                              the attention the models run on the CPU, and
                              the kernel's plain version on the card.
+``attention_lse_ref``      — each row's log-sum-exp of the masked scaled
+                             logits, what the forward saves for the
+                             backward.
 
 Both take q ``(B, Hq, Sq, D)`` and k/v ``(B, Hkv, Sk, D)``, support GQA
 (kv head = h // (Hq / Hkv), ``repeat_interleave``), causal masking with
@@ -78,3 +81,16 @@ def attention_chunked_ref(q, k, v, causal: bool = True, window: int = 0,
         l_i = l_i * alpha + p.sum(-1)
         m_i = m_new
     return (acc / torch.clamp(l_i, min=1e-30)[..., None]).to(q.dtype)
+
+
+def attention_lse_ref(q, k, causal: bool = True, window: int = 0,
+                      scale: float | None = None):
+    """``logsumexp`` over the keys of the scaled logits, masked at
+    ``-1e30``: f32 ``(B, Hq, Sq)``."""
+    _, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    k = _repeat_kv(k, hq // hkv)
+    scale = scale if scale is not None else d ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    mask = _mask(sq, sk, sk - sq, 0, causal, window, q.device)
+    return torch.logsumexp(torch.where(mask, logits, NEG_INF), dim=-1)

@@ -881,7 +881,7 @@ def test_flash_launch_faults_raise(card):
             st.s[3 * i:3 * i + 3] = [256 * d, 256 * d, d]
         return lib.flash_attention_fwd(ptr, ptr, ptr, out.data_ptr(), 1, 1,
                                        1, 1, 128, 128, d, st, 0.1, 1, 0,
-                                       stream)
+                                       None, 0, 0, None, stream)
 
     with pytest.raises(RuntimeError, match="no instantiation"):
         check(call(x.data_ptr(), 96), "flash_attention")
@@ -1303,13 +1303,15 @@ def test_whisper_forward_and_decode_on_the_card(card, dtype):
 @pytest.mark.parametrize("shape", [(1, 4, 4, 256, 0), (2, 8, 2, 384, 128)])
 def test_flash_function_gradient_equals_the_plain_path(card, dtype, shape):
     """On CUDA inputs that require grad the dispatcher runs the kernel
-    inside ``FlashAttentionFn``: its forward is one launch of the kernel,
-    its backward launches none, and the gradients of q, k and v equal
-    autograd through the chunked plain version (the recompute, the same
-    function: f32 bitwise-close at 1e-5, bf16 at the kernel's 2e-2 on the
-    forward and the backward's own rounding)."""
+    inside ``FlashAttentionFn``: its forward is one launch of the kernel;
+    its backward is one launch of the backward kernel in bf16 (the Hopper
+    path) and none in f32 (the recompute); the gradients of q, k and v
+    equal autograd through the chunked plain version (f32 bitwise-close at
+    1e-5, bf16 at the kernel's 2e-2 on the forward and the backward's own
+    rounding)."""
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention,
+        flash_attention_bwd,
     )
     from repro_torch.kernels.flash_attention.ops import (
         attention,
@@ -1322,12 +1324,13 @@ def test_flash_function_gradient_equals_the_plain_path(card, dtype, shape):
     q, k, v = (torch.randn((b, h, s, 64), generator=g, device="cuda").to(
         dt).requires_grad_(True) for h in (hq, hkv, hkv))
     go = torch.randn((b, hq, s, 64), generator=g, device="cuda").to(dt)
-    n = flash_attention.launches
+    n, nb = flash_attention.launches, flash_attention_bwd.launches
     out = attention(q, k, v, window=window)
     assert flash_attention.launches == n + 1
     assert "FlashAttentionFn" in type(out.grad_fn).__name__
     got = torch.autograd.grad(out, (q, k, v), go)
     assert flash_attention.launches == n + 1
+    assert flash_attention_bwd.launches == nb + (dtype == "bfloat16")
     ref = attention_chunked_ref(q, k, v, window=window, chunk=s)
     want = torch.autograd.grad(ref, (q, k, v), go)
     tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
@@ -1348,12 +1351,14 @@ def test_flash_function_gradient_equals_the_plain_path(card, dtype, shape):
 def test_flash_function_training_shapes_equal_the_plain_path(card, dtype,
                                                              shape):
     """``FlashAttentionFn`` through the dispatcher at the training paths'
-    launch shapes (phase 11d): one kernel launch forward, none backward,
-    the output and the gradients of q, k and v against autograd through
-    the chunked plain version over all the keys (tolerances as
+    launch shapes (phase 11d): one kernel launch forward, one backward
+    launch in bf16 and none in f32, the output and the gradients of q, k
+    and v against autograd through the chunked plain version over all the
+    keys (tolerances as
     test_flash_function_gradient_equals_the_plain_path)."""
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention,
+        flash_attention_bwd,
     )
     from repro_torch.kernels.flash_attention.ops import (
         attention,
@@ -1366,12 +1371,13 @@ def test_flash_function_training_shapes_equal_the_plain_path(card, dtype,
     q, k, v = (torch.randn((b, h, s, d), generator=g, device="cuda").to(
         dt).requires_grad_(True) for h, s in ((hq, sq), (hkv, sk), (hkv, sk)))
     go = torch.randn((b, hq, sq, d), generator=g, device="cuda").to(dt)
-    n = flash_attention.launches
+    n, nb = flash_attention.launches, flash_attention_bwd.launches
     out = attention(q, k, v, causal=causal)
     assert flash_attention.launches == n + 1
     assert "FlashAttentionFn" in type(out.grad_fn).__name__
     got = torch.autograd.grad(out, (q, k, v), go)
     assert flash_attention.launches == n + 1
+    assert flash_attention_bwd.launches == nb + (dtype == "bfloat16")
     ref = attention_chunked_ref(q, k, v, causal=causal, chunk=sk)
     want = torch.autograd.grad(ref, (q, k, v), go)
     tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
@@ -1380,6 +1386,106 @@ def test_flash_function_training_shapes_equal_the_plain_path(card, dtype,
         dict(rtol=2e-3, atol=2e-3) if dtype == "float32" else tol))
     for a, w in zip(got, want):
         torch.testing.assert_close(a.float(), w.float(), **tol)
+
+
+def _train_cell_inputs(seed):
+    """The train cell's launch shape (Mixtral-8x7B, B 2, 32 query and 8 KV
+    heads, S 2048, D 128), bf16, and an output gradient."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda h: torch.randn((2, h, 2048, 128), generator=g,  # noqa: E731
+                               device="cuda").bfloat16()
+    return mk(32), mk(8), mk(8), mk(32)
+
+
+def test_flash_backward_at_the_train_cell_shape_equals_the_plain_path(card):
+    """The train cell's attention (causal, window 4096) through
+    ``FlashAttentionFn``: one backward launch, dq, dk and dv within the
+    bf16 tolerance of autograd through the chunked plain version at the
+    model path's chunk."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd,
+    )
+    from repro_torch.kernels.flash_attention.ops import (
+        attention,
+        attention_chunked_ref,
+    )
+
+    q, k, v, go = _train_cell_inputs(7)
+    xs = [x.requires_grad_(True) for x in (q, k, v)]
+    nb = flash_attention_bwd.launches
+    got = torch.autograd.grad(attention(*xs, window=4096), xs, go)
+    assert flash_attention_bwd.launches == nb + 1
+    ref = attention_chunked_ref(*xs, window=4096, chunk=512)
+    want = torch.autograd.grad(ref, xs, go)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.float(), w.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+@pytest.mark.parametrize("shape", [
+    # (B, Hq, Hkv, Sq, Sk, D, causal, window)
+    (2, 32, 8, 2048, 2048, 128, True, 4096), (2, 4, 4, 300, 300, 64, False, 0),
+    (2, 4, 4, 75, 300, 64, False, 0), (2, 4, 4, 256, 256, 112, True, 0)])
+def test_flash_backward_is_deterministic(card, shape):
+    """Two launches on the same inputs give the same bits of dq, dk and dv
+    (each element is summed by one block in a fixed order), within the bf16
+    tolerance of the plain version."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+    )
+
+    b, hq, hkv, sq, sk, d, causal, window = shape
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v, go = (torch.randn((b, h, s, d), generator=g,
+                               device="cuda").bfloat16()
+                   for h, s in ((hq, sq), (hkv, sk), (hkv, sk), (hq, sq)))
+    kw = dict(causal=causal, window=window)
+    _, lse, o = flash_attention(q, k, v, **kw, block_q=sq, block_k=sk,
+                                for_backward=True)
+    first = flash_attention_bwd(q, k, v, o, lse, go, **kw)
+    second = flash_attention_bwd(q, k, v, o, lse, go, **kw)
+    for a, w in zip(first, second):
+        assert torch.equal(a, w)
+    # and the plain version on the card's own o and lse
+    want = flash_attention_bwd_plain(q, k, v, o, lse, go, **kw)
+    for a, w in zip(first, want):
+        torch.testing.assert_close(a.float(), w.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+@pytest.mark.parametrize("shape", [
+    # (B, Hq, Hkv, Sq, Sk, D, causal, window)
+    (2, 32, 8, 2048, 2048, 128, True, 4096), (1, 4, 2, 64, 256, 128, True, 0),
+    (2, 4, 4, 300, 300, 64, False, 0), (1, 4, 1, 100, 100, 112, True, 32)])
+def test_flash_forward_lse_equals_logsumexp(card, shape):
+    """The Hopper forward's log-sum-exp equals ``torch.logsumexp`` of the
+    masked scaled logits, its f32 output rounds to its output, and a
+    forward asked for neither gives the same output bits; off the Hopper
+    path (f32, D 32) asking for them raises."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+    )
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref
+
+    b, hq, hkv, sq, sk, d, causal, window = shape
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = (torch.randn((b, h, s, d), generator=g, device="cuda").bfloat16()
+               for h, s in ((hq, sq), (hkv, sk), (hkv, sk)))
+    kw = dict(causal=causal, window=window, block_q=sq, block_k=sk)
+    out, lse, out32 = flash_attention(q, k, v, **kw, for_backward=True)
+    assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
+    want = attention_lse_ref(q, k, causal=causal, window=window)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, flash_attention(q, k, v, **kw))
+    # the f32 output is the one rounded into out
+    assert out32.dtype == torch.float32 and torch.equal(out32.to(out.dtype),
+                                                        out)
+    for x, dd in ((q.float(), d), (q[..., :32], 32)):
+        with pytest.raises(ValueError, match="log-sum-exp"):
+            flash_attention(x, k[..., :dd].to(x.dtype), v[..., :dd].to(
+                x.dtype), **kw, for_backward=True)
 
 
 def test_flash_kernel_with_grad_raises(card):
