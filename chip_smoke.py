@@ -7,8 +7,9 @@ package. Phases, each printed as it ends; any failure exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions, the parallel ``nvcc`` build of every kernel, the
-   flash library's ptxas registers and spills (the three Hopper
-   instantiations, D 64, 112 and 128, must spill nothing) and SASS
+   flash library's ptxas registers and spills (the four Hopper
+   instantiations, (D, Dv) (64, 64), (112, 112), (128, 128) and (192,
+   128), and the backward's, must spill nothing) and SASS
    census (wgmma, TMA and mbarrier instructions), and the registers and
    spills of every kernel of the two stream libraries (generated SPD,
    hand-written LBM);
@@ -168,7 +169,22 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    plain pass and ``torch._fused_adamw_`` (on f32 copies of p and g: it
    takes one dtype) timed (CUDA events) beside the bound (each state word
    read and written once), the pair at most 1.35x it; then one launch over
-   the 23-part table bitwise ``_update``'s on every part;
+   the 23-part table bitwise ``_update``'s on every part; (f) Kimi K2's
+   multi-head latent attention (docs/port.md §mla): ``kimi-k2-instruct``
+   at full width and the benchmark cell's cut (``MLA_TRAIN_LAYERS``: the
+   dense layer and 4 expert layers, 8 of 384 experts held, a vocabulary
+   of 20,480) through ``make_train_step`` at the cell's 2x8192 tokens,
+   ``DENSE_STEPS`` steps with the (192, 128) launch counters set to 0
+   just before: 2 forward launches (the forward and the remat recompute)
+   and 1 backward call a layer, no flash launch at another pair, and
+   ``mla.calls`` 2 a layer; then at the cell's launch shape (q = k
+   2x64x8192x192, v 2x64x8192x128) the forward's output against
+   ``flash_attention_plain`` and its LSE, dq, dk and dv against
+   ``attention_lse_ref`` and ``flash_attention_bwd_plain`` over every
+   head, two heads at a time, at the card tests' tolerances, two
+   launches of each bitwise equal, the backward timed against its
+   five-product bound beside its plain version and SDPA forward +
+   backward;
 12. the dry run against the card (docs/port.md §dryrun), after phase 11:
    ``launch/dryrun.py`` traces a step on the ``meta`` device; (a) Qwen3-8B's
    4x2048 prefill on a 1x1 mesh: its argument bytes within ``ARGS_RTOL``
@@ -188,7 +204,8 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    at 1x8192 with the window binding, Kimi's D 112 with GQA 8,
    whisper's four at D 64, LLaVA's D 128 with GQA 7, the Qwen3-8B
    training step's D 128 with GQA 4 at B 2, phase 6d's groups 48, 6 and
-   5, and phase 11d's training launch shapes), through the
+   5, phase 11d's training launch shapes and phase 11f's MLA training
+   shape at D 192 and Dv 128), through the
    dispatcher, on contiguous q/k/v and on the head-split views, with TFLOP/s,
    the share of its bound (the (query, key) pairs the mask keeps) and
    ``scaled_dot_product_attention`` (the window as a boolean mask, on the
@@ -514,6 +531,18 @@ TRAIN_FAMILIES = (("mixtral-8x7b", 2, TRAIN_DENSE),
                   ("zamba2-7b", 12, TRAIN_DENSE),
                   ("whisper-medium", None, WHISPER),
                   ("llava-next-34b", 4, VLM_PREFILL))
+#: Phase 11f: Kimi K2 at the benchmark cell's cut (``bench/configs/
+#: kimi-k2-5l.json``): the dense layer and 4 expert layers, 8 of 384
+#: experts held, a vocabulary slice of 20,480, 2x8192 tokens a step.
+MLA_TRAIN_LAYERS = 5
+MLA_HELD = 8
+MLA_VOCAB = 20480
+MLA_TRAIN = (2, 8192)
+#: Phase 11f: the (192, 128) kernels against their plain versions at the
+#: card tests' tolerances (tests/test_torch_cuda.py): the LSE within
+#: 1e-5, dq, dk and dv each within 2e-3 in relative L2 (measured ~3e-4).
+MLA_LSE_TOL = dict(rtol=1e-5, atol=1e-5)
+MLA_GRAD_REL_L2 = 2e-3
 
 
 #: ptxas spill bytes allowed per kernel instantiation, by stream library:
@@ -525,12 +554,17 @@ SPILL_ALLOWANCE: dict[str, int] = {}
 
 def flash_census(build) -> None:
     """Phase 1's view of the compiled flash library: ptxas's registers and
-    spill bytes for each kernel (the forward's and the backward's), and
+    spill bytes for each kernel (the forward's and the backward's, one of
+    each at every (D, Dv) of ``HOPPER_DIMS``), and
     the SASS counts of the Hopper instructions (HGMMA: wgmma, UTMALDG: TMA
     loads, SYNCS: mbarriers). Fails when the Hopper kernels or the
     backward's spill or lack wgmma or TMA."""
     import re
     import shutil
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        HOPPER_DIMS,
+    )
 
     so = build.library_path("flash_attention", build.flash_source())
     kernels, name = {}, None
@@ -549,38 +583,41 @@ def flash_census(build) -> None:
             kernels.setdefault(name, {})["regs"] = int(m.group(1))
     hopper = 0
     for name, info in sorted(kernels.items()):
-        m = re.search(r"(hopper|simple)12(flash|probe)_kernelI.*?Li(\d+)E",
-                      name)
+        m = re.search(r"(hopper|simple)12(flash|probe)_kernelI.*?Li(\d+)E"
+                      r"(?:Li(\d+)E)?", name)
         if not m:
             continue
         dtype = "f32" if "flash_kernelIfLi" in name else "bf16"
         label = (f"{m.group(1)}::{m.group(2)}_kernel<{dtype}, "
-                 f"D {m.group(3)}>")
+                 f"D {m.group(3)}"
+                 + (f", Dv {m.group(4)}" if m.group(4) else "") + ">")
         phase(f"  ptxas {label}: {info.get('regs')} registers, "
               f"{info.get('spill')} spill bytes")
         if m.group(1) == "hopper" and m.group(2) == "flash":
             hopper += 1
             if info.get("spill") != 0:
                 fail(f"{label} spills {info.get('spill')} bytes")
-    if hopper != 3:
-        fail(f"ptxas log lists {hopper} Hopper flash kernels, expected 3 "
-             "(D 64, 112, 128)")
-    # the backward's kernels: the D pre-pass, dK dV and dQ at each head dim
+    if hopper != len(HOPPER_DIMS):
+        fail(f"ptxas log lists {hopper} Hopper flash kernels, expected "
+             f"{len(HOPPER_DIMS)} (D, Dv) {HOPPER_DIMS}")
+    # the backward's kernels: the D pre-pass, dK dV and dQ at each pair
     backward = 0
     for name, info in sorted(kernels.items()):
-        m = re.search(r"hopper\d+(flash_bwd_\w+?_kernel)(?:ILi(\d+)E)?", name)
+        m = re.search(r"hopper\d+(flash_bwd_\w+?_kernel)"
+                      r"(?:ILi(\d+)ELi(\d+)E)?", name)
         if not m:
             continue
         backward += 1
-        label = f"hopper::{m.group(1)}" + (f"<D {m.group(2)}>"
-                                           if m.group(2) else "")
+        label = f"hopper::{m.group(1)}" + (
+            f"<D {m.group(2)}, Dv {m.group(3)}>" if m.group(2) else "")
         phase(f"  ptxas {label}: {info.get('regs')} registers, "
               f"{info.get('spill')} spill bytes")
         if info.get("spill") != 0:
             fail(f"{label} spills {info.get('spill')} bytes")
-    if backward != 7:
-        fail(f"ptxas log lists {backward} backward kernels, expected 7 (the "
-             "D pre-pass; dK dV and dQ at D 64, 112, 128)")
+    if backward != 1 + 2 * len(HOPPER_DIMS):
+        fail(f"ptxas log lists {backward} backward kernels, expected "
+             f"{1 + 2 * len(HOPPER_DIMS)} (the D pre-pass; dK dV and dQ at "
+             f"each (D, Dv) of {HOPPER_DIMS})")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
                           text=True, timeout=120).stdout
@@ -2501,8 +2538,8 @@ def train_check(cfg, bundle, plain, model, batches, rate, label: str, *,
     kernel (``FlashAttentionFn``: ``sites`` launches forward and, under
     the default remat ``"none"``, which runs each site's forward again in
     the backward, as many there; the Function's own backward launches the
-    backward kernel once a site on the Hopper path, bf16 at D 64, 112 or
-    128) against plain attention's, every leaf of the reference's
+    backward kernel once a site on the Hopper path, bf16 at a pair of
+    ``HOPPER_DIMS``) against plain attention's, every leaf of the reference's
     tree within the larger of ``GRAD_REL_L2`` and ``FLOOR_FACTOR`` x its
     rounding floor (the plain twin's gradient with every attention output
     moved at the rounding level: :func:`rounding_noise` with remat off,
@@ -2525,7 +2562,7 @@ def train_check(cfg, bundle, plain, model, batches, rate, label: str, *,
         adamw_sumsq,
     )
     from repro_torch.kernels.flash_attention.flash_attention import (
-        HOPPER_HEAD_DIMS,
+        HOPPER_DIMS,
         flash_attention,
         flash_attention_bwd,
     )
@@ -2533,10 +2570,10 @@ def train_check(cfg, bundle, plain, model, batches, rate, label: str, *,
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.optimizer import AdamWConfig, init_state
 
-    # bf16 at D 64, 112 or 128 takes the Hopper path: one backward launch a
-    # site
-    bwd_sites = sites if (cfg.dtype == "bfloat16" and cfg.head_dim
-                          in HOPPER_HEAD_DIMS) else 0
+    # bf16 at a pair of HOPPER_DIMS takes the Hopper path: one backward
+    # launch a site
+    bwd_sites = sites if (cfg.dtype == "bfloat16" and (
+        cfg.head_dim, cfg.v_head_dim or cfg.head_dim) in HOPPER_DIMS) else 0
     tree = param_tree(model)
     leaves = ckpt.tree_flatten(tree)[0]
     names = leaf_names(tree)
@@ -2920,6 +2957,200 @@ def family_training() -> dict:
     return rows, adamw
 
 
+def mla_training() -> dict:
+    """Phase 11f: Kimi K2's multi-head latent attention trained on the
+    card (docs/port.md §mla). ``kimi-k2-instruct`` at full width and the
+    benchmark cell's cut (``MLA_TRAIN_LAYERS``, ``MLA_HELD`` of 384
+    experts held, ``MLA_VOCAB``), bf16 parameters and f32 moments,
+    ``DENSE_STEPS`` steps of ``make_train_step`` on ``make_batch``'s
+    ``MLA_TRAIN`` tokens, the (192, 128) launch counters set to 0 just
+    before: each step 2 forward launches a layer (the forward and the
+    remat recompute) and 1 backward call, none at another pair, and
+    ``mla.calls`` 2 a layer. Then at the cell's launch shape, laid out as
+    the MLA block lays it out (q and k head-split views of (B, S, H, 192),
+    v of the (B, S, H, 256) up-projection): the forward's output against
+    ``flash_attention_plain``; its LSE, dq, dk and dv against
+    ``attention_lse_ref`` and ``flash_attention_bwd_plain`` on every head,
+    two at a time (the plain backward holds a (B, 2, S, S) f32 matrix);
+    two launches of each kernel bitwise equal; the backward timed against
+    its five-product bound beside the plain backward over all heads and
+    SDPA forward + backward. Returns phase 5's forward row and the
+    backward's."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import tracing
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.interop import param_tree
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_plain,
+    )
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref
+    from repro_torch.models import registry
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+
+    t0 = time.perf_counter()
+    base = get_arch("kimi-k2-instruct")
+    cfg = dataclasses.replace(base, n_layers=MLA_TRAIN_LAYERS,
+                              vocab=MLA_VOCAB, moe=dataclasses.replace(
+                                  base.moe, n_held=MLA_HELD))
+    b, s = MLA_TRAIN
+    h, pair = cfg.n_heads, (cfg.head_dim, cfg.v_head_dim)
+    dev = "cuda"
+    bundle = registry.build(cfg, device=dev)
+    model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    phase(f"phase 11f: training {cfg.name} at full width and "
+          f"{cfg.n_layers} of {base.n_layers} layers, {cfg.moe.held} of "
+          f"{cfg.moe.n_experts} experts held, vocabulary {cfg.vocab} "
+          f"({cfg.num_params():.0f} parameters, bf16; AdamW moments f32), "
+          f"{b}x{s} tokens a step: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of weights")
+    shape = ShapeConfig("train", s, b, "train")
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=DENSE_STEPS)
+    opt = init_state(opt_cfg, param_tree(model))
+    step = bundle.make_train_step(opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches_at[pair] = 0
+    flash_attention_bwd.launches_at[pair] = 0
+    fwd, bwd, other, calls, times, losses = [], [], [], [], [], []
+    for i in range(DENSE_STEPS):
+        f0 = flash_attention.launches_at[pair]
+        g0 = flash_attention_bwd.launches_at[pair]
+        n0 = flash_attention.launches + flash_attention_bwd.launches
+        c0 = tracing.snapshot().get("mla.calls", 0)
+        t = time.perf_counter()
+        model, opt, metrics = step(model, opt, registry.make_batch(
+            cfg, shape, seed=i, device=dev))
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t)
+        fwd.append(flash_attention.launches_at[pair] - f0)
+        bwd.append(flash_attention_bwd.launches_at[pair] - g0)
+        other.append(flash_attention.launches + flash_attention_bwd.launches
+                     - n0 - fwd[-1] - bwd[-1])
+        calls.append(tracing.snapshot().get("mla.calls", 0) - c0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    phase(f"  {DENSE_STEPS} steps of make_train_step (remat 'none'): losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; step ms {', '.join(f'{t * 1e3:.1f}' for t in times)} "
+          f"({b * s / times[-1]:.0f} tokens/s at the last), peak memory "
+          f"{peak:.2f} GiB; (192, 128) launches per step: forward {fwd}, "
+          f"backward {bwd}; flash launches at other pairs {other}; "
+          f"mla.calls per step {calls}")
+    n = cfg.n_layers
+    if (not all(math.isfinite(x) for x in losses)
+            or fwd != [2 * n] * DENSE_STEPS or bwd != [n] * DENSE_STEPS
+            or other != [0] * DENSE_STEPS or calls != [2 * n] * DENSE_STEPS):
+        fail(f"phase 11f: losses {losses}, (192, 128) launches forward "
+             f"{fwd} and backward {bwd} (expected {2 * n} and {n} a step), "
+             f"at other pairs {other}, mla.calls {calls} (expected "
+             f"{2 * n})")
+    del model, opt, step, metrics
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device=dev).manual_seed(12)
+
+    def mk(width):
+        return torch.randn((b, s, h, width), generator=g,
+                           device=dev).bfloat16()
+
+    # k_nope and v share the up-projection's (B, S, H, 256) rows
+    q, k, do = (mk(w).transpose(1, 2) for w in (pair[0], pair[0], pair[1]))
+    kv = mk(cfg.qk_nope_dim + pair[1])
+    v = kv[..., cfg.qk_nope_dim:].transpose(1, 2)
+    label = f"q = k {tuple(q.shape)}, v {tuple(v.shape)} bf16"
+    out = flash_attention(q, k, v)
+    o, lse, o32 = flash_attention(q, k, v, for_backward=True)
+    again = flash_attention(q, k, v, for_backward=True)
+    if not torch.equal(out, o) or not all(
+            torch.equal(a, w) for a, w in zip((o, lse, o32), again)):
+        fail("phase 11f: two (192, 128) forward launches on the same "
+             "inputs differ")
+    del again
+    err = check_close(f"flash MLA training shape {label} vs plain",
+                      o.float(), flash_attention_plain(q, k, v).float(),
+                      FLASH_TOL["bfloat16"])
+    kern_ms, got = cuda_ms(lambda: flash_attention_bwd(q, k, v, o32, lse,
+                                                       do), 10)
+    again = flash_attention_bwd(q, k, v, o32, lse, do)
+    if not all(torch.equal(a, w) for a, w in zip(got, again)):
+        fail("phase 11f: two (192, 128) backward launches on the same "
+             "inputs differ")
+    del again
+
+    def plain_all():
+        """The plain LSE and backward over every head, two at a time: the
+        LSE's largest error, the gradients' largest, and each gradient's
+        sums for its L2."""
+        lse_err, grad_err, sums = 0.0, 0.0, [[0.0, 0.0] for _ in range(3)]
+        for h0 in range(0, h, 2):
+            hs = slice(h0, h0 + 2)
+            want = attention_lse_ref(q[:, hs], k[:, hs])
+            if not torch.allclose(lse[:, hs], want, **MLA_LSE_TOL):
+                fail(f"phase 11f: the forward's LSE of heads {h0}-{h0 + 1} "
+                     f"is not within {MLA_LSE_TOL} of attention_lse_ref")
+            lse_err = max(lse_err, max_err(lse[:, hs], want))
+            plain = flash_attention_bwd_plain(q[:, hs], k[:, hs], v[:, hs],
+                                              o32[:, hs], lse[:, hs],
+                                              do[:, hs])
+            for j, (a, w) in enumerate(zip(got, plain)):
+                grad_err = max(grad_err, max_err(a[:, hs], w))
+                num, den = l2_sums(a[:, hs], w)
+                sums[j][0] += num
+                sums[j][1] += den
+        return lse_err, grad_err, sums
+
+    plain_ms, (lse_err, grad_err, sums) = cuda_ms(plain_all, 1)
+    rels = [math.sqrt(num / den) for num, den in sums]
+    phase(f"  flash MLA training shape {label}: LSE max abs err "
+          f"{lse_err:.3e} ({MLA_LSE_TOL}); dq, dk, dv vs the plain backward "
+          f"over all {h} heads: rel L2 "
+          + ", ".join(f"{r:.3e}" for r in rels)
+          + f" (<= {MLA_GRAD_REL_L2}), max abs err {grad_err:.3e}")
+    if not all(r <= MLA_GRAD_REL_L2 for r in rels):
+        fail(f"phase 11f: dq, dk, dv rel L2 {rels} > {MLA_GRAD_REL_L2}")
+    xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+
+    def sdpa_fb():
+        oo = F.scaled_dot_product_attention(*xs, is_causal=True)
+        return torch.autograd.grad(oo, xs, do)
+
+    sdpa_fb_ms, want = cuda_ms(sdpa_fb, 5)
+    sdpa_f_ms, _ = sdpa_ms(q, k, v, 0)
+    sdpa_rel = max(rel_l2(a, w) for a, w in zip(got, want))
+    del xs, want
+    # five products, 2 flop a column of each: S = Q K^T and dK = dS^T Q,
+    # dQ = dS K over D; dP = dO V^T and dV = P^T dO over Dv
+    ops = 2 * (3 * pair[0] + 2 * pair[1]) * b * h * kept_pairs(s, s, True, 0)
+    bound = ops / card_peaks()[2] * 1e3
+    phase(f"  flash MLA backward at the training shape: {kern_ms:.4f} ms "
+          f"({bound / kern_ms:.1%} of its {bound:.4f} ms bound, five "
+          f"products), bitwise equal over two launches; the plain backward "
+          f"over all heads {plain_ms:.2f} ms; SDPA forward "
+          f"{sdpa_f_ms:.4f} ms, forward + backward {sdpa_fb_ms:.4f} ms "
+          f"(its dq, dk, dv vs the kernel's: rel L2 <= {sdpa_rel:.3e})")
+    del got, o, lse, o32, out, kv, do
+    torch.cuda.empty_cache()
+    phase(f"  phase 11f: {time.perf_counter() - t0:.1f} s")
+    # phase 5 times the forward on contiguous copies and on head-split
+    # views of them
+    return {"fwd": {"qkv": tuple(x.contiguous() for x in (q, k, v)),
+                    "window": 0, "launches": sum(fwd), "errs": [err]},
+            "bwd": {"ms": kern_ms, "plain_ms": plain_ms, "ops": ops,
+                    # q, dQ, k, dK at D; v, dV, o and dO at Dv: each moved
+                    # once in bf16
+                    "nbytes": 2 * 2 * (q.numel() + k.numel() + v.numel()
+                                       + b * h * s * pair[1]),
+                    "library_ms": sdpa_fb_ms, "err": grad_err,
+                    "launches": sum(bwd)}}
+
+
 def adamw_pass() -> dict:
     """Phase 11e: the fused AdamW pass (``csrc/adamw.cu``) at the train
     cell's parts (Mixtral-8x7B at 2 layers: 13 leaves, 23 parts, 3.16 B
@@ -3229,9 +3460,11 @@ def sdpa_ms(q, k, v, window: int, causal: bool = True) -> tuple[float, str]:
     import torch.nn.functional as F
 
     if not window:
+        gqa = q.shape[1] != k.shape[1]
         ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=True), 20)
-        return ms, (f"is_causal={causal}, enable_gqa, default dispatch")
+            q, k, v, is_causal=causal, enable_gqa=gqa), 20)
+        return ms, (f"is_causal={causal}" + (", enable_gqa" if gqa else "")
+                    + ", default dispatch")
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     sq, sk = q.shape[2], k.shape[2]
@@ -4345,6 +4578,7 @@ def main() -> None:
     train = dense_training()
     fam, fam_adamw = family_training()
     adamw = adamw_pass()
+    mla = mla_training()
 
     # ---- 12. the dry run against the card ----------------------------
     dryrun_vs_card(card_line, lm[PREFILL]["wall"], train["step_s"])
@@ -4561,16 +4795,22 @@ def main() -> None:
                    dense["nemotron-4-15b"][PREFILL]),
                   ("flash_attention[D 128, GQA 5]",
                    dense["qwen2.5-32b"][PREFILL]),
-                  *fam.items())
+                  *fam.items(),
+                  ("flash_attention[D 192, Dv 128, MLA training]",
+                   mla["fwd"]))
     for name, run in flash_rows:
         # Two layouts: contiguous (B, H, S, D), and the head-split views
         # of (B, S, H, D) buffers that the prefill passes (read in place).
         q, k, v = run.pop("qkv")
         window, causal = run["window"], run.get("causal", True)
         b_, hq_, sq_, d_ = q.shape
-        sk_ = k.shape[2]
-        ops = 4 * b_ * hq_ * d_ * kept_pairs(sq_, sk_, causal, window)
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        sk_, dv_ = k.shape[2], v.shape[3]
+        # 2 flop a column of Q K^T (D) and of P V (Dv); q, k, v and the
+        # output (Dv) moved once
+        ops = 2 * b_ * hq_ * (d_ + dv_) * kept_pairs(sq_, sk_, causal,
+                                                     window)
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + b_ * hq_ * sq_
+                      * dv_)
         bound_ms = max(ops / bf16_peak, nbytes / hbm) * 1e3
         kw = dict(causal=causal, window=window)
         plain_ms, want = cuda_ms(
@@ -4578,7 +4818,8 @@ def main() -> None:
         views = tuple(x.transpose(1, 2).contiguous().transpose(1, 2)
                       for x in (q, k, v))
         flash_errs = []
-        label = (f"D {d_}, Hq {hq_}, Hkv {k.shape[1]}, {b_}x{sq_}"
+        label = (f"D {d_}" + (f", Dv {dv_}" if dv_ != d_ else "")
+                 + f", Hq {hq_}, Hkv {k.shape[1]}, {b_}x{sq_}"
                  + (f"x{sk_}" if sk_ != sq_ else "")
                  + (f", window {window}" if window else "")
                  + ("" if causal else ", non-causal"))
@@ -4612,6 +4853,14 @@ def main() -> None:
            train_bwd["launches"], train_bwd["ms"], train_bwd["plain_ms"],
            train_bwd["nbytes"], train_bwd["ops"], train_bwd["err"],
            train_bwd["library_ms"], peak=bf16_peak)
+    # and at Kimi K2's MLA training shape (phase 11f; launches: its steps)
+    mla_bwd = mla["bwd"]
+    record("flash_attention_bwd[D 192, Dv 128, MLA training]",
+           "src/repro_torch/csrc/flash_attention.cu",
+           "none: the JAX package differentiates its chunked reference",
+           mla_bwd["launches"], mla_bwd["ms"], mla_bwd["plain_ms"],
+           mla_bwd["nbytes"], mla_bwd["ops"], mla_bwd["err"],
+           mla_bwd["library_ms"], peak=bf16_peak)
     # phase 11e's fused AdamW pass, a step of the train cell's update
     # (launches: phase 11d's Mixtral steps, a step)
     record("adamw[mixtral-8x7b 2 layers, 23 parts, a step]",

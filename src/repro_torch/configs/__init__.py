@@ -1,10 +1,13 @@
 """Assigned-architecture configs (exact public numbers): copies of the JAX
-package's ``configs/`` with a torch ``param_dtype`` (``base.py``)."""
+package's ``configs/`` with a torch ``param_dtype`` (``base.py``), and
+``kimi-k2-instruct``, Kimi K2 with its multi-head latent attention, which
+the port alone holds."""
 
 from .base import ArchConfig, MoEConfig, SSMConfig, SHAPES, ShapeConfig, shape_applicable
 from . import (
     granite_34b,
     kimi_k2_1t_a32b,
+    kimi_k2_instruct,
     llava_next_34b,
     mixtral_8x7b,
     nemotron_4_15b,
@@ -28,6 +31,7 @@ ARCHS: dict[str, ArchConfig] = {
         mixtral_8x7b,
         kimi_k2_1t_a32b,
         llava_next_34b,
+        kimi_k2_instruct,
     )
 }
 

@@ -23,6 +23,21 @@ class MoEConfig:
     n_shared: int = 0  # shared-expert multiplier (kimi-style)
     capacity_factor: float = 1.25
     moe_start_layer: int = 0  # dense layers before the MoE stack
+    # routing: "softmax" over the experts, or "sigmoid" scores chosen by
+    # the top k of score + a per-expert selection bias (DeepSeek-V3's
+    # noaux_tc); either way the k gates are renormalised, then scaled
+    score_func: str = "softmax"
+    route_scale: float = 1.0
+    # the held slice: this card computes experts [held_start, held_start +
+    # n_held) of the router's n_experts (expert parallelism's shard, its
+    # exchange left out); 0 holds every expert
+    n_held: int = 0
+    held_start: int = 0
+
+    @property
+    def held(self) -> int:
+        """The number of experts this card computes."""
+        return self.n_held or self.n_experts
 
 
 @dataclass(frozen=True)
@@ -53,6 +68,15 @@ class ArchConfig:
     rope_theta: float = 10_000.0
     tie_embeddings: bool = False
     sliding_window: int = 0
+    # multi-head latent attention (DeepSeek-V2 §2.1.2-2.1.3) where kv_rank
+    # > 0: q and k of qk_nope_dim + qk_rope_dim (which head_dim states), v
+    # of v_head_dim, through the low-rank latents q_rank and kv_rank
+    # (models/layers.py: MLA)
+    q_rank: int = 0
+    kv_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
     moe: MoEConfig | None = None
     ssm: SSMConfig | None = None
     attn_period: int = 0  # hybrid: shared attn block every k SSM layers
@@ -73,8 +97,21 @@ class ArchConfig:
     def param_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    @property
+    def mla(self) -> bool:
+        """Whether the attention is multi-head latent attention."""
+        return self.kv_rank > 0
+
     # ---- analytic parameter counts (drive the planner + roofline) --------
     def attn_params(self) -> int:
+        if self.mla:
+            d, h, rq, rkv = (self.d_model, self.n_heads, self.q_rank,
+                             self.kv_rank)
+            return (d * rq + rq + rq * h * (self.qk_nope_dim
+                                            + self.qk_rope_dim)
+                    + d * (rkv + self.qk_rope_dim) + rkv
+                    + rkv * h * (self.qk_nope_dim + self.v_head_dim)
+                    + h * self.v_head_dim * d)
         hd = self.head_dim
         p = self.d_model * hd * (self.n_heads * 2 + self.n_kv_heads * 2)
         if self.qkv_bias:
@@ -90,8 +127,10 @@ class ArchConfig:
         moe_layer = (self.moe is not None) if moe_layer is None else moe_layer
         p = self.attn_params() + 2 * self.d_model  # norms
         if moe_layer and self.moe:
-            p += self.moe.n_experts * 3 * self.d_model * self.moe.d_ff
+            p += self.moe.held * 3 * self.d_model * self.moe.d_ff
             p += self.d_model * self.moe.n_experts  # router
+            if self.moe.score_func == "sigmoid":
+                p += self.moe.n_experts  # selection bias
             if self.moe.n_shared:
                 p += self.mlp_params(self.moe.d_ff * self.moe.n_shared)
         else:
@@ -177,6 +216,9 @@ class ArchConfig:
             )
         if self.n_kv_heads == self.n_heads:  # keep MHA archs MHA
             changes["n_kv_heads"] = changes["n_heads"]
+        if self.mla:  # latents and heads of every width, q/k at head_dim
+            changes.update(q_rank=64, kv_rank=32, qk_nope_dim=24,
+                           qk_rope_dim=8, v_head_dim=16)
         return dataclasses.replace(self, **changes)
 
 
@@ -200,4 +242,7 @@ def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
     """DESIGN.md shape policy: which (arch x shape) cells run."""
     if shape.name == "long_500k" and not cfg.supports_long_context:
         return False, "full-attention arch: 500k dense-KV decode skipped"
+    if shape.kind == "decode" and cfg.mla:
+        return False, ("multi-head latent attention has no decode path "
+                       "(an absorbed latent cache is not ported)")
     return True, ""

@@ -1,7 +1,10 @@
-"""kimi-k2-1t-a32b [moe]: 61L d_model=7168 64H (GQA kv=8) expert d_ff=2048
-vocab=163840, 384 experts top-8 + 1 shared expert, first layer dense —
-trillion-parameter MoE (paper-table config). bf16 optimizer states keep the
-512-chip dry-run inside 16 GiB/chip (DESIGN.md §Arch-notes)."""
+"""kimi-k2-1t-a32b [moe]: a GQA stand-in of Kimi K2 that mirrors the JAX
+package's config: 61L d_model=7168 64H (GQA kv=8, head dim 112) expert
+d_ff=2048 vocab=163840, 384 experts top-8 by softmax + 1 shared expert,
+first layer dense — not the published attention, which is multi-head
+latent attention with sigmoid routing: ``kimi-k2-instruct``
+(``kimi_k2_instruct.py``). bf16 optimizer states keep the 512-chip dry-run
+inside 16 GiB/chip (DESIGN.md §Arch-notes)."""
 
 from .base import ArchConfig, MoEConfig
 

@@ -41,6 +41,15 @@
 // real columns, P V runs at n 128 (its last 16 columns stay 0) and the
 // epilogue stores 112 columns. The registers are D 128's.
 //
+// Multi-head latent attention (Kimi K2, DeepSeek-V3: docs/port.md §mla)
+// trains at D 192 for q and k and DV 128 for v and the output: every
+// kernel is templated on (D, DV), Q K^T runs over D's 12 k-slices, P V and
+// the epilogue over DV's columns, and V takes DV's layout in shared memory
+// (Q 48 KiB, the K ring 96, the V ring 64: one block an SM, as at D 128).
+// The consumer's registers are D 128's. In the backward dK += dS^T Q runs
+// at n 192 (an n128 and an n64 product), and the dK dV kernel's two
+// accumulators take 96 + 64 floats a thread.
+//
 // f32 (the tests' exact path) and bf16 at D 32 run simple::flash_kernel:
 // 4 warps, 64-row tiles loaded synchronously, f32 scalar FMAs or (bf16)
 // WMMA 16x16x16 fragments, the accumulator in shared memory.
@@ -353,13 +362,14 @@ static_assert(PRODUCER_REGS * 128 + 2 * CONSUMER_REGS * 128 <= 65536,
 template <int D> constexpr int kCols = (D + BOX - 1) / BOX * BOX;
 
 // Shared memory: Q, the K ring, the V ring, then the barriers. A tile of R
-// rows is kCols<D> / 64 boxes of R x 128 bytes, each 1024-byte aligned, as
-// the TMA's 128-byte swizzle and the wgmma descriptors expect.
-template <int D> struct Smem {
+// rows is kCols / 64 boxes of R x 128 bytes, each 1024-byte aligned, as
+// the TMA's 128-byte swizzle and the wgmma descriptors expect; Q and K
+// take the columns of D, V those of DV.
+template <int D, int DV> struct Smem {
   static constexpr int q = 0;
   static constexpr int k = q + BQ * kCols<D> * 2;
   static constexpr int v = k + STAGES * BK * kCols<D> * 2;
-  static constexpr int bar = v + STAGES * BK * kCols<D> * 2;
+  static constexpr int bar = v + STAGES * BK * kCols<DV> * 2;
   static constexpr int bytes = bar + 8 * (2 * STAGES + 1);
   static constexpr int alloc = bytes + 1024;  // slack to align the base
 };
@@ -583,15 +593,26 @@ __device__ __forceinline__ uint4 ld_shared16(uint32_t addr) {
   return v;
 }
 
-// One 16-key slice of O += P V: m64nNk16 over the N = kCols<D> columns
-// held in shared memory.
-template <int N>
+// One 16-key slice of O += P V: m64nNk16 over the N = kCols columns of
+// the MN-major tile of R rows at shared address b. N 192 (dK at D 192)
+// runs as n128 over the first two boxes and n64 over the third, which
+// fill the fragment's first 64 and last 32 floats as one n192 would.
+template <int N, int R>
 __device__ __forceinline__ void pv_product(float (&acc)[N / 2],
                                            const uint32_t (&pa)[4],
-                                           uint64_t db) {
-  static_assert(N == 64 || N == 128, "P V runs at n 64 or n 128");
-  if constexpr (N == 128) wgmma_rs_n128(acc, pa, db);
-  else wgmma_rs_n64(acc, pa, db);
+                                           uint32_t b) {
+  static_assert(N == 64 || N == 128 || N == 192,
+                "P V runs at n 64, n 128 or n 192");
+  if constexpr (N == 192) {
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(acc), pa,
+                  mnmajor_desc<R>(b));
+    wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(acc + 64), pa,
+                 mnmajor_desc<R>(b + 2 * R * 128));
+  } else if constexpr (N == 128) {
+    wgmma_rs_n128(acc, pa, mnmajor_desc<R>(b));
+  } else {
+    wgmma_rs_n64(acc, pa, mnmajor_desc<R>(b));
+  }
 }
 
 // S = Q K^T over D for one warpgroup's 64 rows of q (R rows a box) and
@@ -641,7 +662,7 @@ __device__ __forceinline__ void pv_tile(float (&acc)[N / 2],
   wg_fence();
 #pragma unroll
   for (int j = 0; j < BN / 16; ++j)  // 16 keys of 128 bytes a slice
-    pv_product<N>(acc, pa[j], mnmajor_desc<BK>(v + j * 16 * 128));
+    pv_product<N, BK>(acc, pa[j], v + j * 16 * 128);
   wg_commit();
   wg_wait0();
   fence_regs(acc);
@@ -684,33 +705,36 @@ __device__ __forceinline__ Tile tile_of(int group, int sq, int sk,
 }
 
 // Shared addresses of the block's buffers and barriers.
-template <int D> struct Buffers {
+template <int D, int DV> struct Buffers {
+  using S = Smem<D, DV>;
   uint32_t base;
   __device__ explicit Buffers(const void* raw) : base(smem_base(raw)) {}
-  __device__ uint32_t q() const { return base + Smem<D>::q; }
+  __device__ uint32_t q() const { return base + S::q; }
   __device__ uint32_t k(int s) const {
-    return base + Smem<D>::k + s * BK * kCols<D> * 2;
+    return base + S::k + s * BK * kCols<D> * 2;
   }
   __device__ uint32_t v(int s) const {
-    return base + Smem<D>::v + s * BK * kCols<D> * 2;
+    return base + S::v + s * BK * kCols<DV> * 2;
   }
-  __device__ uint32_t full(int s) const { return base + Smem<D>::bar + 8 * s; }
+  __device__ uint32_t full(int s) const { return base + S::bar + 8 * s; }
   __device__ uint32_t empty(int s) const {
-    return base + Smem<D>::bar + 8 * (STAGES + s);
+    return base + S::bar + 8 * (STAGES + s);
   }
-  __device__ uint32_t qbar() const { return base + Smem<D>::bar + 16 * STAGES; }
+  __device__ uint32_t qbar() const { return base + S::bar + 16 * STAGES; }
 };
 
 // One elected thread issues every load: Q once, then K and V of each
 // reachable tile into the ring once the consumers have freed the stage.
 // Every box counts whole in the transaction bytes, its zero fill past D or
 // past the sequence included.
-template <int D>
-__device__ __forceinline__ void produce(const Buffers<D>& sm, const Tile& t,
+template <int D, int DV>
+__device__ __forceinline__ void produce(const Buffers<D, DV>& sm,
+                                        const Tile& t,
                                         const CUtensorMap* tq,
                                         const CUtensorMap* tk,
                                         const CUtensorMap* tv) {
-  constexpr int NB = kCols<D> / BOX;  // boxes in a row of a tile
+  constexpr int NB = kCols<D> / BOX;    // boxes in a row of a Q or K tile
+  constexpr int NBV = kCols<DV> / BOX;  // of a V tile
   mbar_expect_tx(sm.qbar(), BQ * kCols<D> * 2);
   for (int nb = 0; nb < NB; ++nb)
     tma_load(sm.q() + nb * BQ * 128, tq, sm.qbar(), nb * BOX, t.q0, t.h, t.b);
@@ -718,12 +742,14 @@ __device__ __forceinline__ void produce(const Buffers<D>& sm, const Tile& t,
     const int s = n % STAGES;
     // The first round passes at once: parity 1 of a fresh barrier.
     mbar_wait(sm.empty(s), ((n / STAGES) & 1) ^ 1);
-    mbar_expect_tx(sm.full(s), 2 * BK * kCols<D> * 2);
-    for (int nb = 0; nb < NB; ++nb) {
-      tma_load(sm.k(s) + nb * BK * 128, tk, sm.full(s), nb * BOX, kt * BK,
-               t.kvh, t.b);
-      tma_load(sm.v(s) + nb * BK * 128, tv, sm.full(s), nb * BOX, kt * BK,
-               t.kvh, t.b);
+    mbar_expect_tx(sm.full(s), BK * (kCols<D> + kCols<DV>) * 2);
+    for (int nb = 0; nb < NB || nb < NBV; ++nb) {
+      if (nb < NB)
+        tma_load(sm.k(s) + nb * BK * 128, tk, sm.full(s), nb * BOX, kt * BK,
+                 t.kvh, t.b);
+      if (nb < NBV)
+        tma_load(sm.v(s) + nb * BK * 128, tv, sm.full(s), nb * BOX, kt * BK,
+                 t.kvh, t.b);
     }
   }
 }
@@ -731,16 +757,18 @@ __device__ __forceinline__ void produce(const Buffers<D>& sm, const Tile& t,
 // Consumer warpgroup wg owns block rows [64 wg, 64 wg + 64). Accumulator
 // fragment of m64nN (thread t of the warpgroup, element i): row
 // 16 (t / 32) + (t % 32) / 4 + (i & 2 ? 8 : 0), column
-// 8 (i / 4) + 2 (t % 4) + (i & 1).
-template <int D>
-__device__ __forceinline__ void consume(const Buffers<D>& sm, const Tile& t,
+// 8 (i / 4) + 2 (t % 4) + (i & 1). S runs over the D columns of Q and
+// K, O over the DV columns of V.
+template <int D, int DV>
+__device__ __forceinline__ void consume(const Buffers<D, DV>& sm,
+                                        const Tile& t,
                                         int wg, bf16* __restrict__ o, int sk,
                                         const FlashStrides& st, float scale2,
                                         int causal, int window, int sq,
                                         float* __restrict__ lse,
                                         long long lse_b, long long lse_h,
                                         float* __restrict__ o32) {
-  constexpr int ON = kCols<D> / 2;  // O floats a consumer thread holds
+  constexpr int ON = kCols<DV> / 2;  // O floats a consumer thread holds
   const int tid = threadIdx.x % 128, lane = tid % 32;
   const int rl = (tid / 32) * 16 + lane / 4;  // first of the thread's rows
   const int cq = 2 * (lane % 4);
@@ -806,14 +834,14 @@ __device__ __forceinline__ void consume(const Buffers<D>& sm, const Tile& t,
 
       uint32_t pa[BN / 16][4];
       pack_p(sc, pa);
-      pv_tile<kCols<D>>(acc, pa, sm.v(s) + step * BN * 128);
+      pv_tile<kCols<DV>>(acc, pa, sm.v(s) + step * BN * 128);
     }
     mbar_arrive(sm.empty(s));
   }
 
   // Epilogue: normalise, round to bf16 and stage this group's rows in its
   // own rows of the Q tile (same 128-byte swizzle), then 16-byte stores of
-  // the D columns (the zero ones past D stay in registers).
+  // the DV columns (the zero ones past DV stay in registers).
   const float sum0 = quad_sum(l0), sum1 = quad_sum(l1);
   const float i0 = 1.0f / fmaxf(sum0, 1e-30f);
   const float i1 = 1.0f / fmaxf(sum1, 1e-30f);
@@ -831,19 +859,19 @@ __device__ __forceinline__ void consume(const Buffers<D>& sm, const Tile& t,
       if (r0 + 8 < t.qrows) lrow[r0 + 8] = (m1 + log2f(sum1)) * kLn2;
     }
     float* orow = o32 + ((static_cast<long long>(t.b) * gridDim.x + t.h) *
-                             sq + t.q0 + r0) * D + cq;
+                             sq + t.q0 + r0) * DV + cq;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       if (r0 < t.qrows)
         *reinterpret_cast<float2*>(orow + 8 * j) =
             make_float2(acc[4 * j] * i0, acc[4 * j + 1] * i0);
       if (r0 + 8 < t.qrows)
-        *reinterpret_cast<float2*>(orow + 8 * D + 8 * j) =
+        *reinterpret_cast<float2*>(orow + 8 * DV + 8 * j) =
             make_float2(acc[4 * j + 2] * i1, acc[4 * j + 3] * i1);
     }
   }
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < DV / 8; ++j) {
     const uint32_t p = qb + (j / 8) * BQ * 128 +
                        (((j % 8) ^ (r0 % 8)) * 16) + cq * 2;
     st_shared(p + r0 * 128, pack_bf16(acc[4 * j] * i0, acc[4 * j + 1] * i0));
@@ -852,7 +880,7 @@ __device__ __forceinline__ void consume(const Buffers<D>& sm, const Tile& t,
   }
   asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
   bf16* ob = o + t.b * st.o[0] + t.h * st.o[1];
-  constexpr int CH = D / 8;  // 16-byte chunks in a row
+  constexpr int CH = DV / 8;  // 16-byte chunks in a row
   for (int idx = tid; idx < 64 * CH; idx += 128) {
     const int row = wg * 64 + idx / CH, c = idx % CH;
     if (row >= t.qrows) break;
@@ -865,7 +893,7 @@ __device__ __forceinline__ void consume(const Buffers<D>& sm, const Tile& t,
 
 // Warpgroups 0 and 1 consume, warpgroup 2 produces; each role sets its
 // register budget first and the two paths never rejoin.
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_kernel(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
@@ -877,7 +905,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
   // Broadcast so the compiler sees the role as uniform in each warp.
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (threadIdx.x == 0) {
-    const Buffers<D> sm(smem_raw);
+    const Buffers<D, DV> sm(smem_raw);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(sm.full(s), 1);
       mbar_init(sm.empty(s), 2 * 128);  // every consumer thread arrives
@@ -890,14 +918,14 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
                  :: "n"(PRODUCER_REGS));
     if (threadIdx.x == 256)
-      produce<D>(Buffers<D>(smem_raw), tile_of(group, sq, sk, causal, window),
-                 &tq, &tk, &tv);
+      produce<D, DV>(Buffers<D, DV>(smem_raw),
+                     tile_of(group, sq, sk, causal, window), &tq, &tk, &tv);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
                  :: "n"(CONSUMER_REGS));
-    consume<D>(Buffers<D>(smem_raw), tile_of(group, sq, sk, causal, window),
-               wg, o, sk, st, scale2, causal, window, sq, lse, lse_b, lse_h,
-               o32);
+    consume<D, DV>(Buffers<D, DV>(smem_raw),
+                   tile_of(group, sq, sk, causal, window), wg, o, sk, st,
+                   scale2, causal, window, sq, lse, lse_b, lse_h, o32);
   }
 }
 
@@ -971,12 +999,15 @@ constexpr int BWD_STAGES = 2;
 // Shared memory of a main backward kernel: two resident tiles, the ring of
 // two tiles a stage, then (dK dV only) each stage's 64 log-sum-exps and
 // 64 D values, then the barriers: one per stage and one for the resident
-// tiles.
-template <int D> struct BwdSmem {
-  static constexpr int tile = BT * kCols<D> * 2;
+// tiles. Each pair is a tile of D columns (Q or K) and one of DV (V or
+// dO), in that order.
+template <int D, int DV> struct BwdSmem {
+  static constexpr int tile = BT * kCols<D> * 2;    // Q or K
+  static constexpr int tile_v = BT * kCols<DV> * 2;  // V or dO
+  static constexpr int pair = tile + tile_v;
   static constexpr int res = 0;
-  static constexpr int ring = res + 2 * tile;
-  static constexpr int vec = ring + BWD_STAGES * 2 * tile;
+  static constexpr int ring = res + pair;
+  static constexpr int vec = ring + BWD_STAGES * pair;
   static constexpr int bar = vec + BWD_STAGES * 2 * BT * 4;
   static constexpr int bytes = bar + 8 * (BWD_STAGES + 1);
   static constexpr int alloc = bytes + 1024;  // slack to align the base
@@ -1014,7 +1045,7 @@ __device__ __forceinline__ void rs_tile(float (&acc)[N / 2],
                                         uint32_t b) {
 #pragma unroll
   for (int j = 0; j < 4; ++j)
-    pv_product<N>(acc, pa[j], mnmajor_desc<BT>(b + j * 16 * 128));
+    pv_product<N, BT>(acc, pa[j], b + j * 16 * 128);
 }
 
 // The A fragments stay live until the products that read them retire.
@@ -1120,8 +1151,9 @@ flash_bwd_dot_kernel(const float* __restrict__ o,
 // query tiles) first. In the transposed products the keys are M: S^T =
 // K Q^T and dP^T = V dO^T from shared memory, P^T = exp(S^T - LSE) and
 // dS^T = P^T (dP^T - D) in f32 on the fragment, then dV += P^T dO and dK
-// += dS^T Q with P^T and dS^T rounded to bf16 in registers.
-template <int D>
+// += dS^T Q with P^T and dS^T rounded to bf16 in registers. S^T runs
+// over the D columns of K and Q, dP^T over the DV columns of V and dO.
+template <int D, int DV>
 __global__ void __launch_bounds__(BWD_THREADS, 2)
 flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -1132,8 +1164,8 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                       bf16* __restrict__ dk, bf16* __restrict__ dv,
                       FlashStrides grad, int hq, int group, int sq, int sk,
                       float scale, float scale2, int causal, int window) {
-  using S = BwdSmem<D>;
-  constexpr int ON = kCols<D> / 2;
+  using S = BwdSmem<D, DV>;
+  constexpr int ON = kCols<D> / 2, ONV = kCols<DV> / 2;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = smem_base(smem_raw);
   const uint32_t sK = base + S::res, sV = sK + S::tile;
@@ -1157,7 +1189,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   auto full = [&](int s) { return base + S::bar + 8 * s; };
   const uint32_t rbar = base + S::bar + 8 * BWD_STAGES;
   auto ring = [&](int s, int i) {
-    return base + S::ring + (2 * s + i) * S::tile;
+    return base + S::ring + s * S::pair + i * S::tile;
   };
   auto vec = [&](int s, int i) {
     return base + S::vec + (2 * s + i) * BT * 4;
@@ -1166,10 +1198,13 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   auto load = [&](int n) {
     const int s = n % BWD_STAGES, h = kvh * group + n / nq;
     const int q0 = (qt_lo + n % nq) * BT;
-    mbar_expect_tx(full(s), 2 * S::tile + 2 * BT * 4);
-    for (int nb = 0; nb < kCols<D> / BOX; ++nb) {
-      tma_load(ring(s, 0) + nb * BT * 128, pq, full(s), nb * BOX, q0, h, b);
-      tma_load(ring(s, 1) + nb * BT * 128, pdo, full(s), nb * BOX, q0, h, b);
+    mbar_expect_tx(full(s), S::pair + 2 * BT * 4);
+    for (int nb = 0; nb < kCols<D> / BOX || nb < kCols<DV> / BOX; ++nb) {
+      if (nb < kCols<D> / BOX)
+        tma_load(ring(s, 0) + nb * BT * 128, pq, full(s), nb * BOX, q0, h, b);
+      if (nb < kCols<DV> / BOX)
+        tma_load(ring(s, 1) + nb * BT * 128, pdo, full(s), nb * BOX, q0, h,
+                 b);
     }
     const long long row = (static_cast<long long>(b) * hq + h) * vs + q0;
     bulk_load(vec(s, 0), lse + row, BT * 4, full(s));
@@ -1179,18 +1214,22 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     for (int s = 0; s < BWD_STAGES; ++s) mbar_init(full(s), 1);
     mbar_init(rbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect_tx(rbar, 2 * S::tile);
-    for (int nb = 0; nb < kCols<D> / BOX; ++nb) {
-      tma_load(sK + nb * BT * 128, &tk, rbar, nb * BOX, k0, kvh, b);
-      tma_load(sV + nb * BT * 128, &tv, rbar, nb * BOX, k0, kvh, b);
+    mbar_expect_tx(rbar, S::pair);
+    for (int nb = 0; nb < kCols<D> / BOX || nb < kCols<DV> / BOX; ++nb) {
+      if (nb < kCols<D> / BOX)
+        tma_load(sK + nb * BT * 128, &tk, rbar, nb * BOX, k0, kvh, b);
+      if (nb < kCols<DV> / BOX)
+        tma_load(sV + nb * BT * 128, &tv, rbar, nb * BOX, k0, kvh, b);
     }
     for (int n = 0; n < min(total, BWD_STAGES); ++n) load(n);
   }
   __syncthreads();
 
-  float acc_dk[ON], acc_dv[ON];
+  float acc_dk[ON], acc_dv[ONV];
 #pragma unroll
-  for (int i = 0; i < ON; ++i) acc_dk[i] = acc_dv[i] = 0.0f;
+  for (int i = 0; i < ON; ++i) acc_dk[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < ONV; ++i) acc_dv[i] = 0.0f;
   mbar_wait(rbar, 0);
   for (int n = 0; n < total; ++n) {
     const int s = n % BWD_STAGES;
@@ -1200,7 +1239,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     float sc[32], dp[32];
     wg_fence();
     ss_tiles<D>(sc, sK, sQ);
-    ss_tiles<D>(dp, sV, sDO);
+    ss_tiles<DV>(dp, sV, sDO);
     wg_commit();
     retire(sc);
     fence_regs(dp);
@@ -1238,7 +1277,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(acc_dv);
     fence_regs(acc_dk);
     wg_fence();
-    rs_tile<kCols<D>>(acc_dv, pa, sDO);
+    rs_tile<kCols<DV>>(acc_dv, pa, sDO);
     rs_tile<kCols<D>>(acc_dk, pb, sQ);
     wg_commit();
     wg_wait0();
@@ -1254,7 +1293,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   store_tile<D>(acc_dk, scale, sK,
                 dk + b * grad.k[0] + kvh * grad.k[1] + k0 * grad.k[2],
                 grad.k[2], rows);
-  store_tile<D>(acc_dv, 1.0f, sV,
+  store_tile<DV>(acc_dv, 1.0f, sV,
                 dv + b * grad.v[0] + kvh * grad.v[1] + k0 * grad.v[2],
                 grad.v[2], rows);
 }
@@ -1263,7 +1302,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
 // blockIdx.z picks the tile, under a causal mask the last (the most key
 // tiles) first. S = Q K^T and dP = dO V^T, P and dS as in the dK dV
 // kernel with the row's LSE and D in registers, dQ += dS K.
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(BWD_THREADS, 2)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -1274,7 +1313,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     bf16* __restrict__ dq, FlashStrides grad, int hq,
                     int group, int sq, int sk, float scale, float scale2,
                     int causal, int window) {
-  using S = BwdSmem<D>;
+  using S = BwdSmem<D, DV>;
   constexpr int ON = kCols<D> / 2;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = smem_base(smem_raw);
@@ -1300,26 +1339,30 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   auto full = [&](int s) { return base + S::bar + 8 * s; };
   const uint32_t rbar = base + S::bar + 8 * BWD_STAGES;
   auto ring = [&](int s, int i) {
-    return base + S::ring + (2 * s + i) * S::tile;
+    return base + S::ring + s * S::pair + i * S::tile;
   };
   auto load = [&](int n) {
     const int s = n % BWD_STAGES, kk0 = (kt_lo + n) * BT;
-    mbar_expect_tx(full(s), 2 * S::tile);
-    for (int nb = 0; nb < kCols<D> / BOX; ++nb) {
-      tma_load(ring(s, 0) + nb * BT * 128, pk, full(s), nb * BOX, kk0, kvh,
-               b);
-      tma_load(ring(s, 1) + nb * BT * 128, pv, full(s), nb * BOX, kk0, kvh,
-               b);
+    mbar_expect_tx(full(s), S::pair);
+    for (int nb = 0; nb < kCols<D> / BOX || nb < kCols<DV> / BOX; ++nb) {
+      if (nb < kCols<D> / BOX)
+        tma_load(ring(s, 0) + nb * BT * 128, pk, full(s), nb * BOX, kk0, kvh,
+                 b);
+      if (nb < kCols<DV> / BOX)
+        tma_load(ring(s, 1) + nb * BT * 128, pv, full(s), nb * BOX, kk0, kvh,
+                 b);
     }
   };
   if (tid == 0) {
     for (int s = 0; s < BWD_STAGES; ++s) mbar_init(full(s), 1);
     mbar_init(rbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect_tx(rbar, 2 * S::tile);
-    for (int nb = 0; nb < kCols<D> / BOX; ++nb) {
-      tma_load(sQ + nb * BT * 128, &tq, rbar, nb * BOX, q0, h, b);
-      tma_load(sDO + nb * BT * 128, &tdo, rbar, nb * BOX, q0, h, b);
+    mbar_expect_tx(rbar, S::pair);
+    for (int nb = 0; nb < kCols<D> / BOX || nb < kCols<DV> / BOX; ++nb) {
+      if (nb < kCols<D> / BOX)
+        tma_load(sQ + nb * BT * 128, &tq, rbar, nb * BOX, q0, h, b);
+      if (nb < kCols<DV> / BOX)
+        tma_load(sDO + nb * BT * 128, &tdo, rbar, nb * BOX, q0, h, b);
     }
     for (int n = 0; n < min(total, BWD_STAGES); ++n) load(n);
   }
@@ -1340,7 +1383,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
     float sc[32], dp[32];
     wg_fence();
     ss_tiles<D>(sc, sQ, sK);
-    ss_tiles<D>(dp, sDO, sV);
+    ss_tiles<DV>(dp, sDO, sV);
     wg_commit();
     retire(sc);
     fence_regs(dp);
@@ -1437,7 +1480,7 @@ int launch_simple(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 int launch_hopper(const void* q, const void* k, const void* v, void* o,
                   int b, int hq, int hkv, int sq, int sk, FlashStrides st,
                   float scale, int causal, int window, float* lse,
@@ -1447,21 +1490,21 @@ int launch_hopper(const void* q, const void* k, const void* v, void* o,
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, D, sq, hq, b, st.q, BQ) ||
       !make_map(&tk, k, D, sk, hkv, b, st.k, BK) ||
-      !make_map(&tv, v, D, sk, hkv, b, st.v, BK))
+      !make_map(&tv, v, DV, sk, hkv, b, st.v, BK))
     return -3;
-  constexpr int bytes = Smem<D>::alloc;
+  constexpr int bytes = Smem<D, DV>::alloc;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(hq, b, (sq + BQ - 1) / BQ);
-  flash_kernel<D><<<grid, THREADS, bytes, stream>>>(
+  flash_kernel<D, DV><<<grid, THREADS, bytes, stream>>>(
       tq, tk, tv, static_cast<bf16*>(o), hq / hkv, sq, sk, st,
       scale * kLog2e, causal, window, lse, lse_b, lse_h, o32);
   return (int)cudaGetLastError();
 }
 
 // The backward's three launches on one stream: D, then dK dV, then dQ.
-template <int D>
+template <int D, int DV>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const float* lse, float* dvec, void* dq,
                void* dk, void* dv, int b, int hq, int hkv, int sq, int sk,
@@ -1471,34 +1514,34 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   CUtensorMap tq, tk, tv, tdo;
   if (!make_map(&tq, q, D, sq, hq, b, in.q, BT) ||
       !make_map(&tk, k, D, sk, hkv, b, in.k, BT) ||
-      !make_map(&tv, v, D, sk, hkv, b, in.v, BT) ||
-      !make_map(&tdo, dout, D, sq, hq, b, grad.o, BT))
+      !make_map(&tv, v, DV, sk, hkv, b, in.v, BT) ||
+      !make_map(&tdo, dout, DV, sq, hq, b, grad.o, BT))
     return -3;
   const int sqp = (sq + BT - 1) / BT * BT, rows = b * hq * sqp;
   flash_bwd_dot_kernel<<<(rows + 15) / 16, 256, 0, stream>>>(
       static_cast<const float*>(o), static_cast<const bf16*>(dout), dvec, hq,
-      sq, sqp, D, vs, in, grad, rows);
+      sq, sqp, DV, vs, in, grad, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  constexpr int bytes = BwdSmem<D>::alloc;
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
+  constexpr int bytes = BwdSmem<D, DV>::alloc;
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                bytes);
   if (err != cudaSuccess) return (int)err;
   const int group = hq / hkv;
-  flash_bwd_dkdv_kernel<D><<<dim3(hkv, b, (sk + BT - 1) / BT), BWD_THREADS,
-                             bytes, stream>>>(
+  flash_bwd_dkdv_kernel<D, DV><<<dim3(hkv, b, (sk + BT - 1) / BT),
+                                 BWD_THREADS, bytes, stream>>>(
       tq, tk, tv, tdo, lse, dvec, vs, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), grad, hq, group, sq, sk, scale,
       scale * kLog2e, causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<D><<<dim3(hq, b, sqp / BT), BWD_THREADS, bytes,
-                           stream>>>(
+  flash_bwd_dq_kernel<D, DV><<<dim3(hq, b, sqp / BT), BWD_THREADS, bytes,
+                               stream>>>(
       tq, tk, tv, tdo, lse, dvec, vs, static_cast<bf16*>(dq), grad, hq,
       group, sq, sk, scale, scale * kLog2e, causal, window);
   return (int)cudaGetLastError();
@@ -1525,66 +1568,73 @@ int launch_probe(const void* a, const void* k, const void* v, float* s,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. Returns cudaGetLastError(), -2 for a head
-// dim or dtype this file does not instantiate (or an LSE asked of the
+// dtype: 0 float32, 1 bfloat16; d the head dim of q and k, dv that of v
+// and the output. Returns cudaGetLastError(), -2 for a pair of head dims
+// or a dtype this file does not instantiate (or an LSE asked of the
 // simple kernel, which writes none), -3 for a TMA descriptor that
-// cuTensorMapEncodeTiled refuses. bf16 at D 64, 112 and 128 runs the
-// Hopper kernel, which also writes, when lse is not null, each row's
-// log-sum-exp at lse[b * lse_b + h * lse_h + s] and the output in f32 to
-// o32, (B, Hq, Sq, D) contiguous; f32 and bf16 at D 32 run the simple one.
+// cuTensorMapEncodeTiled refuses. bf16 at (d, dv) (64, 64), (112, 112),
+// (128, 128) and (192, 128) (multi-head latent attention) runs the Hopper
+// kernel, which also writes, when lse is not null, each row's log-sum-exp
+// at lse[b * lse_b + h * lse_h + s] and the output in f32 to o32, (B, Hq,
+// Sq, dv) contiguous; f32 and bf16 at D 32 run the simple one (dv = d).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int dtype, int b,
                                    int hq, int hkv, int sq, int sk, int d,
-                                   FlashStrides st, float scale, int causal,
+                                   int dv, FlashStrides st, float scale,
+                                   int causal,
                                    int window, float* lse, long long lse_b,
                                    long long lse_h, float* o32,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_CASE(LAUNCH, DD, ...)                                         \
-  if (d == DD)                                                              \
+#define FLASH_CASE(LAUNCH, DD, DDV, ...)                                    \
+  if (d == DD && dv == DDV)                                                 \
     return LAUNCH(q, k, v, o, b, hq, hkv, sq, sk, st, scale, causal, window, \
                   __VA_ARGS__);
   if (dtype == 1) {
-    FLASH_CASE(launch_hopper<64>, 64, lse, lse_b, lse_h, o32, s)
-    FLASH_CASE(launch_hopper<112>, 112, lse, lse_b, lse_h, o32, s)
-    FLASH_CASE(launch_hopper<128>, 128, lse, lse_b, lse_h, o32, s)
+    FLASH_CASE((launch_hopper<64, 64>), 64, 64, lse, lse_b, lse_h, o32, s)
+    FLASH_CASE((launch_hopper<112, 112>), 112, 112, lse, lse_b, lse_h, o32, s)
+    FLASH_CASE((launch_hopper<128, 128>), 128, 128, lse, lse_b, lse_h, o32, s)
+    FLASH_CASE((launch_hopper<192, 128>), 192, 128, lse, lse_b, lse_h, o32, s)
   }
   if (lse != nullptr || o32 != nullptr) return -2;
   if (dtype == 0) {
-    FLASH_CASE((launch_simple<float, 32>), 32, s)
-    FLASH_CASE((launch_simple<float, 64>), 64, s)
-    FLASH_CASE((launch_simple<float, 112>), 112, s)
-    FLASH_CASE((launch_simple<float, 128>), 128, s)
+    FLASH_CASE((launch_simple<float, 32>), 32, 32, s)
+    FLASH_CASE((launch_simple<float, 64>), 64, 64, s)
+    FLASH_CASE((launch_simple<float, 112>), 112, 112, s)
+    FLASH_CASE((launch_simple<float, 128>), 128, 128, s)
   } else if (dtype == 1) {
-    FLASH_CASE((launch_simple<bf16, 32>), 32, s)
+    FLASH_CASE((launch_simple<bf16, 32>), 32, 32, s)
   }
 #undef FLASH_CASE
   return -2;
 }
 
-// The backward of the Hopper path (bf16, D 64, 112 or 128): dq, dk and dv
-// (the strides of grad.q, grad.k, grad.v) from q, k, v, the forward's f32
-// output o (in.o) and its log-sum-exp, and dout (grad.o). lse and dvec
-// (D's scratch) are f32 (B, Hq, vs) with vs a multiple of 4 and at least
-// Sq rounded up to 64; the rows past Sq are read and never used. Returns
-// as flash_attention_fwd.
+// The backward of the Hopper path (bf16 at the forward's (d, dv) pairs):
+// dq, dk and dv (the strides of grad.q, grad.k, grad.v) from q, k, v, the
+// forward's f32 output o (in.o) and its log-sum-exp, and dout (grad.o);
+// q, k, dq and dk have d columns, v, o, dout and dv (at gv) have dv. lse
+// and dvec (D's scratch) are f32 (B, Hq, vs) with vs a multiple of 4 and
+// at least Sq rounded up to 64; the rows past Sq are read and never used.
+// Returns as flash_attention_fwd.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const float* lse,
-                                   float* dvec, void* dq, void* dk, void* dv,
+                                   float* dvec, void* dq, void* dk, void* gv,
                                    int b, int hq, int hkv, int sq, int sk,
-                                   int d, long long vs, FlashStrides in,
-                                   FlashStrides grad, float scale, int causal,
-                                   int window, void* stream) {
+                                   int d, int dv, long long vs,
+                                   FlashStrides in, FlashStrides grad,
+                                   float scale, int causal, int window,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BWD_CASE(DD)                                                         \
-  if (d == DD)                                                               \
-    return launch_bwd<DD>(q, k, v, o, dout, lse, dvec, dq, dk, dv, b, hq,    \
-                          hkv, sq, sk, vs, in, grad, scale, causal, window,  \
-                          s);
-  BWD_CASE(64)
-  BWD_CASE(112)
-  BWD_CASE(128)
+#define BWD_CASE(DD, DDV)                                                    \
+  if (d == DD && dv == DDV)                                                  \
+    return launch_bwd<DD, DDV>(q, k, v, o, dout, lse, dvec, dq, dk, gv, b,   \
+                               hq, hkv, sq, sk, vs, in, grad, scale, causal, \
+                               window, s);
+  BWD_CASE(64, 64)
+  BWD_CASE(112, 112)
+  BWD_CASE(128, 128)
+  BWD_CASE(192, 128)
 #undef BWD_CASE
   return -2;
 }

@@ -253,18 +253,19 @@ def load_flash_library() -> ctypes.CDLL:
     (``csrc/flash_attention.cu``), once per process: a launch then costs
     no hash of the source on the host."""
     lib = load("flash_attention", flash_source())
-    # (q, k, v, o, dtype, b, hq, hkv, sq, sk, d, strides, scale, causal,
-    # window, lse, lse batch stride, lse head stride, f32 output, stream)
+    # (q, k, v, o, dtype, b, hq, hkv, sq, sk, d, dv, strides, scale,
+    # causal, window, lse, lse batch stride, lse head stride, f32 output,
+    # stream)
     lib.flash_attention_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                        _I, _I, FlashStrides,
+                                        _I, _I, _I, FlashStrides,
                                         ctypes.c_float, _I, _I, _P, _LL, _LL,
                                         _P, _P]
     lib.flash_attention_fwd.restype = _I
     # (q, k, v, f32 o, do, lse, d scratch, dq, dk, dv, b, hq, hkv, sq, sk, d,
-    # lse row stride, strides of q k v o, of dq dk dv do, scale, causal,
+    # dv, lse row stride, strides of q k v o, of dq dk dv do, scale, causal,
     # window, stream)
     lib.flash_attention_bwd.argtypes = [*[_P] * 10, _I, _I, _I, _I, _I, _I,
-                                        _LL, FlashStrides, FlashStrides,
+                                        _I, _LL, FlashStrides, FlashStrides,
                                         ctypes.c_float, _I, _I, _P]
     lib.flash_attention_bwd.restype = _I
     lib.flash_wgmma_probe.argtypes = [_P, _P, _P, _P, _P, _I, _P]

@@ -14,8 +14,10 @@ runs a warp-specialised kernel: TMA loads into a two-stage K/V ring,
 ``wgmma`` for both products, the softmax and the accumulator in
 registers. D 112 (Zamba2's shared attention) is held at D 128's layout in
 shared memory, its 16 extra columns zero-filled by TMA and never stored
-(docs/port.md §hybrid). f32 (the tests' exact path) and bf16 at D 32 run
-a simple kernel (scalar FMAs or WMMA fragments).
+(docs/port.md §hybrid). Multi-head latent attention (Kimi K2) runs the
+same kernels at D 192 for q and k and D 128 for v and the output
+(docs/port.md §mla). f32 (the tests' exact path) and bf16 at D 32 run a
+simple kernel (scalar FMAs or WMMA fragments).
 
 ``block_q`` and ``block_k`` are the reference's API and validation only:
 the CUDA tiles are the kernel's own, and the output does not depend on
@@ -35,6 +37,8 @@ heads of the group, then dQ a query tile a block), with
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from .ref import _mask, _repeat_kv, attention_chunked_ref, attention_lse_ref
@@ -42,22 +46,40 @@ from .ref import _mask, _repeat_kv, attention_chunked_ref, attention_lse_ref
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 
-#: Head dims the CUDA file instantiates, and the dtypes it takes.
+#: Head dims the CUDA file instantiates where v has k's, and the dtypes it
+#: takes.
 HEAD_DIMS = (32, 64, 112, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: Head dims of the Hopper kernels (bf16), the backward's too.
-HOPPER_HEAD_DIMS = (64, 112, 128)
+#: (D of q and k, D of v) of the Hopper kernels (bf16), the backward's
+#: too: the models' heads, and multi-head latent attention's 192 / 128.
+HOPPER_DIMS = ((64, 64), (112, 112), (128, 128), (192, 128))
 #: Rows of the backward's tiles; its log-sum-exp and D rows are padded to
 #: a multiple of it.
 BWD_TILE = 64
 
 
-def takes_hopper_path(q: torch.Tensor) -> bool:
-    """Whether the forward on ``q`` runs the Hopper kernel (the C entry's
-    rule: bf16 at D 64, 112 or 128 on the card), and so whether its
-    backward is :func:`flash_attention_bwd`."""
+def takes_hopper_path(q: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether the forward on ``q`` and ``v`` runs the Hopper kernel (the C
+    entry's rule: bf16 at a pair of :data:`HOPPER_DIMS` on the card), and
+    so whether its backward is :func:`flash_attention_bwd`."""
     return (q.device.type == "cuda" and q.dtype == torch.bfloat16
-            and q.shape[-1] in HOPPER_HEAD_DIMS)
+            and (q.shape[-1], v.shape[-1]) in HOPPER_DIMS)
+
+
+def _check_shapes(q, k, v) -> None:
+    """q (B, Hq, Sq, D), k (B, Hkv, Sk, D), v (B, Hkv, Sk, Dv): v may be
+    narrower or wider than k in its last dim alone."""
+    if (q.dim() != 4 or k.dim() != 4 or v.dim() != 4
+            or v.shape[:3] != k.shape[:3]):
+        raise ValueError(f"need q (B, Hq, Sq, D), k (B, Hkv, Sk, D) and v "
+                         f"(B, Hkv, Sk, Dv), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         "in batch or head dim")
+    if q.shape[1] % k.shape[1]:
+        raise ValueError(f"Hq={q.shape[1]} must be a multiple of "
+                         f"Hkv={k.shape[1]}")
 
 
 def _round_up(n: int, m: int) -> int:
@@ -103,27 +125,22 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     block_q: int = DEFAULT_BLOCK_Q,
                     block_k: int = DEFAULT_BLOCK_K,
                     for_backward: bool = False):
-    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D).
+    """q: (B, Hq, Sq, D); k: (B, Hkv, Sk, D); v: (B, Hkv, Sk, Dv) -> (B,
+    Hq, Sq, Dv). On the card Dv is D but at (192, 128) (:data:`HOPPER_DIMS`).
 
-    The output has ``q``'s dtype and is laid out ``(B, Sq, Hq, D)`` in
+    The output has ``q``'s dtype and is laid out ``(B, Sq, Hq, Dv)`` in
     memory (a transposed view), so merging its heads is free. With
     ``for_backward`` it returns ``(out, lse, out_f32)``: each row's f32
     log-sum-exp of the masked scaled logits, ``(B, Hq, Sq)`` (a view of
     rows padded to :data:`BWD_TILE`), and the output before its rounding
     to ``q``'s dtype, f32 and contiguous, what :func:`flash_attention_bwd`
-    takes; on a CUDA tensor only the Hopper kernel writes them.
+    takes; on a CUDA tensor only the Hopper kernel writes them. Every
+    launch counts in ``flash_attention.launches`` and, by (D, Dv), in
+    ``flash_attention.launches_at``.
     """
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"need q (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D), "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    _check_shapes(q, k, v)
     b, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    if k.shape[0] != b or k.shape[3] != d:
-        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
-                         "in batch or head dim")
-    if hq % hkv:
-        raise ValueError(f"Hq={hq} must be a multiple of Hkv={hkv}")
+    hkv, sk, d_v = k.shape[1], k.shape[2], v.shape[3]
     block_q = min(block_q, sq)
     block_k = min(block_k, sk)
     if sq % block_q or sk % block_k:
@@ -147,15 +164,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             "flash_attention launches a kernel with no backward, and an "
             "input requires grad: call ops.attention, which runs it inside "
             "FlashAttentionFn, or run under torch.no_grad()")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim D={d} is not one of the kernel's "
-                         f"{HEAD_DIMS}")
+    hopper = takes_hopper_path(q, v)
+    if not hopper and (d_v != d or d not in HEAD_DIMS):
+        raise ValueError(f"head dims (D, Dv)=({d}, {d_v}) are not the "
+                         f"kernel's: D of {HEAD_DIMS} with Dv = D, or bf16 "
+                         f"at {HOPPER_DIMS}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
-    if for_backward and not takes_hopper_path(q):
+    if for_backward and not hopper:
         raise ValueError("the log-sum-exp and the f32 output are written by "
-                         f"the Hopper kernel alone (bf16 at D "
-                         f"{HOPPER_HEAD_DIMS}), not for {q.dtype} at D {d}")
+                         f"the Hopper kernel alone (bf16 at (D, Dv) of "
+                         f"{HOPPER_DIMS}), not for {q.dtype} at D {d}")
     from repro_torch.kernels.build import (
         FlashStrides,
         check,
@@ -163,7 +182,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     )
 
     q, k, v = (_kernel_operand(x) for x in (q, k, v))
-    out = torch.empty((b, sq, hq, d), dtype=q.dtype,
+    out = torch.empty((b, sq, hq, d_v), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     st = FlashStrides()
     for i, x in enumerate((q, k, v, out)):
@@ -173,12 +192,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if for_backward:
         lse = torch.empty((b, hq, _round_up(sq, BWD_TILE)),
                           dtype=torch.float32, device=q.device)[..., :sq]
-        out32 = torch.empty((b, hq, sq, d), dtype=torch.float32,
+        out32 = torch.empty((b, hq, sq, d_v), dtype=torch.float32,
                             device=q.device)
     lib = load_flash_library()
     check(lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        DTYPES[q.dtype], b, hq, hkv, sq, sk, d, st, float(scale),
+        DTYPES[q.dtype], b, hq, hkv, sq, sk, d, d_v, st, float(scale),
         int(causal), int(window),
         None if lse is None else lse.data_ptr(),
         0 if lse is None else lse.stride(0),
@@ -187,10 +206,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         torch.cuda.current_stream(q.device).cuda_stream,
     ), "flash_attention")
     flash_attention.launches += 1
+    flash_attention.launches_at[d, d_v] += 1
     return (out, lse, out32) if for_backward else out
 
 
 flash_attention.launches = 0
+flash_attention.launches_at = Counter()
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
@@ -202,7 +223,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     P (dP - D); then dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K with
     P and dS rounded to ``q``'s dtype as the kernel rounds its MMA
     operands, dK and dV summed over each KV head's group of query heads.
-    The gradients take the inputs' dtypes."""
+    The gradients take the inputs' dtypes; v may be narrower than k
+    (multi-head latent attention)."""
     _, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     scale = scale if scale is not None else d ** -0.5
@@ -221,7 +243,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
 
     def per_kv_head(x):
         b = x.shape[0]
-        return x.view(b, hkv, hq // hkv, sk, d).sum(2)
+        return x.view(b, hkv, hq // hkv, sk, x.shape[3]).sum(2)
 
     return (dq.to(q.dtype), per_kv_head(dk).to(k.dtype),
             per_kv_head(dv).to(v.dtype))
@@ -252,11 +274,12 @@ def _lse_operand(lse: torch.Tensor, sq: int) -> torch.Tensor:
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0, scale: float | None = None):
     """The Hopper path's backward: ``(dq, dk, dv)`` from q ``(B, Hq, Sq,
-    D)``, k and v ``(B, Hkv, Sk, D)``, the forward's f32 output ``o`` and
-    log-sum-exp ``lse`` ``(B, Hq, Sq)`` (``flash_attention(...,
-    for_backward=True)``), and the output's gradient ``do``; q, k, v and
-    ``do`` bf16 at D 64, 112 or 128; the forward's ``causal``, ``window``
-    and ``scale``. ``o`` in f32 makes D = rowsum(dO o O) exact: from the
+    D)``, k ``(B, Hkv, Sk, D)`` and v ``(B, Hkv, Sk, Dv)``, the forward's
+    f32 output ``o`` and log-sum-exp ``lse`` ``(B, Hq, Sq)``
+    (``flash_attention(..., for_backward=True)``), and the output's
+    gradient ``do`` (o's shape); q, k, v and ``do`` bf16 at a pair of
+    :data:`HOPPER_DIMS`; the forward's ``causal``, ``window`` and
+    ``scale``. ``o`` in f32 makes D = rowsum(dO o O) exact: from the
     bf16 output, D's error breaks sum_k dS = 0, which dQ and the keys'
     summed dK lean on where the keys share a large mean (whisper's
     cross-attention: dQ off by ~10%). Each gradient is laid out ``(B, S,
@@ -264,18 +287,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     :func:`flash_attention_bwd_plain`; on a CUDA tensor it launches the
     kernels or raises. A launch is deterministic: each gradient element is
     summed by one block in a fixed order."""
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"need q (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D), "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    _check_shapes(q, k, v)
     b, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    if k.shape[0] != b or k.shape[3] != d or hq % hkv:
-        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
-                         "in batch or head dim, or Hq is no multiple of Hkv")
-    if o.shape != q.shape or do.shape != q.shape:
+    hkv, sk, d_v = k.shape[1], k.shape[2], v.shape[3]
+    if o.shape != (b, hq, sq, d_v) or do.shape != o.shape:
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
-                         f"have q's shape {tuple(q.shape)}")
+                         f"be {(b, hq, sq, d_v)}")
     if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be float32 {(b, hq, sq)}, got "
                          f"{lse.dtype} {tuple(lse.shape)}")
@@ -284,9 +301,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         f"{[str(x.dtype) for x in (q, k, v, do)]}")
     if o.dtype != torch.float32:
         raise TypeError(f"o must be the forward's f32 output, got {o.dtype}")
-    if d not in HOPPER_HEAD_DIMS:
-        raise ValueError(f"head dim D={d} is not one of the backward "
-                         f"kernel's {HOPPER_HEAD_DIMS}")
+    if (d, d_v) not in HOPPER_DIMS:
+        raise ValueError(f"head dims (D, Dv)=({d}, {d_v}) are not one of the "
+                         f"backward kernel's {HOPPER_DIMS}")
     scale = scale if scale is not None else d ** -0.5
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
@@ -305,8 +322,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dvec = torch.empty((b, hq, vs), dtype=torch.float32, device=q.device)
     dq = torch.empty((b, sq, hq, d), dtype=q.dtype,
                      device=q.device).transpose(1, 2)
-    dk, dv = (torch.empty((b, sk, hkv, d), dtype=q.dtype,
-                          device=q.device).transpose(1, 2) for _ in range(2))
+    dk, dv = (torch.empty((b, sk, hkv, n), dtype=q.dtype,
+                          device=q.device).transpose(1, 2) for n in (d, d_v))
     st_in, st_grad = FlashStrides(), FlashStrides()
     for st, xs in ((st_in, (q, k, v, o)), (st_grad, (dq, dk, dv, do))):
         for i, x in enumerate(xs):
@@ -316,12 +333,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     check(lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, sk, d, vs, st_in,
+        dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, sk, d, d_v, vs, st_in,
         st_grad, float(scale), int(causal), int(window),
         torch.cuda.current_stream(q.device).cuda_stream,
     ), "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_at[d, d_v] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_at = Counter()

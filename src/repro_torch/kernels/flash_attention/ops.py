@@ -29,19 +29,19 @@ class FlashAttentionFn(torch.autograd.Function):
     """Flash attention with a gradient. The forward is
     :func:`flash_attention` (the hand-written kernel on a CUDA tensor).
     Where it runs the Hopper kernel (:func:`takes_hopper_path`: bf16 at D
-    64, 112 or 128 on the card) it also saves each row's log-sum-exp and
-    the output in f32, and the backward is the hand-written
-    :func:`flash_attention_bwd`. Elsewhere (f32, the tests' exact path;
-    D 32; the CPU) the backward recomputes attention from the saved q, k
-    and v through :func:`attention_chunked_ref` at the model path's chunk
-    and differentiates that, the function the reference's model path
-    differentiates (docs/port.md §train)."""
+    64, 112 or 128, or at 192 with v at 128, on the card) it also saves
+    each row's log-sum-exp and the output in f32, and the backward is the
+    hand-written :func:`flash_attention_bwd`. Elsewhere (f32, the tests'
+    exact path; D 32; the CPU) the backward recomputes attention from the
+    saved q, k and v through :func:`attention_chunked_ref` at the model
+    path's chunk and differentiates that, the function the reference's
+    model path differentiates (docs/port.md §train)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, block_q, block_k):
         ctx.kw = dict(causal=causal, window=window, scale=scale)
         blocks = dict(block_q=block_q, block_k=block_k)
-        if takes_hopper_path(q):
+        if takes_hopper_path(q, v):
             out, lse, out32 = flash_attention(q, k, v, **ctx.kw, **blocks,
                                               for_backward=True)
             ctx.save_for_backward(q, k, v, out32, lse)

@@ -9,11 +9,13 @@ package's ``kernels/flash_attention/ref.py``).
                              logits, what the forward saves for the
                              backward.
 
-Both take q ``(B, Hq, Sq, D)`` and k/v ``(B, Hkv, Sk, D)``, support GQA
-(kv head = h // (Hq / Hkv), ``repeat_interleave``), causal masking with
-the diagonal anchored at the end of the KV (``sk - sq``), and sliding
-windows. Logits and softmax run in f32; masked logits are the finite
-``-1e30``; the output is in ``q.dtype``.
+Both take q ``(B, Hq, Sq, D)``, k ``(B, Hkv, Sk, D)`` and v ``(B, Hkv,
+Sk, Dv)`` (``Dv`` may differ from ``D``: multi-head latent attention's
+192 / 128), support GQA (kv head = h // (Hq / Hkv),
+``repeat_interleave``), causal masking with the diagonal anchored at the
+end of the KV (``sk - sq``), and sliding windows. Logits and softmax run
+in f32; masked logits are the finite ``-1e30``; the output is in
+``q.dtype``.
 """
 
 from __future__ import annotations
@@ -65,7 +67,8 @@ def attention_chunked_ref(q, k, v, causal: bool = True, window: int = 0,
     qf = q.float() * scale
     if sk % chunk:
         chunk = sk  # degenerate: single chunk
-    acc = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hq, sq, v.shape[3]), dtype=torch.float32,
+                      device=q.device)
     m_i = torch.full((b, hq, sq), float("-inf"), device=q.device)
     l_i = torch.zeros((b, hq, sq), device=q.device)
     for i in range(sk // chunk):

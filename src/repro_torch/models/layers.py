@@ -1,5 +1,7 @@
 """Shared neural layers (the port of the JAX package's ``models/layers.py``):
-norms, rope, attention, the MLPs and the mixture of experts.
+norms, rope, attention, the MLPs and the mixture of experts; and, the
+port's own, multi-head latent attention (:class:`MLA`), sigmoid routing
+and the held slice of the experts (docs/port.md §mla).
 
 Conventions:
 * parameters live in ``nn.Module``s (:class:`Attention`, :class:`MLP`) as
@@ -25,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import tracing
 from repro_torch.kernels.flash_attention.ops import attention as _attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF
 from repro_torch.parallel import moe_ep
@@ -199,6 +202,73 @@ def attention_block(p: Attention, x, cfg, positions, *, causal=True,
     return _merge_heads(o) @ p.wo
 
 
+class MLA(nn.Module):
+    """The projections of one multi-head latent attention block
+    (DeepSeek-V2 §2.1.2-2.1.3, as Kimi K2 and DeepSeek-V3 run it): the
+    query's down- and up-projection ``wq_a`` ``(d, q_rank)``, its norm
+    ``q_norm`` and ``wq_b`` ``(q_rank, H·(qk_nope_dim + qk_rope_dim))``;
+    the joint key-value down-projection ``wkv_a`` ``(d, kv_rank +
+    qk_rope_dim)`` (the latent and the one rotary key a token shares over
+    the heads), the latent's norm ``kv_norm`` and ``wkv_b`` ``(kv_rank,
+    H·(qk_nope_dim + v_head_dim))``; the output ``wo`` ``(H·v_head_dim,
+    d)``."""
+
+    def __init__(self, cfg, *, device=None):
+        super().__init__()
+        dt, d, h = cfg.param_dtype, cfg.d_model, cfg.n_heads
+        self.wq_a = _param((d, cfg.q_rank), dt, device)
+        self.q_norm = _param((cfg.q_rank,), dt, device)
+        self.wq_b = _param((cfg.q_rank,
+                            h * (cfg.qk_nope_dim + cfg.qk_rope_dim)), dt,
+                           device)
+        self.wkv_a = _param((d, cfg.kv_rank + cfg.qk_rope_dim), dt, device)
+        self.kv_norm = _param((cfg.kv_rank,), dt, device)
+        self.wkv_b = _param((cfg.kv_rank,
+                             h * (cfg.qk_nope_dim + cfg.v_head_dim)), dt,
+                            device)
+        self.wo = _param((h * cfg.v_head_dim, d), dt, device)
+
+    @torch.no_grad()
+    def init_weights(self, cfg, generator: torch.Generator) -> None:
+        """Projections N(0, 1/d_in), norms one."""
+        for w in (self.wq_a, self.wq_b, self.wkv_a, self.wkv_b, self.wo):
+            normal_(w, 1.0 / math.sqrt(w.shape[0]), generator)
+        self.q_norm.fill_(1.0)
+        self.kv_norm.fill_(1.0)
+
+
+def mla_block(p: MLA, x, cfg, positions, *, causal=True,
+              use_kernel: bool | None = None):
+    """Multi-head latent attention over ``x`` (B, S, d), in training's
+    form (the latent expanded to every head's k and v):
+
+    c_q = RMSNorm(x W_qa); [q_nope | q_pe] = c_q W_qb per head, q_pe
+    roped; a = x W_kva; c_kv = RMSNorm(a[:kv_rank]), k_pe = rope(a[kv_rank:])
+    shared by the heads; [k_nope | v] = c_kv W_kvb per head; q = [q_nope |
+    q_pe], k = [k_nope | k_pe] (qk_nope_dim + qk_rope_dim each), v of
+    v_head_dim; softmax at that width^-1/2 through the dispatcher (the
+    flash kernel at (192, 128) on the card); out = merge(o) W_o. Counts a
+    host ``mla.calls``."""
+    tracing.add("mla.calls", 1)
+    b, s, _ = x.shape
+    h, nope, rope_d = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = (rms_norm(x @ p.wq_a, p.q_norm) @ p.wq_b).view(b, s, h, -1)
+    a = x @ p.wkv_a
+    kv = (rms_norm(a[..., :cfg.kv_rank], p.kv_norm) @ p.wkv_b).view(
+        b, s, h, -1)
+    q_pe = apply_rope(q[..., nope:].transpose(1, 2), positions,
+                      cfg.rope_theta)
+    k_pe = apply_rope(a[:, :, None, cfg.kv_rank:].transpose(1, 2),
+                      positions, cfg.rope_theta)
+    q = torch.cat([q[..., :nope].transpose(1, 2), q_pe], dim=-1)
+    k = torch.cat([kv[..., :nope].transpose(1, 2),
+                   k_pe.expand(b, h, s, rope_d)], dim=-1)
+    v = kv[..., nope:].transpose(1, 2)
+    o = _attention(q, k, v, causal=causal, window=cfg.sliding_window,
+                   use_kernel=use_kernel)
+    return _merge_heads(o) @ p.wo
+
+
 def _kv_decode_spec(cfg):
     """Decode-time KV-cache spec: heads over 'model' when they divide, else
     *sequence*-sharded over 'model' (flash-decoding layout)."""
@@ -294,27 +364,35 @@ def mlp_apply(p: MLP, x, cfg):
 
 class MoE(nn.Module):
     """The experts of one MoE block (``moe_init``): an f32 router
-    ``(d, E)``, stacked swiglu experts ``w_gate``/``w_up`` ``(E, d, f)``
-    and ``w_down`` ``(E, f, d)``, and the optional shared expert, an
-    :class:`MLP` of width ``f * n_shared``."""
+    ``(d, E)`` over all ``E = n_experts``, stacked swiglu experts
+    ``w_gate``/``w_up`` ``(E_h, d, f)`` and ``w_down`` ``(E_h, f, d)`` of
+    the ``E_h = moe.held`` experts this card holds, the optional shared
+    expert, an :class:`MLP` of width ``f * n_shared``, and under sigmoid
+    routing the f32 per-expert selection bias ``select_bias`` ``(E,)``,
+    which moves the choice and not the gates (so its gradient is 0)."""
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
         m, dt = cfg.moe, cfg.param_dtype
-        e, d, f = m.n_experts, cfg.d_model, m.d_ff
-        self.router = _param((d, e), torch.float32, device)
+        e, d, f = m.held, cfg.d_model, m.d_ff
+        self.router = _param((d, m.n_experts), torch.float32, device)
         self.w_gate = _param((e, d, f), dt, device)
         self.w_up = _param((e, d, f), dt, device)
         self.w_down = _param((e, f, d), dt, device)
         if m.n_shared:
             self.shared = MLP(cfg, d_ff=m.d_ff * m.n_shared, device=device)
+        if m.score_func == "sigmoid":
+            self.select_bias = _param((m.n_experts,), torch.float32, device)
 
     @torch.no_grad()
     def init_weights(self, cfg, generator: torch.Generator) -> None:
         """The reference's distributions: router N(0, 0.02²), experts
         N(0, 1/d_in), drawn one expert at a time so that the f32
-        temporaries stay one matrix on the weights' device."""
+        temporaries stay one matrix on the weights' device; a selection
+        bias N(0, 0.01²)."""
         normal_(self.router, 0.02, generator)
+        if hasattr(self, "select_bias"):
+            normal_(self.select_bias, 0.01, generator)
         for w in (self.w_gate, self.w_up, self.w_down):
             for i in range(w.shape[0]):
                 normal_(w[i], 1.0 / math.sqrt(w.shape[1]), generator)
@@ -323,13 +401,24 @@ class MoE(nn.Module):
 
 
 def moe_router(p: MoE, xt, cfg):
-    """Softmax of the f32 router logits over the ``(N, d)`` tokens
-    ``xt``, and the top ``k`` experts per token: ``(gates, idx)``, each
-    ``(N, k)``, the gates renormalised over the ``k``."""
+    """The f32 router's choice for the ``(N, d)`` tokens ``xt``: ``(gates,
+    idx)``, each ``(N, k)``, the top ``k`` experts per token (of all
+    ``n_experts``) and their gates renormalised over the ``k``, then
+    times ``route_scale``. Softmax routing chooses by the softmax of the
+    logits and gates by it; sigmoid routing scores ``s = σ(logits)``,
+    chooses by the top ``k`` of ``s + select_bias`` and gates by ``s``."""
+    m = cfg.moe
     logits = xt.float() @ p.router  # (N, E)
-    gates, idx = torch.topk(torch.softmax(logits, dim=-1), cfg.moe.top_k,
-                            dim=-1)
+    if m.score_func == "sigmoid":
+        scores = torch.sigmoid(logits)
+        _, idx = torch.topk(scores + p.select_bias, m.top_k, dim=-1)
+        gates = scores.gather(-1, idx)
+    else:
+        gates, idx = torch.topk(torch.softmax(logits, dim=-1), m.top_k,
+                                dim=-1)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    if m.route_scale != 1.0:
+        gates = gates * m.route_scale
     return gates, idx
 
 
@@ -340,17 +429,23 @@ def moe_route(p: MoE, xt, cfg, nblk: int = 1):
 
     :func:`moe_router`'s gates and experts; the ``N·k`` assignments
     flattened token-major; ``pos`` is each assignment's place in its
-    expert within its block, a running one-hot count, and ``keep`` is
+    expert within its block, a running count (int32), and ``keep`` is
     ``pos < cap`` with ``cap = int(max(k, cf·n_loc·k/E))`` priced from
-    the block's ``n_loc = N / nblk`` tokens."""
+    the block's ``n_loc = N / nblk`` tokens. Of a held slice (``n_held``)
+    only the held experts' assignments are counted and kept; one to an
+    absent expert has ``pos`` -1, is not kept and takes no capacity."""
     m = cfg.moe
     n = xt.shape[0]
     gates, idx = moe_router(p, xt, cfg)
     cap = int(max(m.top_k, m.capacity_factor * (n // nblk) * m.top_k
                   / m.n_experts))
-    onehot = F.one_hot(idx.reshape(nblk, -1), m.n_experts)  # int64
-    pos = ((torch.cumsum(onehot, dim=1) * onehot).sum(-1) - 1).reshape(-1)
-    return gates, idx, pos, pos < cap, cap
+    # (E_h, nblk, n_loc·k): each held expert's running count of its
+    # assignments, along the contiguous last dim
+    mine = (idx.reshape(nblk, -1) - m.held_start == torch.arange(
+        m.held, device=idx.device)[:, None, None])
+    pos = ((torch.cumsum(mine, dim=-1, dtype=torch.int32) * mine).sum(0)
+           - 1).reshape(-1)
+    return gates, idx, pos, (pos >= 0) & (pos < cap), cap
 
 
 def _a2a_applies(n: int, cfg) -> bool:
@@ -359,24 +454,27 @@ def _a2a_applies(n: int, cfg) -> bool:
     and the tokens split over dp and ep."""
     dp, ep = hint("dp_size", 1) or 1, hint("ep_size", 1) or 1
     return (hint("a2a") is not None and bool(hint("ep"))
+            and cfg.moe.held == cfg.moe.n_experts
             and cfg.moe.n_experts % ep == 0 and n % max(dp * ep, 1) == 0)
 
 
 def moe_apply(p: MoE, x, cfg):
     """Token-choice top-k MoE with capacity over the ``B·S`` tokens of
-    ``x``: the reference's two-stage block-local dispatch.
+    ``x``: the reference's two-stage block-local dispatch, over the
+    ``E_h = moe.held`` experts this card holds (every expert but under a
+    held slice, ``n_held``).
 
     The tokens are split into ``nblk = hint("dp_size", 1)`` contiguous
     blocks (one when ``nblk`` does not divide them), each with its own
-    capacity (:func:`moe_route`). Each kept assignment is scattered into
-    its expert's ``(nblk, cap, d)`` buffer, the experts run as batched
-    products over the ``(E, nblk·cap, d)`` buffer, and each token sums
-    its kept experts' outputs times their gates in ``x.dtype``; a dropped
-    assignment contributes 0. Nothing here waits for the card: a dropped
-    assignment is written to a spare row past the buffer, which the
-    experts never read. Under the reference's ``a2a`` hints the experts
-    run in :func:`~repro_torch.parallel.moe_ep.moe_ep_apply` on the
-    hinted mesh instead."""
+    capacity (:func:`moe_route`). Each kept assignment names a row of its
+    expert's ``(nblk, cap, d)`` buffer; a row takes its token's ``x`` by a
+    gather, the experts run as batched products over the ``(E_h,
+    nblk·cap, d)`` buffer, and each row's output times its gate is summed
+    into its token's in ``x.dtype``; a dropped assignment, or one to an
+    absent expert, contributes 0. Nothing here waits for the card. Under
+    the reference's ``a2a`` hints the experts run in
+    :func:`~repro_torch.parallel.moe_ep.moe_ep_apply` on the hinted mesh
+    instead."""
     m = cfg.moe
     b, s, d = x.shape
     n, k, e = b * s, m.top_k, m.n_experts
@@ -388,30 +486,50 @@ def moe_apply(p: MoE, x, cfg):
             mesh=hint("a2a"), dp_axes=hint("dp"), ep_axis=hint("ep"),
             fsdp_axes=hint("fsdp"), capacity_factor=m.capacity_factor,
             top_k=k, n_experts=e).to(x.device)
-        if m.n_shared:
-            out = out + mlp_apply(p.shared, xt, cfg)
-        return out.reshape(b, s, d)
-    nblk = hint("dp_size", 1) or 1
-    if n % nblk:
-        nblk = 1
-    gates, idx, pos, keep, cap = moe_route(p, xt, cfg, nblk)
-    # slot of each assignment in the (E, nblk, cap) buffer
-    slot = idx.reshape(-1) * nblk
-    if nblk > 1:
-        slot = slot + torch.arange(n * k, device=x.device) // (n // nblk * k)
-    slot = slot * cap + pos.clamp(max=cap - 1)  # (N·k,)
-    rows = e * nblk * cap
-    buf = torch.zeros((rows + 1, d), dtype=x.dtype, device=x.device)
-    buf.index_copy_(0, torch.where(keep, slot, rows),
-                    xt.repeat_interleave(k, dim=0))
-    buf = buf[:-1].view(e, nblk * cap, d)
-    h = F.silu(torch.bmm(buf, p.w_gate)) * torch.bmm(buf, p.w_up)
-    y = torch.bmm(h, p.w_down).view(rows, d)
-    gathered = torch.where(keep[:, None], y[slot], 0)
-    out = (gathered.view(n, k, d) * gates[..., None].to(x.dtype)).sum(1)
+    else:
+        nblk = hint("dp_size", 1) or 1
+        if n % nblk:
+            nblk = 1
+        gates, idx, pos, keep, cap = moe_route(p, xt, cfg, nblk)
+        out = _dispatch(p, xt, gates, idx - m.held_start, pos, keep, cap,
+                        nblk, cfg)
     if m.n_shared:
         out = out + mlp_apply(p.shared, xt, cfg)
     return out.reshape(b, s, d)
+
+
+def _dispatch(p: MoE, xt, gates, local, pos, keep, cap: int, nblk: int,
+              cfg):
+    """The held experts' part of the MoE over the ``(N, d)`` tokens
+    ``xt``: ``local`` is each assignment's expert less ``held_start``,
+    ``pos`` and ``keep`` :func:`moe_route`'s. Each kept assignment names
+    its ``(E_h, nblk, cap)`` buffer row; a row takes its token's ``x`` and
+    its gate, the experts run as batched products, and each row's output
+    times its gate is summed into its token's in ``xt.dtype`` (in the
+    order of the rows: by expert). An unfilled row ``r`` reads and writes
+    a zero row ``N + r`` of its own (gate 0): a row index repeats only
+    where a token holds several of the experts, so the summations (the
+    output's and, in the backward, the gather's) take the same time
+    whatever the routing. The spare row past the buffer takes the
+    assignments that are not kept and is dropped."""
+    n, d = xt.shape
+    e, k = cfg.moe.held, gates.shape[1]
+    slot = local.reshape(-1) * nblk
+    if nblk > 1:
+        slot = slot + torch.arange(n * k, device=xt.device) // (n // nblk * k)
+    rows = e * nblk * cap
+    dest = torch.where(keep, slot * cap + pos.clamp(0, cap - 1), rows)
+    tok = torch.arange(n * k, device=xt.device) // k
+    row_tok = torch.arange(n, n + rows + 1, device=xt.device).index_copy_(
+        0, dest, tok)[:-1]
+    row_gate = torch.zeros(rows + 1, dtype=gates.dtype,
+                           device=xt.device).index_copy(
+        0, dest, gates.reshape(-1))[:-1]
+    buf = torch.cat([xt, xt.new_zeros(rows, d)])[row_tok].view(e, -1, d)
+    h = F.silu(torch.bmm(buf, p.w_gate)) * torch.bmm(buf, p.w_up)
+    y = torch.bmm(h, p.w_down).view(rows, d) * row_gate[:, None].to(xt.dtype)
+    out = xt.new_zeros(n + rows, d).index_put((row_tok,), y, accumulate=True)
+    return out[:n]
 
 
 # --------------------------------------------------------------------------

@@ -54,6 +54,7 @@ from repro_torch.parallel.hints import constrain, hint
 from repro_torch.parallel.sharding import P
 
 from .layers import (
+    MLA,
     MLP,
     Attention,
     MoE,
@@ -62,6 +63,7 @@ from .layers import (
     attention_block,
     cross_entropy,
     decode_attention,
+    mla_block,
     mlp_apply,
     moe_apply,
     normal_,
@@ -137,13 +139,15 @@ def _remat(layer, policy: str, *args, **kwargs):
 
 class DecoderLayer(nn.Module):
     """Pre-norm attention + MLP block, or + MoE block with ``moe=True``
-    (``_init_layer`` / ``_layer_apply``)."""
+    (``_init_layer`` / ``_layer_apply``); the attention is multi-head
+    latent attention (:class:`~repro_torch.models.layers.MLA`) where the
+    config says so (``cfg.mla``)."""
 
     def __init__(self, cfg, *, moe: bool = False, device=None):
         super().__init__()
         self.ln1 = _param((cfg.d_model,), cfg.param_dtype, device)
         self.ln2 = _param((cfg.d_model,), cfg.param_dtype, device)
-        self.attn = Attention(cfg, device=device)
+        self.attn = (MLA if cfg.mla else Attention)(cfg, device=device)
         if moe:
             self.moe = MoE(cfg, device=device)
         else:
@@ -172,8 +176,9 @@ class DecoderLayer(nn.Module):
     def forward(self, x, cfg, positions, *, causal: bool = True,
                 use_kernel: bool | None = None):
         h = constrain(rms_norm(x, self.ln1), _sp_spec)
-        attn_out = attention_block(self.attn, h, cfg, positions,
-                                   causal=causal, use_kernel=use_kernel)
+        block = mla_block if cfg.mla else attention_block
+        attn_out = block(self.attn, h, cfg, positions, causal=causal,
+                         use_kernel=use_kernel)
         attn_out = checkpoint_name(attn_out, "attn_out")
         x = constrain(x + attn_out, _sp_spec)
         h = constrain(rms_norm(x, self.ln2), _sp_spec)
@@ -310,12 +315,24 @@ def forward(model: Transformer, tokens, embeds=None, positions=None, *,
     return logits(model, tokens, embeds, positions, use_kernel=use_kernel)
 
 
+def _no_mla_decode(cfg) -> None:
+    """Multi-head latent attention trains and prefills here; its decode
+    (an absorbed latent cache) is not ported."""
+    if cfg.mla:
+        raise NotImplementedError(
+            f"{cfg.name}: multi-head latent attention has no KV cache or "
+            "decode path in the port (training and prefill only; "
+            "docs/port.md §mla)")
+
+
 def init_cache(cfg, batch: int, seq: int, device="cuda",
                enc_len: int | None = None) -> dict:
     """Zeroed ``(L, B, Hkv, S, D)`` K and V caches in the model dtype; an
     encoder-decoder config adds the cross-attention ``xk``/``xv`` over
     ``enc_len`` frames (default ``4 * seq``), which
-    :func:`prime_cross_cache` fills once."""
+    :func:`prime_cross_cache` fills once. Raises for multi-head latent
+    attention."""
+    _no_mla_decode(cfg)
     dev = resolve_device(device)
 
     def kv(s):
@@ -340,6 +357,7 @@ def decode_step(model: Transformer, token, cache: dict, pos: int,
     dispatches those rows alone (its capacity counts ``len(rows)``
     tokens), and only their logits are defined (docs/port.md §moe)."""
     cfg = model.cfg
+    _no_mla_decode(cfg)
     x = model.embed[token]
     if rows is not None:  # one host-to-device copy per step, not per layer
         rows = torch.as_tensor(rows, dtype=torch.int64, device=x.device)

@@ -10,7 +10,8 @@ reference's, so a checkpoint of ``{"params", "opt"}`` cross-reads
 the moments in place and returns them. A leaf may be an
 ``interop.Stacked`` (one stacked leaf of the reference's tree, held as
 per-layer tensors): its moments are one ``(L, ...)`` tensor each, and its
-decay follows the stacked ``ndim``, as in the reference.
+decay follows the stacked ``ndim``, as in the reference; the selection
+bias of sigmoid routing never decays (:data:`NO_DECAY`).
 
 On CUDA parameters the norm and the update run as the fused pass of
 ``kernels/adamw`` (``csrc/adamw.cu``): each state word read and written
@@ -112,15 +113,29 @@ def _names(tree, prefix: str = ""):
     return None if tree is None else prefix[:-1]
 
 
+#: Leaves (by the last part of their dotted name) that weight decay never
+#: moves: the router's selection bias of sigmoid routing, which chooses
+#: the experts and gets no gradient (``models/layers.py`` ``moe_router``),
+#: so that it keeps its drawn value.
+NO_DECAY = ("select_bias",)
+
+
+def decays(name: str, ndim: int) -> bool:
+    """Whether the leaf ``name`` of ``ndim`` dimensions (a stacked leaf's
+    ``ndim``) takes the decoupled weight decay: matrices only, and none
+    of :data:`NO_DECAY`."""
+    return ndim >= 2 and name.rsplit(".", 1)[-1] not in NO_DECAY
+
+
 def _parts(params, grads, state) -> list[AdamWPart]:
     """The update's tensors in the tree's leaf order, a ``Stacked`` leaf
     one part a layer (named ``leaf[i]``); a leaf decays by its own
-    ``ndim``."""
+    ``ndim`` (:func:`decays`)."""
     flat = zip(*(tree_flatten(t)[0] for t in
                  (_names(params), params, grads, state["m"], state["v"])))
     out = []
     for name, p, g, m, v in flat:
-        decay = p.ndim >= 2  # decoupled weight decay on matrices only
+        decay = decays(name, p.ndim)
         gs = leaf_parts(g)
         for i, part in enumerate(leaf_parts(p)):
             if isinstance(p, Stacked):

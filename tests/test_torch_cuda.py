@@ -862,8 +862,9 @@ def test_zamba2_prefill_and_engine_on_the_card(card, dtype):
 
 def test_flash_launch_faults_raise(card):
     """No fallback on the bf16 path: a head dim the library does not
-    instantiate and a TMA descriptor the driver refuses (a base off
-    16-byte alignment) raise from the C entry point."""
+    instantiate, a pair of head dims it does not (v at 192 beside q and k
+    at 192), and a TMA descriptor that cuTensorMapEncodeTiled refuses (a
+    base off 16-byte alignment) raise from the C entry point."""
     from repro_torch.kernels.build import (
         FlashStrides,
         check,
@@ -875,16 +876,18 @@ def test_flash_launch_faults_raise(card):
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream().cuda_stream
 
-    def call(ptr, d):
+    def call(ptr, d, dv=None):
         st = FlashStrides()
         for i in range(4):
             st.s[3 * i:3 * i + 3] = [256 * d, 256 * d, d]
         return lib.flash_attention_fwd(ptr, ptr, ptr, out.data_ptr(), 1, 1,
-                                       1, 1, 128, 128, d, st, 0.1, 1, 0,
-                                       None, 0, 0, None, stream)
+                                       1, 1, 128, 128, d, dv or d, st, 0.1,
+                                       1, 0, None, 0, 0, None, stream)
 
     with pytest.raises(RuntimeError, match="no instantiation"):
         check(call(x.data_ptr(), 96), "flash_attention")
+    with pytest.raises(RuntimeError, match="no instantiation"):
+        check(call(x.data_ptr(), 192), "flash_attention")
     with pytest.raises(RuntimeError, match="TMA descriptor"):
         check(call(x.data_ptr() + 2, 128), "flash_attention")
 
@@ -1794,3 +1797,186 @@ def test_adamw_wrapper_raises_on_what_it_does_not_take(card):
         adamw_step([part, cpu._replace(name="y")], *scalars, **kw)
     with pytest.raises(TypeError, match="lr must be"):
         adamw_step([part], scalars[0].double(), *scalars[1:], **kw)
+
+
+# ---- multi-head latent attention: the flash kernels at (192, 128) ------
+# (docs/port.md §mla)
+
+
+def _mla_inputs(seed, b=2, h=64, s=8192):
+    """The Kimi K2 cell's launch shape (B 2, 64 heads, S 8192), bf16, laid
+    out as the model's MLA block lays them out: q and k (B, S, H, 192)
+    and v the second half of the (B, S, H, 256) up-projection, each a
+    (B, H, S, ·) view; and an output gradient."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def mk(width):
+        return torch.randn((b, s, h, width), generator=g,
+                           device="cuda").bfloat16()
+
+    q, k, kv, do = mk(192), mk(192), mk(256), mk(128)
+    return (q.transpose(1, 2), k.transpose(1, 2),
+            kv[..., 128:].transpose(1, 2), do.transpose(1, 2))
+
+
+def test_mla_flash_forward_and_backward_equal_plain_at_the_cell_shape(card):
+    """The Hopper forward and backward at D 192 for q and k and D 128 for
+    v, at the cell's shape: the output, its log-sum-exp and dq, dk, dv
+    against the plain versions (f32) on heads 0 and 1 of every batch row
+    (the plain backward holds a (B, H, S, S) f32 matrix). Each launch
+    counts under (192, 128). The output is within 2e-2 of the f32 plain
+    (bf16 rounding of P and O), the gradients within 2e-3 in relative L2
+    (measured ~3e-4)."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_plain,
+    )
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref
+
+    q, k, v, do = _mla_inputs(5)
+    n = flash_attention.launches_at[192, 128]
+    nb = flash_attention_bwd.launches_at[192, 128]
+    o, lse, o32 = flash_attention(q, k, v, for_backward=True)
+    assert o.shape == (2, 64, 8192, 128) and o32.shape == o.shape
+    grads = flash_attention_bwd(q, k, v, o32, lse, do)
+    assert flash_attention.launches_at[192, 128] == n + 1
+    assert flash_attention_bwd.launches_at[192, 128] == nb + 1
+    hs = slice(0, 2)
+    want = flash_attention_plain(q[:, hs].float(), k[:, hs].float(),
+                                 v[:, hs].float())
+    assert (o[:, hs].float() - want).abs().max().item() < 2e-2
+    torch.testing.assert_close(lse[:, hs], attention_lse_ref(q[:, hs],
+                                                             k[:, hs]),
+                               rtol=1e-5, atol=1e-5)
+    plain = flash_attention_bwd_plain(q[:, hs], k[:, hs], v[:, hs],
+                                      o32[:, hs], lse[:, hs], do[:, hs])
+    for got, w, x in zip(grads, plain, (q, k, v)):
+        assert got.shape == x.shape
+        got, w = got[:, hs].float(), w.float()
+        assert ((got - w).norm() / w.norm()).item() < 2e-3
+
+
+def test_mla_flash_launches_are_deterministic(card):
+    """Two launches of the (192, 128) forward and of its backward on the
+    same inputs give the same bits."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+
+    q, k, v, do = _mla_inputs(6, s=2048)
+    first = flash_attention(q, k, v, for_backward=True)
+    second = flash_attention(q, k, v, for_backward=True)
+    for a, w in zip(first, second):
+        assert torch.equal(a, w)
+    _, lse, o32 = first
+    g1 = flash_attention_bwd(q, k, v, o32, lse, do)
+    g2 = flash_attention_bwd(q, k, v, o32, lse, do)
+    for a, w in zip(g1, g2):
+        assert torch.equal(a, w)
+
+
+def _det_input(shape, salt):
+    """A bf16 tensor on the card from a closed form of its flat index (no
+    random generator): the same bits on any machine."""
+    i = torch.arange(torch.Size(shape).numel(), dtype=torch.float64)
+    x = torch.sin(i * 0.7318 + salt * 1.37) * 1.5 + torch.cos(i * 0.0131 +
+                                                            salt)
+    return x.float().reshape(shape).bfloat16().cuda()
+
+
+#: SHA-256 (first 16 hex digits) of the outputs of the flash kernels at
+#: D 64, 112 and 128 on :func:`_det_input`'s inputs, as the kernels gave
+#: them when v's head dim was always k's (sm_90a, CUDA 12.8): templating
+#: the kernels on (D, Dv) left them bitwise as they were.
+FLASH_DIGESTS = {
+    # (B, Hq, Hkv, Sq, Sk, D, causal, window): out, lse, o32, dq, dk, dv
+    (2, 32, 8, 2048, 2048, 128, True, 4096): (
+        "e5ba1daef5831928", "3845dbd9570637ef", "0d491818dea76342",
+        "3340c7edbeb6f40e", "5d2af7360009b4ca", "678787aeb1c99c75"),
+    (2, 4, 4, 300, 300, 64, False, 0): (
+        "5727d18e074e5283", "60d4450fcdc52f91", "21161d8bef3a14fb",
+        "4162a7af9325415a", "52245b1e6ec6beab", "06725a6d8f0358d5"),
+    (2, 4, 4, 256, 256, 112, True, 0): (
+        "0487678e7cedec06", "d8e6d9c9b0cb6e85", "9fa0f52964ae7ad8",
+        "14d94755519d340d", "b53f6a6b25d767f8", "8494c044c605fb15"),
+    (1, 8, 2, 512, 512, 128, True, 0): (
+        "8ac8269f6aa33b0c", "235e5028cbf0d8f0", "2825256dd1d07575",
+        "41e0f85b7ff6d77d", "f7917b3ed4b3b99a", "c401803a7bef75bd"),
+}
+
+
+@pytest.mark.parametrize("shape", list(FLASH_DIGESTS))
+def test_flash_head_dims_64_112_128_are_bitwise_as_before(card, shape):
+    """The forward (with and without what the backward needs) and the
+    backward at the models' head dims give the bits they gave before the
+    kernels took a v of its own width (:data:`FLASH_DIGESTS`)."""
+    import hashlib
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+
+    b, hq, hkv, sq, sk, d, causal, window = shape
+    q, k, v, do = (_det_input(s, salt) for salt, s in enumerate(
+        ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d), (b, hq, sq, d)),
+        start=1))
+    kw = dict(causal=causal, window=window)
+    out = flash_attention(q, k, v, **kw, block_q=sq, block_k=sk)
+    o, lse, o32 = flash_attention(q, k, v, **kw, block_q=sq, block_k=sk,
+                                  for_backward=True)
+    assert torch.equal(out, o)
+    grads = flash_attention_bwd(q, k, v, o32, lse, do, **kw)
+
+    def digest(t):
+        t = t.contiguous().cpu()
+        t = t.view(torch.int16) if t.dtype == torch.bfloat16 else t.view(
+            torch.uint8)
+        return hashlib.sha256(t.numpy().tobytes()).hexdigest()[:16]
+
+    assert tuple(digest(t) for t in (out, lse, o32, *grads)) == \
+        FLASH_DIGESTS[shape]
+
+
+def test_mla_train_step_counts_its_flash_launches(card):
+    """A narrow Kimi K2 (d_model 512, 4 heads, every head and latent at its
+    published width, the dense layer and 4 expert layers, 8 of 64
+    experts held) trains a step on the card through ``make_train_step``:
+    each layer's attention is one (192, 128) forward launch in the forward
+    and one in the remat recompute, and one backward call: 10 and 5 at 5
+    layers; the loss is finite, and each MLA block counts ``mla.calls``."""
+    import dataclasses
+
+    from repro_torch import tracing
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.interop import param_tree
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+    from repro_torch.models import registry
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+
+    base = get_arch("kimi-k2-instruct")
+    cfg = dataclasses.replace(
+        base, n_layers=5, d_model=512, n_heads=4, n_kv_heads=4, d_ff=1024,
+        vocab=1024, moe=dataclasses.replace(base.moe, n_experts=64, d_ff=256,
+                                            n_held=8, held_start=8))
+    bundle = registry.build(cfg, device="cuda")
+    model = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = registry.make_batch(cfg, ShapeConfig("t", 1024, 2, "train"),
+                                device="cuda")
+    opt_cfg = AdamWConfig()
+    state = init_state(opt_cfg, param_tree(model))
+    step = bundle.make_train_step(opt_cfg)
+    n = flash_attention.launches_at[192, 128]
+    nb = flash_attention_bwd.launches_at[192, 128]
+    calls = tracing.snapshot().get("mla.calls", 0)
+    model, state, metrics = step(model, state, batch)
+    assert torch.isfinite(metrics["loss"])
+    assert flash_attention.launches_at[192, 128] == n + 10
+    assert flash_attention_bwd.launches_at[192, 128] == nb + 5
+    assert tracing.snapshot()["mla.calls"] == calls + 10

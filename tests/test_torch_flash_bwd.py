@@ -211,7 +211,7 @@ def test_function_off_the_hopper_path_keeps_the_recompute(dtype):
     shape = SHAPES["gqa_window"]
     *_, causal, window = shape
     q, k, v, do = _inputs(shape, dtype, seed=3)
-    assert not takes_hopper_path(q)
+    assert not takes_hopper_path(q, v)
     xs = [x.requires_grad_(True) for x in (q, k, v)]
     n = flash_attention_bwd.launches
     out = attention(*xs, causal=causal, window=window, use_kernel=True)

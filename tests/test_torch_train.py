@@ -224,6 +224,19 @@ def test_parts_name_every_layer_and_decay_by_the_leaf():
     assert parts[2].m.data_ptr() == state["m"]["layers"]["s"][1].data_ptr()
 
 
+@pytest.mark.parametrize("name, ndim, want", [
+    ("embed", 2, True), ("ln_f", 1, False), ("moe_layers.ln1", 2, True),
+    ("moe_layers.moe.router", 3, True),
+    ("moe_layers.moe.select_bias", 2, False), ("select_bias", 1, False),
+])
+def test_weight_decay_takes_matrices_but_not_the_selection_bias(name, ndim,
+                                                                 want):
+    """Decoupled weight decay on leaves of two or more dimensions (a
+    stacked norm is one), never on the selection bias of sigmoid routing,
+    which nothing trains."""
+    assert topt.decays(name, ndim) is want
+
+
 def _part(name, n, p=torch.float32, g=torch.float32, s=torch.float32,
           decay=True, offset=0):
     def x(dt):
