@@ -221,7 +221,8 @@ package. Phases, each printed as it ends; any failure exits non-zero:
    bandwidth probe against 3.35 TB/s) and the exhaustive frontier search
    (k 3, calibrated) of the uLBM PE at 4096² and diffusion at 8192²,
    one line per executed plan, the best plan run again and held to
-   ``StreamKernel.reference``; (c) a seeded TPE study (budget 6) at
+   ``StreamKernel.reference``, then the whole lattice measured and the
+   model's pick printed beside its best, with their ratio; (c) a seeded TPE study (budget 6) at
    4096² and its resume, which measures nothing and keeps the trial
    sequence; (d) the FMA-chain kernel against its plain version, bitwise;
 8. stream programs on the card (docs/port.md §program), stream launch
@@ -3764,6 +3765,15 @@ def dse_loop(kind: str, hbm: float, fp32: float) -> None:
                   f"{fb.m}) {fb.measured_gflops:.1f} GF/s, "
                   f"{fb.measured_mlups:.1f} MLUPS; |rel_error| max "
                   f"{max(abs(e.rel_error) for e in full.executed):.3f}")
+            pick = sweep.best(key="sustained_gflops")
+            at = (pick.detail["block_rows"], pick.m)
+            mine = [e for e in full.executed if (e.block_h, e.m) == at]
+            if not mine:
+                fail(f"{label}: the model's pick {at} was not measured")
+            phase(f"  {label} model's pick (block_h {at[0]}, m {at[1]}) "
+                  f"{mine[0].measured_mlups:.1f} MLUPS beside the measured "
+                  f"best's {fb.measured_mlups:.1f}: "
+                  f"{mine[0].measured_mlups / fb.measured_mlups:.3f} of it")
             del out, state
             torch.cuda.empty_cache()
 

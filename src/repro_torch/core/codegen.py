@@ -54,10 +54,16 @@ from typing import Mapping, Sequence
 
 import torch
 
-from ..tracing import timed
+from ..tracing import add, timed
 from .compiler import CompiledCore, eval_expr, f32
 from .dfg import Bin, Call, Expr, Neg, Num, SPDError, Var
-from .legalize import launch_tile, resolve_run_plan, tile_smem_bytes
+from .legalize import (
+    launch_cell_steps,
+    launch_tile,
+    resolve_run_plan,
+    stripe_owned,
+    tile_smem_bytes,
+)
 from .library import LibraryModule, f32_literal
 
 #: 1-D stream-state modules with no 2-D stripe lowering.
@@ -429,10 +435,9 @@ class StripeProgram:
     def owned(self, block_h: int, block_w: int, m: int) -> bool:
         """Whether a tile's state lives in the owners' registers: a
         :attr:`reg_state` core on a stripe of at most :attr:`owner_cells`
-        cells (the rule the kernel applies, ``spd_owned``)."""
-        rows = block_h + 2 * m * self.halo
-        cols = block_w + 2 * m * self.halo_x
-        return self.reg_state and rows * cols <= self.owner_cells
+        cells (:func:`~repro_torch.core.legalize.stripe_owned`)."""
+        return stripe_owned(block_h, block_w, m, halo=self.halo,
+                            halo_x=self.halo_x, owner_cells=self.owner_cells)
 
     @property
     def guard_rows(self) -> int:
@@ -648,22 +653,14 @@ class StripeProgram:
         return self._tiles[key]
 
     def _tile(self, width, block_h, m, block_w, double_buffer, streamed):
-        bw, db = launch_tile(
+        return launch_tile(
             width, block_h, m, halo=self.halo, halo_x=self.halo_x,
             planes=lambda db: self.launch_planes(streamed=streamed,
                                                  double_buffer=db),
             block_w=block_w, double_buffer=double_buffer and streamed,
             blocks_per_sm=self.blocks_per_sm, guard_rows=self.guard_rows,
+            owner_cells=self.owner_cells,
         )
-        if self.reg_state and block_w is None:
-            w = bw
-            while w > 1 and not self.owned(block_h, w, m):
-                w //= 2
-            if self.owned(block_h, w, m):
-                bw = w
-        if self.reg_state and not self.owned(block_h, bw, m):
-            db = False
-        return bw, db
 
     def library(self):
         """The compiled CUDA library of this program (built on first use)."""
@@ -964,6 +961,21 @@ def scatter_centers(tiles: torch.Tensor, h: int, w: int, block_h: int,
 # --------------------------------------------------------------------------
 
 
+def count_plan(program, rows: int, width: int, cols: int, block_h: int,
+               block_w: int, m: int, steps: int, *, tiles: int = 1) -> None:
+    """Add a run's cell-steps at its launch plan to the program counters
+    (``repro_torch.tracing``): ``plan.useful_cell_steps``, the updates it
+    keeps (``tiles`` grids of ``rows × cols`` cells over ``steps``), and
+    ``plan.executed_cell_steps``, what its ``steps // m`` launches of
+    ``program`` over ``width`` columns step, halo rows and guard columns
+    included (:func:`~repro_torch.core.legalize.launch_cell_steps`). Their
+    ratio is the plan's recompute. Once a run, not once a launch."""
+    add("plan.executed_cell_steps", steps // m * launch_cell_steps(
+        rows, width, block_h, block_w, m, halo=program.halo,
+        halo_x=program.halo_x, b=tiles))
+    add("plan.useful_cell_steps", tiles * rows * cols * steps)
+
+
 class StreamKernel:
     """A compiled SPD core lowered to a temporal-blocking Hopper kernel.
 
@@ -1101,8 +1113,10 @@ class StreamKernel:
         block_h, m, nsteps, double_buffer = resolve_run_plan(
             h, point, steps, halo=self.halo, dx=1,
         )
-        _, double_buffer = self.tile(w, block_h, m,
-                                     double_buffer=double_buffer)
+        block_w, double_buffer = self.tile(w, block_h, m,
+                                           double_buffer=double_buffer)
+        count_plan(self.program, h, w, w, block_h, block_w, m, nsteps,
+                   tiles=state.shape[0] if state.dim() == 4 else 1)
         out = self.run_blocked(
             state, regs, steps=nsteps, m=m, block_h=block_h,
             double_buffer=double_buffer,

@@ -268,9 +268,10 @@ class CompiledCore:
 
     def stream_workload(self, elems: int, grid_w: int = 0):
         """``hardware_report.workload(...)`` with the Hopper tile of this
-        core's generated kernel (its resident planes and guard rows, for
-        the GPU model's ``smem`` rule, docs/port.md §dse); a core the
-        stream codegen cannot lower keeps the unknown-tile default."""
+        core's generated kernel (its resident planes, guard rows, blocks
+        per SM and register owners, for the GPU model's ``smem`` rule and
+        its launch tile, docs/port.md §dse); a core the stream codegen
+        cannot lower keeps the unknown-tile default."""
         from dataclasses import replace
 
         from .codegen import lower_stripe, stencil_summary
@@ -286,6 +287,10 @@ class CompiledCore:
             tile_planes=prog.launch_planes(streamed=True,
                                            double_buffer=False),
             tile_guard_rows=prog.guard_rows,
+            tile_planes_prefetch=prog.launch_planes(streamed=True,
+                                                    double_buffer=True),
+            tile_blocks_per_sm=prog.blocks_per_sm,
+            tile_owner_cells=prog.owner_cells,
         )
 
     def explorer(self, elems: int, grid_w: int = 0, **kw):

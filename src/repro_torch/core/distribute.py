@@ -52,7 +52,7 @@ import torch
 
 from repro_torch.interop import resolve_devices
 
-from .codegen import _check_state
+from .codegen import _check_state, count_plan
 from .legalize import mesh_shape, resolve_run_plan, shard_height, shard_width
 
 #: Name of the row device axis (the ring axis).
@@ -372,8 +372,11 @@ class ShardedStreamKernel:
             dx=self.dx, halo_x=self.halo_x,
         )
         width = shard_width(w, self.dx) + 2 * self._guard_x(m)
-        _, double_buffer = self.kernel.tile(width, block_h, m,
-                                            double_buffer=double_buffer)
+        block_w, double_buffer = self.kernel.tile(
+            width, block_h, m, double_buffer=double_buffer)
+        count_plan(self.kernel.program, shard_height(h, self.dy), width,
+                   shard_width(w, self.dx), block_h, block_w, m, nsteps,
+                   tiles=self.d)
         out = self.run_blocked(
             state, regs, steps=nsteps, m=m, block_h=block_h,
             double_buffer=double_buffer,

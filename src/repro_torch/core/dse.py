@@ -17,10 +17,13 @@ targets are modeled:
   round trip with an m-deep halo, see ``repro_torch.kernels.spd_stream``);
   spatial parallelism becomes parallel tiles and cards. The model keeps
   the reference's roofline equations and its VMEM feasibility check (the
-  legalizer keeps ``VMEM_BYTES`` for plan parity), and adds one rule of
-  the card: a point whose smallest column tile exceeds a thread block's
+  legalizer keeps ``VMEM_BYTES`` for plan parity), and adds the card's
+  own terms: a point whose smallest column tile exceeds a thread block's
   shared memory (:data:`~repro_torch.core.legalize.SMEM_BYTES`) is
-  infeasible (limit ``smem``).
+  infeasible (limit ``smem``); each point is priced at the column tile
+  its launch runs, whose guard columns recompute as the halo rows do, at
+  the executed rate the generated step reaches; and the host's enqueue of
+  each launch is a roof beside the card's (docs/port.md §dse).
 
 All numbers flow from a :class:`StreamWorkload`, which is produced directly
 from a compiled SPD core's :class:`~repro_torch.core.compiler.HardwareReport`.
@@ -49,6 +52,8 @@ from .legalize import (
     SMEM_BYTES,
     VMEM_BYTES,
     cluster_vmem_bytes,
+    launch_cell_steps,
+    launch_tile,
     parse_fusion,
     stripe_vmem_bytes,
     tile_smem_bytes,
@@ -94,9 +99,17 @@ class StreamWorkload:
     # launch (``StripeProgram.launch_planes``) and its guard rows
     # (``StripeProgram.guard_rows``), filled in by
     # ``CompiledCore.stream_workload``. 0 planes: not known, priced as the
-    # ping/pong state, ``2·words_in`` planes and no guard rows.
+    # ping/pong state, ``2·words_in`` planes and no guard rows. The rest
+    # of what ``StripeProgram.tile`` decides the launch's column tile by:
+    # the planes with the streamed launch's prefetch slot, the blocks it
+    # looks for room for on one SM, and the stripe cells a register-state
+    # core's threads own (0: the state lives in shared memory), so the GPU
+    # model prices the tile the launch runs (:meth:`launch_block_w`).
     tile_planes: int = 0
     tile_guard_rows: int = 0
+    tile_planes_prefetch: int = 0
+    tile_blocks_per_sm: int = 1
+    tile_owner_cells: int = 0
     # A program's Hopper tiles, one per stage span a cluster can cover:
     # ``((lo, hi), (halo, halo_x, planes, guard_rows))`` of the span's
     # fused wrapper kernel, filled in by ``StreamProgram.workload``. The
@@ -138,6 +151,27 @@ class StreamWorkload:
             halo_x=self.stencil_halo_x if halo_x is None else halo_x,
             planes=planes, guard_rows=self.tile_guard_rows,
         )
+
+    def launch_block_w(self, width: int, block_h: int, m: int) -> int:
+        """``block_w`` of the streamed launch of this workload's generated
+        kernel on a grid ``width`` columns wide, by the legalizer's own
+        :func:`~repro_torch.core.legalize.launch_tile` at the tile fields
+        (what ``StripeProgram.tile`` passes it); 0 where no tile fits or
+        the tile is not known (``tile_planes`` 0)."""
+        if not self.tile_planes:
+            return 0
+        planes = {True: self.tile_planes_prefetch or self.tile_planes,
+                  False: self.tile_planes}
+        try:
+            return launch_tile(
+                width, block_h, m, halo=self.halo,
+                halo_x=self.stencil_halo_x, planes=planes.__getitem__,
+                blocks_per_sm=self.tile_blocks_per_sm,
+                guard_rows=self.tile_guard_rows,
+                owner_cells=self.tile_owner_cells,
+            )[0]
+        except ValueError:
+            return 0
 
     def cluster_smem_bytes(self, block_h, m, fusion: str = ""):
         """Shared-memory bytes of the largest smallest-tile among a
@@ -492,10 +526,18 @@ class GPUTarget:
     # reference's assumed board powers it only ranks points.
     chip_idle_w: float = 100.0
     chip_peak_w: float = 700.0
-    # Dispatch latency per extra launch in an m-step block (0.0: every
-    # single-launch prediction is the roofline's, as in the reference).
-    launch_overhead_s: float = 0.0
+    # The host's enqueue of one stream launch (docs/port.md §dse gives
+    # the run that measured it): the host roof of every m-step block, and
+    # the reference's dispatch latency per extra launch of a pipelined
+    # program. 0.0: no host term, as in the reference.
+    launch_overhead_s: float = 47e-6
     smem_bytes: int = SMEM_BYTES
+    # State-plane cell-steps a second the generated stream kernel executes
+    # on one card, halo rows and guard columns of its launch tile included
+    # (docs/port.md §dse gives the run that measured it): the compute roof
+    # the step reaches, beside the FP32 peak. 0.0: compute priced as in
+    # the reference, the halo rows' recompute alone at the FP32 peak.
+    stream_plane_rate: float = 1.18e12
 
 
 class GPUModel:
@@ -509,6 +551,10 @@ class GPUModel:
     role and the halo (2m rows, recomputed) playing the prologue/epilogue
     role. A point is infeasible where the reference's VMEM budget, the
     mesh geometry or the block's shared memory (``smem``) refuses it.
+    With :attr:`GPUTarget.stream_plane_rate` set, the recompute, the
+    compute roof and the card's time are the launch tile's (docs/port.md
+    §dse); with :attr:`GPUTarget.launch_overhead_s` set, the host's
+    enqueue is a roof. Both 0 give the reference's equations.
     """
 
     def __init__(self, target: GPUTarget = GPUTarget()):
@@ -548,7 +594,8 @@ class GPUModel:
         reproduces the 1-D ring numbers bit-for-bit. Under ``dx > 1``
         the per-shard width ``grid_w / dx`` drives the VMEM stripe (plus
         ``2·m·halo_x`` guard columns), the useful fraction gains the
-        column trapezoid factor ``w_s / (w_s + 2·m·halo_x)``, and the
+        column trapezoid factor ``w_s / (w_s + 2·m·halo_x)`` (at the launch
+        tile: the tiles' guard columns over that width), and the
         collective term prices the two exchanges separately — the column
         exchange volume scales with shard *height*, the row exchange
         with shard *width*, which is what lets the model pick
@@ -661,9 +708,19 @@ class GPUModel:
         # column trapezoid (DESIGN.md §15). The batch axis multiplies
         # sites (b independent grids advance per launch), leaving the
         # useful fraction unchanged.
+        block_w = 0
         if clusters is None:
             colf = shard_w / (shard_w + 2 * m * hx) if dx > 1 else 1.0
             useful = bh / (bh + 2 * m * w.halo) * colf
+            if t.stream_plane_rate > 0:
+                # The launch tile (docs/port.md §dse): each tile of the
+                # launch's width (the shard and its guard columns) steps
+                # its whole stripe, rows and columns, every step.
+                width = shard_w + 2 * m * hx if dx > 1 else shard_w
+                block_w = w.launch_block_w(width, bh, m)
+                useful = bh * shard_w * m / launch_cell_steps(
+                    bh, width, bh, max(block_w, 1), m, halo=w.halo,
+                    halo_x=hx)
             flops = b * w.elems * w.flops_per_elem * m / useful
             hbm_passes = 1
             launches = 1
@@ -697,6 +754,15 @@ class GPUModel:
             hbm_passes * b * w.elems * bytes_per_elem
             / (d * t.hbm_gbs * 1e9)
         )
+        t_card = max(t_compute, t_memory)
+        if block_w:
+            # The executed state-plane cell-steps at the rate the generated
+            # step reaches; a tile's stripe loads and its steps run in
+            # series on the card, which reaches neither roof alone
+            # (docs/port.md §dse).
+            t_compute = max(t_compute, b * w.elems * w.words_in * m / useful
+                            / (d * t.stream_plane_rate))
+            t_card = t_compute + t_memory
         # Cross-chip halo exchange: the row exchange moves 2·m·halo rows
         # per neighbor pair at the per-shard *width*, the column exchange
         # 2·m·halo_x columns at the per-shard *height* (per cluster
@@ -716,16 +782,22 @@ class GPUModel:
         # term that separates fused from pipelined once calibration has
         # made HBM cheap (DESIGN.md §14).
         t_launch = (launches - 1) * t.launch_overhead_s
-        step_time = max(t_compute, t_memory, t_coll) + t_launch
+        # The host's enqueue of the block's launch on each card, one host
+        # thread for the mesh, once for each member of a batch: a roof
+        # beside the card's, since the host enqueues while the card runs
+        # (docs/port.md §dse).
+        t_host = b * d * t.launch_overhead_s
+        step_time = max(t_card, t_coll, t_host) + t_launch
         useful_flops = b * w.elems * w.flops_per_elem * m
         sustained = useful_flops / step_time / 1e9 if step_time > 0 else 0.0
         peak = d * t.vpu_f32_tflops * 1e3  # GFlop/s
         # One spelling for the binding resource, shared verbatim with
         # evaluate_batch's data["bound"] (asserted in tests/test_explorer).
         bound = (
-            "compute-bound"
-            if t_compute >= max(t_memory, t_coll)
-            else ("memory-bound" if t_memory >= t_coll else "collective-bound")
+            ("compute-bound" if t_compute >= t_memory else "memory-bound")
+            if t_card >= max(t_coll, t_host)
+            else "collective-bound" if t_coll >= t_host
+            else "host-bound"
         )
         pt.limits.append(bound)
         pt.peak_gflops = peak
@@ -754,6 +826,9 @@ class GPUModel:
             "hbm_passes": hbm_passes,
             "launches": launches,
             "t_launch_s": t_launch,
+            "t_host_s": t_host,
+            "t_card_s": max(t_card, t_coll),
+            "block_w": block_w,
         }
         return pt
 
@@ -844,11 +919,26 @@ class GPUModel:
         # batched + sharded has no executable geometry (scalar path's limit)
         feasible = feasible & ((batch == 1) | (chips == 1))
 
+        block_w = np.zeros(m.shape, dtype=np.int64)
         if clusters is None:
             colf = np.where(
                 dxa > 1, shard_w / (shard_w + 2 * m * hx), 1.0
             )
             useful = bh / (bh + 2 * m * w.halo) * colf
+            if t.stream_plane_rate > 0:
+                # the launch tile (scalar path's term), one launch_tile
+                # call per distinct (width, block_h, m)
+                width = np.where(dxa > 1, shard_w + 2 * m * hx, shard_w)
+                tiles: dict = {}
+                for i, key in enumerate(zip(width.ravel().tolist(),
+                                            bh.ravel().tolist(),
+                                            m.ravel().tolist())):
+                    if key not in tiles:
+                        tiles[key] = w.launch_block_w(*key)
+                    block_w.flat[i] = tiles[key]
+                useful = bh * shard_w * m / launch_cell_steps(
+                    bh, width, bh, np.maximum(block_w, 1), m, halo=w.halo,
+                    halo_x=hx)
             flops = batch * w.elems * w.flops_per_elem * m / useful
             hbm_passes = np.ones_like(m, dtype=np.float64)
             launches = np.ones_like(m, dtype=np.float64)
@@ -882,6 +972,17 @@ class GPUModel:
             hbm_passes * batch * w.elems * bytes_per_elem
             / (chips * t.hbm_gbs * 1e9)
         )
+        # the launch tile's compute roof, in series with the loads (scalar
+        # path's terms)
+        tiled = block_w > 0
+        t_compute = np.where(
+            tiled,
+            np.maximum(t_compute, batch * w.elems * w.words_in * m / useful
+                       / (chips * (t.stream_plane_rate or 1.0))),
+            t_compute,
+        )
+        t_card = np.where(tiled, t_compute + t_memory,
+                          np.maximum(t_compute, t_memory))
         # Two exchange volumes (DESIGN.md §15): rows at shard width over
         # dy, guard columns at shard height over dx.
         shard_h = (w.elems // grid_w) // dya
@@ -892,10 +993,10 @@ class GPUModel:
         )
         t_coll = halo_bytes / (t.ici_gbs_per_link * 1e9)
 
-        # Same launch-dispatch term as the scalar path (0 when
-        # launches == 1, so legacy slabs are numerically unchanged).
+        # Same launch-dispatch term and host roof as the scalar path.
+        t_host = batch * chips * t.launch_overhead_s
         step_time = (
-            np.maximum(np.maximum(t_compute, t_memory), t_coll)
+            np.maximum(np.maximum(t_card, t_coll), t_host)
             + (launches - 1) * t.launch_overhead_s
         )
         useful_flops = batch * w.elems * w.flops_per_elem * m
@@ -905,9 +1006,9 @@ class GPUModel:
         power = chips * (t.chip_idle_w + (t.chip_peak_w - t.chip_idle_w) * util)
         ppw = np.where(power > 0, sustained / power, 0.0)
         bound = np.where(
-            t_compute >= np.maximum(t_memory, t_coll),
-            "compute-bound",
-            np.where(t_memory >= t_coll, "memory-bound", "collective-bound"),
+            t_card >= np.maximum(t_coll, t_host),
+            np.where(t_compute >= t_memory, "compute-bound", "memory-bound"),
+            np.where(t_coll >= t_host, "collective-bound", "host-bound"),
         )
         return {
             "n": chips,
@@ -934,6 +1035,9 @@ class GPUModel:
             "resource_frac": vmem / t.vmem_bytes,
             "fusion": np.full(bh.shape, fusion, dtype=object),
             "launches": launches,
+            "t_host_s": t_host * np.ones_like(step_time),
+            "t_card_s": np.maximum(t_card, t_coll),
+            "block_w": block_w,
         }
 
     def explore(

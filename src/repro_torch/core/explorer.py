@@ -177,7 +177,12 @@ class Sweep:
         if idx.size == 0:
             raise ValueError(f"sweep of {len(self)} points has no feasible point")
         vals = np.asarray(self.data[key], float)[idx]
-        return self.point(int(idx[int(np.argmax(vals))]))
+        # Among equal values (points the host's enqueue binds alike), the
+        # least time on the cards, which a chain's last launch waits for.
+        card = self.data.get("t_card_s")
+        pick = (np.lexsort((np.asarray(card, float)[idx], -vals))[0]
+                if card is not None else np.argmax(vals))
+        return self.point(int(idx[int(pick)]))
 
     def top(self, k: int, key: str = "sustained_gflops") -> list[DesignPoint]:
         """Top-k feasible points by ``key`` (no dominance filtering)."""

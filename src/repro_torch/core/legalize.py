@@ -767,7 +767,8 @@ def tile_smem_bytes(block_h: int, block_w: int, m: int, *, halo: int,
 def launch_tile(width: int, block_h: int, m: int, *, halo: int,
                 halo_x: int, planes, block_w: int | None = None,
                 double_buffer: bool = True, blocks_per_sm: int = 1,
-                guard_rows: int = 0) -> tuple[int, bool]:
+                guard_rows: int = 0,
+                owner_cells: int = 0) -> tuple[int, bool]:
     """Pick the column tile ``block_w`` of a Hopper launch.
 
     ``planes(double_buffer)`` gives the resident plane count of the
@@ -786,8 +787,44 @@ def launch_tile(width: int, block_h: int, m: int, *, halo: int,
     double-buffered tile, else single-buffer tile, fits that budget, since
     a narrower tile recomputes more guard cells than the prefetch saves
     (docs/port.md §tile); only when none does, the one-block rule above.
+
+    ``owner_cells > 0`` (a register-state core: the stripe cells a block's
+    threads hold in registers) then narrows a proposed ``block_w`` to the
+    widest halving whose stripe the owners hold, where one does, and drops
+    the prefetch of a stripe they do not hold (:func:`stripe_owned`).
     Returns ``(block_w, double_buffer)``.
     """
+    bw, db = _launch_tile(width, block_h, m, halo=halo, halo_x=halo_x,
+                          planes=planes, block_w=block_w,
+                          double_buffer=double_buffer,
+                          blocks_per_sm=blocks_per_sm, guard_rows=guard_rows)
+    if owner_cells:
+        def owned(w):
+            return stripe_owned(block_h, w, m, halo=halo, halo_x=halo_x,
+                                owner_cells=owner_cells)
+
+        if block_w is None:
+            w = bw
+            while w > 1 and not owned(w):
+                w //= 2
+            if owned(w):
+                bw = w
+        if not owned(bw):
+            db = False
+    return bw, db
+
+
+def stripe_owned(block_h: int, block_w: int, m: int, *, halo: int,
+                 halo_x: int, owner_cells: int) -> bool:
+    """Whether a tile's ``(block_h + 2·m·halo) × (block_w + 2·m·halo_x)``
+    stripe fits the ``owner_cells`` a register-state core's threads hold
+    (the rule the kernel applies, ``spd_owned``; 0 cells hold none)."""
+    return ((block_h + 2 * m * halo) * (block_w + 2 * m * halo_x)
+            <= owner_cells)
+
+
+def _launch_tile(width, block_h, m, *, halo, halo_x, planes, block_w,
+                 double_buffer, blocks_per_sm, guard_rows):
     width = int(width)
     if width < 1:
         raise ValueError(f"grid width must be positive, got {width}")
@@ -826,6 +863,20 @@ def launch_tile(width: int, block_h: int, m: int, *, halo: int,
     )
 
 
+def launch_cell_steps(rows, width, block_h, block_w, m, *, halo: int,
+                      halo_x: int, b=1):
+    """Stripe cell-steps one launch executes (docs/port.md §tile): ``b``
+    members of ``rows / block_h`` by ``ceil(width / block_w)`` tiles, each
+    stepping its whole ``(block_h + 2·m·halo) × (block_w + 2·m·halo_x)``
+    stripe ``m`` times (the kernel's ``RC`` cells every step). Over the
+    ``b·rows·width·m`` updates the launch keeps, the recompute of its
+    halo rows and guard columns. Integer numpy arrays broadcast (the GPU
+    model's launch-tile term)."""
+    ntx = -(-width // block_w)
+    return (b * (rows // block_h) * ntx * (block_h + 2 * m * halo)
+            * (block_w + 2 * m * halo_x) * m)
+
+
 __all__ = [
     "MAX_BLOCK_W",
     "PLAN_FIELDS",
@@ -849,4 +900,6 @@ __all__ = [
     "stripe_vmem_bytes",
     "tile_smem_bytes",
     "launch_tile",
+    "launch_cell_steps",
+    "stripe_owned",
 ]

@@ -15,10 +15,12 @@ that work (``record_function`` ranges get one); over one operation the
 copy covers exactly that operation, so the device's busy time read from
 the trace does not change.
 
-The set-up counters are one plain dict for the process: :func:`add`
-adds to a counter, :func:`snapshot` copies them, and :func:`timed` opens
+The counters are one plain dict for the process: :func:`add` adds to a
+counter, :func:`snapshot` copies them, and :func:`timed` opens
 :func:`span` and adds its host seconds to the counter of the same name.
-``builds`` counts ``nvcc`` runs.
+``builds`` counts ``nvcc`` runs; ``plan.executed_cell_steps`` and
+``plan.useful_cell_steps`` the cell-steps a run's launches execute and
+keep at the plan it runs (``core.codegen.count_plan``, once a run).
 """
 
 from __future__ import annotations
@@ -52,7 +54,8 @@ def add(name: str, value: float) -> None:
 
 
 def snapshot() -> dict:
-    """The process's counters: ``setup.*`` seconds and ``builds``."""
+    """The process's counters: ``setup.*`` seconds, ``builds`` and
+    ``plan.*`` cell-steps."""
     return dict(_COUNTERS)
 
 

@@ -1980,3 +1980,55 @@ def test_mla_train_step_counts_its_flash_launches(card):
     assert flash_attention.launches_at[192, 128] == n + 10
     assert flash_attention_bwd.launches_at[192, 128] == nb + 5
     assert tracing.snapshot()["mla.calls"] == calls + 10
+
+
+class _Point:
+    def __init__(self, block_h, m):
+        self.m = m
+        self.detail = {"block_rows": block_h}
+
+
+@pytest.mark.parametrize("app", ["lbm", "diffusion"])
+def test_model_pick_reaches_its_lattices_best(card, app):
+    """At 2048², a grid no benchmark cell runs, the GPU model's first point
+    by ``sustained_gflops`` of the (block_h, m) lattice runs at least 0.9
+    of the lattice's best point, each timed on the run path: chained
+    256-step simulations through ``run_for_point``, each ending in a
+    synchronize, the median of three."""
+    import statistics
+    import time
+
+    n = 2048
+    if app == "lbm":
+        sim = lbm.LBMSimulation(lbm.LBMProblem(n, n))
+        kern = sim.stream_kernel()
+        f, attr, _ = lbm.taylor_green_init(n, n)
+        state, regs = sim.stream_state(f, attr), sim.stream_regs()
+        ex = sim.explorer()
+    else:
+        sim = dif.DiffusionSimulation(n, n)
+        kern = sim.kernel
+        state, regs = sim.state(dif.sine_init(n, n)[0]), (sim.alpha,)
+        ex = sim.explorer()
+    bhs, ms = (8, 16, 32, 64), (1, 2, 4, 8)
+    pick = ex.sweep_gpu(bh_values=bhs, m_values=ms,
+                        d_values=(1,)).best(key="sustained_gflops")
+
+    def rate(bh, m):
+        point = _Point(bh, m)
+        kern.run_for_point(state, regs, point=point, steps=m)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, _ = kern.run_for_point(state, regs, point=point, steps=256)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        del out
+        return n * n * 256 / statistics.median(walls)
+
+    rates = {(bh, m): rate(bh, m) for bh in bhs for m in ms}
+    got = rates[pick.detail["block_rows"], pick.m]
+    best = max(rates.values())
+    assert got >= 0.9 * best, (pick.detail["block_rows"], pick.m,
+                               sorted(rates.items(), key=lambda kv: -kv[1]))

@@ -29,14 +29,20 @@ from repro_torch.core.dse import (
     StreamWorkload,
     render_table,
 )
-from repro_torch.core.legalize import SMEM_BYTES, launch_tile
+from repro_torch.core.legalize import (
+    SMEM_BYTES,
+    launch_cell_steps,
+    launch_tile,
+)
+from repro_torch.core.explorer import Explorer
 from repro_torch.core.measure import BackendCalibration
 
 N_VALUES = M_VALUES = (1, 2, 4, 8)
 
 
 def tpu_constants() -> GPUTarget:
-    return GPUTarget(**dataclasses.asdict(TPUTarget()))
+    return GPUTarget(**dataclasses.asdict(TPUTarget()),
+                     stream_plane_rate=0.0)
 
 
 def _common(w) -> dict:
@@ -67,10 +73,13 @@ def test_workload_and_report_equal_the_reference(paper_pe):
     w = port.pe.hardware_report.workload(300 * 720, grid_w=720)
     assert dataclasses.asdict(w) == {**dataclasses.asdict(
         ref.hardware_report.workload(300 * 720, grid_w=720)),
-        "tile_planes": 0, "tile_guard_rows": 0, "cluster_tiles": ()}
+        "tile_planes": 0, "tile_guard_rows": 0, "tile_planes_prefetch": 0,
+        "tile_blocks_per_sm": 1, "tile_owner_cells": 0, "cluster_tiles": ()}
     # the explorer's workload carries the generated kernel's Hopper tile
-    assert port.stream_workload().tile_planes == 19
-    assert port.stream_workload().tile_guard_rows == 4
+    sw = port.stream_workload()
+    assert (sw.tile_planes, sw.tile_planes_prefetch, sw.tile_guard_rows,
+            sw.tile_blocks_per_sm, sw.tile_owner_cells) == (19, 19, 4, 1,
+                                                             2048)
 
 
 def test_fpga_lattice_equals_the_reference_and_picks_1_4(paper_pe):
@@ -179,11 +188,15 @@ def test_smem_rule_agrees_with_launch_tile(app):
 
 
 def test_gpu_target_is_the_h100_data_sheet():
+    """The data sheet's peaks, and the two constants measured on the card
+    (docs/port.md §dse): one stream launch's host enqueue and the
+    generated step's executed state-plane cell-steps a second."""
     t = GPUTarget()
     assert (t.hbm_gbs, t.vpu_f32_tflops, t.peak_bf16_tflops) == (
         3350.0, 67.0, 989.0)
     assert (t.hbm_bytes_per_chip, t.chip_peak_w) == (80 * 10**9, 700.0)
-    assert t.smem_bytes == SMEM_BYTES and t.launch_overhead_s == 0.0
+    assert t.smem_bytes == SMEM_BYTES
+    assert (t.launch_overhead_s, t.stream_plane_rate) == (47e-6, 1.18e12)
     assert set(dataclasses.asdict(TPUTarget())) < set(dataclasses.asdict(t))
 
 
@@ -210,3 +223,195 @@ def test_calibrated_model_equals_the_reference():
             q = jcal.model(d).evaluate(jw, 16, 4, d=d)
             assert p.sustained_gflops == q.sustained_gflops
         assert GPUModel.calibrated(cal).target.name.startswith("h100-sxm+")
+
+
+def _app(app, h, w):
+    """(workload, generated program) of a core on an ``h × w`` grid."""
+    if app == "lbm":
+        sim = tlbm.LBMSimulation(tlbm.LBMProblem(h, w), device="cpu")
+        return sim.stream_workload(), sim.stream_kernel().program
+    sim = tdif.DiffusionSimulation(h, w, device="cpu")
+    return sim.explorer().workload, sim.kernel.program
+
+
+@pytest.mark.parametrize("app", ["lbm", "diffusion"])
+def test_launch_tile_term_agrees_with_launch_tile(app):
+    """Each point is priced at the column tile its launch runs: the
+    generated kernel's own ``tile`` at the launch's width (the shard and,
+    on a column-sharded mesh, its guard columns), and the updates over the
+    cell-steps that launch executes, halo rows and guard columns included;
+    scalar and batched paths alike."""
+    h, width = 512, 1024
+    w, prog = _app(app, h, width)
+    bh, m, dx = (a.ravel() for a in np.meshgrid(
+        (8, 16, 32, 64), (1, 2, 4, 8), (1, 2, 4), indexing="ij"))
+    model = GPUModel()
+    batch = model.evaluate_batch(w, bh, m, d=4, dx=dx)
+    for i in range(bh.size):
+        bh_i, m_i, dx_i = int(bh[i]), int(m[i]), int(dx[i])
+        cols = width // dx_i
+        launch_w = cols + (2 * m_i * prog.halo_x if dx_i > 1 else 0)
+        bw, _ = prog.tile(launch_w, bh_i, m_i)
+        useful = bh_i * cols * m_i / launch_cell_steps(
+            bh_i, launch_w, bh_i, bw, m_i, halo=prog.halo,
+            halo_x=prog.halo_x)
+        assert batch["block_w"][i] == bw, (bh_i, m_i, dx_i)
+        assert batch["halo_useful_fraction"][i] == pytest.approx(useful)
+        p = model.evaluate(w, bh_i, m_i, d=4, dx=dx_i)
+        assert p.detail["block_w"] == bw
+        assert p.detail["halo_useful_fraction"] == pytest.approx(useful)
+        assert p.sustained_gflops == pytest.approx(
+            batch["sustained_gflops"][i])
+        assert ";".join(p.limits).endswith(str(batch["bound"][i]))
+    # the uLBM PE's register owners narrow the tile as m grows
+    if app == "lbm":
+        one = model.evaluate_batch(w, np.array([32, 32]), np.array([4, 8]))
+        assert one["block_w"].tolist() == [32, 16]
+
+
+def test_host_roof_prices_each_launch():
+    """Where the card runs a launch faster than the host enqueues it, an
+    m-step block takes the host's enqueue of its launch on each card, once
+    for each member of a batch: the point is host-bound at ``useful flops
+    / (b · d · launch_overhead_s)``, whatever its block or card terms;
+    without the term the card's terms price it again."""
+    w, _ = _app("diffusion", 64, 64)
+    t = GPUTarget()
+    for d, bh, m, b in ((1, 16, 1, 1), (1, 32, 8, 1), (1, 8, 4, 2),
+                        (4, 16, 2, 1)):
+        p = GPUModel(t).evaluate(w, bh, m, d=d, b=b)
+        assert p.feasible and "host-bound" in p.limits
+        assert p.detail["t_host_s"] == b * d * t.launch_overhead_s
+        assert p.sustained_gflops == pytest.approx(
+            w.elems * w.flops_per_elem * m
+            / (d * t.launch_overhead_s) / 1e9)
+        batch = GPUModel(t).evaluate_batch(w, bh, m, d=d, b=b)
+        assert batch["bound"] == "host-bound"
+        assert batch["sustained_gflops"] == pytest.approx(
+            p.sustained_gflops)
+    twice = dataclasses.replace(t, launch_overhead_s=2 * t.launch_overhead_s)
+    assert GPUModel(twice).evaluate(w, 32, 8).sustained_gflops == (
+        pytest.approx(GPUModel(t).evaluate(w, 32, 8).sustained_gflops / 2))
+    free = GPUModel(dataclasses.replace(t, launch_overhead_s=0.0)).evaluate(
+        w, 32, 8)
+    assert free.detail["t_host_s"] == 0.0 and "host-bound" not in free.limits
+    # a long launch leaves the host term out of the price
+    big, _ = _app("diffusion", 8192, 8192)
+    p = GPUModel(t).evaluate(big, 64, 8)
+    assert "host-bound" not in p.limits
+    assert p.detail["t_host_s"] < p.detail["t_compute_s"] / 10
+
+
+def test_serving_lattice_keeps_long_m_and_one_member():
+    """The cavity's serving lattice: the host term keeps m 8 where m 4's
+    launch would wait for the host, and a batch buys no host time (each
+    member pays its enqueue, a lower bound of what the engine's cohorts
+    cost it), so the plan stays one member a launch."""
+    w, _ = _app("lbm", 300, 720)
+    sweep = Explorer(w).sweep_gpu(bh_values=(8, 16, 32, 64),
+                                  m_values=(1, 2, 4, 8), d_values=(1,),
+                                  b_values=(1, 2, 4, 8))
+    best = sweep.best(key="sustained_gflops")
+    assert (best.detail["block_rows"], best.m, best.detail["b"]) == (
+        32, 8, 1)
+    # without the host term the shorter launch would win
+    free = Explorer(w, gpu=GPUModel(dataclasses.replace(
+        GPUTarget(), launch_overhead_s=0.0))).sweep_gpu(
+        bh_values=(8, 16, 32, 64), m_values=(1, 2, 4, 8), d_values=(1,))
+    assert free.best(key="sustained_gflops").m == 4
+
+
+@pytest.mark.parametrize("grid,mesh", [((64, 64), (4, 1)),
+                                       ((16, 32), (1, 4))])
+def test_host_bound_ties_go_to_the_least_card_time(grid, mesh):
+    """On a grid so small that the host's enqueue binds every m 8 point of
+    the four-card lattice alike, the pick is the tied point the cards run
+    fastest: the mesh shape whose exchange costs least, the row ring on a
+    square grid and the column ring on a wide one."""
+    w, _ = _app("lbm", *grid)
+    sweep = Explorer(w).sweep_gpu(bh_values=(8, 16, 32, 64),
+                                  m_values=(1, 2, 4, 8), d_values=(4,),
+                                  dx_values=(1, 2, 4))
+    best = sweep.best(key="sustained_gflops")
+    top = sweep.data["sustained_gflops"][sweep.feasible].max()
+    tied = sweep.feasible & (sweep.data["sustained_gflops"] == top)
+    assert "host-bound" in best.limits and len(set(sweep.data["dx"][tied])) > 1
+    assert (best.detail["dy"], best.detail["dx"]) == mesh
+    assert best.detail["t_card_s"] == sweep.data["t_card_s"][tied].min()
+
+
+#: MLUPS measured on one H100 80GB HBM3 (700 W) at every (block_h, m) of
+#: the lattice, rows block_h 8, 16, 32, 64 and columns m 1, 2, 4, 8: the
+#: run path (chained 1,024-step simulations through ``run_for_point``,
+#: each ending in a synchronize) and, for the serving grids, the engine's
+#: launch chained at b 1 (the host enqueue included). Each the mean of
+#: two passes over the lattice (docs/port.md §dse).
+MEASURED = {
+    ("run", "lbm", 4096, 4096): [
+        [16853, 24398, 34371, 28353], [18830, 28796, 49044, 33445],
+        [19316, 29631, 52132, 33192], [18902, 28690, 48562, 27873]],
+    ("run", "diffusion", 8192, 8192): [
+        [119072, 188043, 419678, 331095], [138500, 230901, 578631, 493198],
+        [150185, 246987, 705908, 640952], [121879, 216937, 660472, 749189]],
+    ("run", "lbm", 2048, 2048): [
+        [16165, 23487, 33561, 27911], [17951, 27624, 46794, 32875],
+        [18457, 28478, 49758, 32758], [18146, 27655, 46704, 27548]],
+    ("run", "diffusion", 2048, 2048): [
+        [91589, 161597, 319443, 298773], [99078, 197163, 455403, 449426],
+        [109936, 183787, 352914, 567006], [91232, 176789, 346888, 644601]],
+    ("run", "diffusion", 4096, 4096): [
+        [115556, 183398, 408193, 324013], [134741, 226122, 559459, 482973],
+        [142122, 240995, 651212, 608597], [114142, 204083, 589037, 688575]],
+    ("serve", "lbm", 300, 720): [
+        [4920, 8752, 16155, 18898], [4471, 9436, 18243, 24713],
+        [4516, 12756, 19010, 24772], [5009, 9641, 16591, 20729]],
+    ("serve", "diffusion", 2048, 2048): [
+        [81529, 147756, 305928, 300394], [80649, 160158, 324270, 455278],
+        [73112, 151055, 323133, 551937], [74778, 140115, 300458, 622126]],
+}
+
+
+#: The uLBM PE at 8192² on a mesh of four H100s (d 4), by ``dx`` 1, 2 and
+#: 4, the run path through ``ShardedStreamKernel.run_for_point`` (one
+#: pass; the six best timed again within 2.3%).
+MEASURED_MESH = {
+    1: [[61181, 90009, 124921, 106603], [67004, 103657, 173617, 124628],
+        [69183, 106950, 181693, 124145], [67872, 104144, 168947, 105278]],
+    2: [[41097, 77350, 115687, 102825], [45270, 79382, 154955, 120594],
+        [55918, 92863, 163491, 120485], [42398, 82735, 155379, 102453]],
+    4: [[45371, 69939, 106129, 98312], [47158, 80932, 142522, 115937],
+        [49104, 83729, 150357, 116465], [48439, 81834, 143400, 99728]],
+}
+BHS, MS = (8, 16, 32, 64), (1, 2, 4, 8)
+
+
+def _measured_pick(w, measured, **axes):
+    """(measured at the model's pick, the lattice's measured best)."""
+    pick = Explorer(w).sweep_gpu(bh_values=BHS, m_values=MS,
+                                 **axes).best(key="sustained_gflops")
+    table = measured[pick.detail.get("dx", 1)]
+    got = table[BHS.index(pick.detail["block_rows"])][MS.index(pick.m)]
+    best = max(max(row) for t in measured.values() for row in t)
+    return got, best
+
+
+@pytest.mark.parametrize("case", sorted(MEASURED), ids=lambda c: "-".join(
+    map(str, c)))
+def test_model_pick_reaches_the_measured_best(case):
+    """The model's first point by ``sustained_gflops`` measured within 0.9
+    of the best point of its lattice on the card, on the grids the
+    benchmark's cells run and on grids none runs (uLBM PE 2048²,
+    diffusion 2048² and 4096² on the run path)."""
+    _, app, h, width = case
+    w, _ = _app(app, h, width)
+    got, best = _measured_pick(w, {1: MEASURED[case]}, d_values=(1,))
+    assert got >= 0.9 * best, (got, best)
+
+
+def test_model_pick_reaches_the_measured_best_on_the_mesh():
+    """The same on the four-card mesh's lattice, whose mesh shapes (4, 1),
+    (2, 2) and (1, 4) the model chooses among."""
+    w, _ = _app("lbm", 8192, 8192)
+    got, best = _measured_pick(w, MEASURED_MESH, d_values=(4,),
+                               dx_values=(1, 2, 4))
+    assert got >= 0.9 * best, (got, best)

@@ -27,7 +27,8 @@ RTOL, ATOL = 2e-5, 1e-6
 
 
 def tpu_constants() -> GPUTarget:
-    return GPUTarget(**dataclasses.asdict(TPUTarget()))
+    return GPUTarget(**dataclasses.asdict(TPUTarget()),
+                     stream_plane_rate=0.0)
 
 
 def test_pareto_mask_equals_the_reference():

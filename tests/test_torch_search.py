@@ -56,7 +56,8 @@ M_VALUES = (1, 2, 4, 8)
 
 def tpu_constants() -> GPUTarget:
     """A GPUTarget carrying the reference TPUTarget's constants."""
-    return GPUTarget(**dataclasses.asdict(TPUTarget()))
+    return GPUTarget(**dataclasses.asdict(TPUTarget()),
+                     stream_plane_rate=0.0)
 
 
 # ---- the port's deterministic timer: a copy of tests/_search_harness.py --

@@ -137,6 +137,36 @@ def test_building_an_app_counts_its_set_up(name):
     assert tracing.snapshot()[name] > before
 
 
+class _Point:
+    def __init__(self, block_h, m):
+        self.m = m
+        self.detail = {"block_rows": block_h}
+
+
+@pytest.mark.parametrize("dx", [0, 1, 2])
+def test_run_for_point_counts_its_plans_recompute(monkeypatch, dx):
+    """``run_for_point`` adds once a run what its launches execute and
+    keep: on one card (``dx`` 0) and on a (4 / dx, dx) mesh of four CPU
+    shards, the ratio is the GPU model's recompute at the same point."""
+    from repro_torch.core.dse import GPUModel
+
+    monkeypatch.setattr(tracing, "_COUNTERS", {"builds": 0})
+    h, w = 32, 128
+    sim = dif.DiffusionSimulation(h, w, alpha=0.2, device="cpu")
+    kern = sim.kernel if not dx else sim.kernel.sharded(4, ["cpu"] * 4,
+                                                        dx=dx)
+    state = torch.rand((1, h, w), generator=torch.Generator().manual_seed(3))
+    kern.run_for_point(state, (0.2,), point=_Point(8, 2), steps=8)
+    kern.run_for_point(state, (0.2,), point=_Point(8, 2), steps=4)
+    counts = tracing.snapshot()
+    assert counts["plan.useful_cell_steps"] == h * w * 12
+    p = GPUModel().evaluate(sim.explorer().workload, 8, 2,
+                            d=4 if dx else 1, dx=max(dx, 1))
+    assert (counts["plan.executed_cell_steps"]
+            / counts["plan.useful_cell_steps"]) == pytest.approx(
+        1 / p.detail["halo_useful_fraction"])
+
+
 def test_timed_counts_its_seconds_under_its_span(monkeypatch):
     monkeypatch.setattr(tracing, "_COUNTERS", {"builds": 0})
     ticks = iter([1.0, 3.5, 4.0, 4.25])
