@@ -1,13 +1,23 @@
 """Assigned-architecture configs (exact public numbers): copies of the JAX
 package's ``configs/`` with a torch ``param_dtype`` (``base.py``), and
-``kimi-k2-instruct``, Kimi K2 with its multi-head latent attention, which
-the port alone holds."""
+``kimi-k2-instruct``, Kimi K2 with its multi-head latent attention, and
+``kimi-linear-48b-a3b``, Kimi Linear with Kimi Delta Attention, which the
+port alone holds."""
 
-from .base import ArchConfig, MoEConfig, SSMConfig, SHAPES, ShapeConfig, shape_applicable
+from .base import (
+    SHAPES,
+    ArchConfig,
+    LinearAttnConfig,
+    MoEConfig,
+    ShapeConfig,
+    SSMConfig,
+    shape_applicable,
+)
 from . import (
     granite_34b,
     kimi_k2_1t_a32b,
     kimi_k2_instruct,
+    kimi_linear_48b_a3b,
     llava_next_34b,
     mixtral_8x7b,
     nemotron_4_15b,
@@ -32,6 +42,7 @@ ARCHS: dict[str, ArchConfig] = {
         kimi_k2_1t_a32b,
         llava_next_34b,
         kimi_k2_instruct,
+        kimi_linear_48b_a3b,
     )
 }
 
@@ -49,6 +60,7 @@ def get_arch(name: str) -> ArchConfig:
 __all__ = [
     "ARCHS",
     "ArchConfig",
+    "LinearAttnConfig",
     "MoEConfig",
     "SHAPES",
     "SSMConfig",

@@ -51,6 +51,19 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class LinearAttnConfig:
+    """Kimi Delta Attention (models/kda.py) beside full attention: heads
+    of ``head_dim`` for q, k and v, causal short convolutions of width
+    ``conv``, and the published 1-based layer pattern."""
+
+    n_heads: int
+    head_dim: int
+    conv: int = 4
+    kda_layers: tuple = ()
+    full_attn_layers: tuple = ()
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str  # dense | moe | hybrid | ssm | audio | vlm
@@ -77,6 +90,10 @@ class ArchConfig:
     qk_nope_dim: int = 0
     qk_rope_dim: int = 0
     v_head_dim: int = 0
+    # Kimi Delta Attention in the layers ``linear.kda_layers`` names, the
+    # config's attention (MLA here) in the others
+    linear: LinearAttnConfig | None = None
+    norm_eps: float = 1e-6  # every RMSNorm's epsilon
     moe: MoEConfig | None = None
     ssm: SSMConfig | None = None
     attn_period: int = 0  # hybrid: shared attn block every k SSM layers
@@ -90,8 +107,16 @@ class ArchConfig:
     notes: str = ""
 
     def __post_init__(self):
+        if self.kv_rank:  # MLA's q and k heads, whatever the file says
+            object.__setattr__(self, "head_dim",
+                               self.qk_nope_dim + self.qk_rope_dim)
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.linear and sorted(self.linear.kda_layers
+                                  + self.linear.full_attn_layers) != list(
+                                      range(1, self.n_layers + 1)):
+            raise ValueError(f"{self.name}: kda_layers and full_attn_layers "
+                             f"must split layers 1..{self.n_layers}")
 
     @property
     def param_dtype(self) -> torch.dtype:
@@ -102,13 +127,27 @@ class ArchConfig:
         """Whether the attention is multi-head latent attention."""
         return self.kv_rank > 0
 
+    def is_kda(self, i: int) -> bool:
+        """Whether layer ``i`` (0-based) is Kimi Delta Attention."""
+        return self.linear is not None and i + 1 in self.linear.kda_layers
+
     # ---- analytic parameter counts (drive the planner + roofline) --------
+    def kda_params(self) -> int:
+        """One KDA layer: q, k, v and their convolutions, the decay's
+        low-rank pair, ``A_log`` and ``dt_bias``, β, the output gate's
+        pair, the per-head norm and the output projection."""
+        la, d = self.linear, self.d_model
+        w = la.n_heads * la.head_dim
+        return (3 * d * w + 3 * la.conv * w + la.n_heads
+                + 2 * (d * la.head_dim + la.head_dim * w) + w
+                + d * la.n_heads + la.head_dim + w * d)
+
     def attn_params(self) -> int:
         if self.mla:
             d, h, rq, rkv = (self.d_model, self.n_heads, self.q_rank,
                              self.kv_rank)
-            return (d * rq + rq + rq * h * (self.qk_nope_dim
-                                            + self.qk_rope_dim)
+            qk = h * (self.qk_nope_dim + self.qk_rope_dim)
+            return ((d * rq + rq + rq * qk if rq else d * qk)
                     + d * (rkv + self.qk_rope_dim) + rkv
                     + rkv * h * (self.qk_nope_dim + self.v_head_dim)
                     + h * self.v_head_dim * d)
@@ -123,9 +162,11 @@ class ArchConfig:
         mult = 3 if self.activation == "swiglu" else 2
         return mult * self.d_model * f
 
-    def layer_params(self, moe_layer: bool | None = None) -> int:
+    def layer_params(self, moe_layer: bool | None = None,
+                     kda: bool = False) -> int:
         moe_layer = (self.moe is not None) if moe_layer is None else moe_layer
-        p = self.attn_params() + 2 * self.d_model  # norms
+        p = ((self.kda_params() if kda else self.attn_params())
+             + 2 * self.d_model)  # norms
         if moe_layer and self.moe:
             p += self.moe.held * 3 * self.d_model * self.moe.d_ff
             p += self.d_model * self.moe.n_experts  # router
@@ -157,28 +198,21 @@ class ArchConfig:
             enc = self.attn_params() + self.mlp_params() + 2 * self.d_model
             dec = 2 * self.attn_params() + self.mlp_params() + 3 * self.d_model
             return float(self.n_layers * (enc + dec) + emb)
-        if self.moe:
-            n_dense = self.moe.moe_start_layer
-            return float(
-                n_dense * self.layer_params(moe_layer=False)
-                + (self.n_layers - n_dense) * self.layer_params(moe_layer=True)
-                + emb
-            )
-        return float(self.n_layers * self.layer_params() + emb)
+        n_dense = self.moe.moe_start_layer if self.moe else self.n_layers
+        return float(sum(self.layer_params(i >= n_dense, self.is_kda(i))
+                         for i in range(self.n_layers)) + emb)
 
     def active_params(self) -> float:
         """Per-token active parameters (MoE activates top_k of n_experts)."""
         if not self.moe:
             return self.num_params()
-        active_layer = (
-            self.attn_params()
-            + 2 * self.d_model
-            + self.moe.top_k * 3 * self.d_model * self.moe.d_ff
-            + (self.mlp_params(self.moe.d_ff * self.moe.n_shared)
-               if self.moe.n_shared else 0)
-        )
+        ffn = (self.moe.top_k * 3 * self.d_model * self.moe.d_ff
+               + (self.mlp_params(self.moe.d_ff * self.moe.n_shared)
+                  if self.moe.n_shared else 0))
         emb = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
-        return float(self.n_layers * active_layer + emb)
+        return float(sum(
+            (self.kda_params() if self.is_kda(i) else self.attn_params())
+            + 2 * self.d_model + ffn for i in range(self.n_layers)) + emb)
 
     # ---- reduced config for CPU smoke tests -------------------------------
     def reduced(self) -> "ArchConfig":
@@ -217,8 +251,12 @@ class ArchConfig:
         if self.n_kv_heads == self.n_heads:  # keep MHA archs MHA
             changes["n_kv_heads"] = changes["n_heads"]
         if self.mla:  # latents and heads of every width, q/k at head_dim
-            changes.update(q_rank=64, kv_rank=32, qk_nope_dim=24,
-                           qk_rope_dim=8, v_head_dim=16)
+            changes.update(q_rank=64 if self.q_rank else 0, kv_rank=32,
+                           qk_nope_dim=24, qk_rope_dim=8, v_head_dim=16)
+        if self.linear:  # a KDA layer, then a full-attention one
+            changes["linear"] = dataclasses.replace(
+                self.linear, n_heads=2, head_dim=16, kda_layers=(1,),
+                full_attn_layers=(2,))
         return dataclasses.replace(self, **changes)
 
 
@@ -242,6 +280,9 @@ def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
     """DESIGN.md shape policy: which (arch x shape) cells run."""
     if shape.name == "long_500k" and not cfg.supports_long_context:
         return False, "full-attention arch: 500k dense-KV decode skipped"
+    if shape.kind == "decode" and cfg.linear:
+        return False, ("Kimi Delta Attention has no decode path "
+                       "(its recurrent state cache is not ported)")
     if shape.kind == "decode" and cfg.mla:
         return False, ("multi-head latent attention has no decode path "
                        "(an absorbed latent cache is not ported)")

@@ -178,7 +178,10 @@ def param_tree(model) -> dict:
     the same keys and nesting, each leaf the module's own tensor. The
     xLSTM ``blocks`` list holds one dict per block; the stacked groups of
     the others (``layers``, ``moe_layers``, ``enc_layers``,
-    ``dec_layers``, ``mamba_layers``) hold :class:`Stacked` leaves."""
+    ``dec_layers``, ``mamba_layers``) hold :class:`Stacked` leaves. A
+    config with Kimi Delta Attention stacks its KDA layers apart, as
+    ``kda_layers`` (dense) and ``kda_moe_layers``, each group in the
+    layers' order."""
     from repro_torch.models.registry import XLSTM
     from repro_torch.models.zamba2 import Zamba2
 
@@ -197,10 +200,12 @@ def param_tree(model) -> dict:
         tree["ln_enc"] = model.ln_enc
     else:
         n_dense = cfg.moe.moe_start_layer if cfg.moe else cfg.n_layers
-        if n_dense:
-            tree["layers"] = _stacked(model.layers[:n_dense])
-        if n_dense < cfg.n_layers:
-            tree["moe_layers"] = _stacked(model.layers[n_dense:])
+        groups: dict[str, list] = {}
+        for i, layer in enumerate(model.layers):
+            key = (("kda_" if cfg.is_kda(i) else "")
+                   + ("layers" if i < n_dense else "moe_layers"))
+            groups.setdefault(key, []).append(layer)
+        tree.update({k: _stacked(v) for k, v in groups.items()})
     return tree
 
 

@@ -1,7 +1,8 @@
 """Shared neural layers (the port of the JAX package's ``models/layers.py``):
-norms, rope, attention, the MLPs and the mixture of experts; and, the
-port's own, multi-head latent attention (:class:`MLA`), sigmoid routing
-and the held slice of the experts (docs/port.md §mla).
+norms, rope, the causal short convolution, attention, the MLPs and the
+mixture of experts; and, the port's own, multi-head latent attention
+(:class:`MLA`, with or without a query latent and rotary embedding),
+sigmoid routing and the held slice of the experts (docs/port.md §mla).
 
 Conventions:
 * parameters live in ``nn.Module``s (:class:`Attention`, :class:`MLP`) as
@@ -76,6 +77,18 @@ def layer_norm(x, scale, bias, eps: float = 1e-5):
     out = (xf - mu) * torch.rsqrt(var + eps)
     out = out * scale.float() + bias.float()
     return out.to(x.dtype)
+
+
+def _causal_conv(x, w, b=None):
+    """Depthwise causal convolution: x (B, S, C), taps w (K, C), the last
+    one on the current token, and an optional bias (C,) -> (B, S, C)
+    (Mamba2's, and Kimi Delta Attention's without a bias)."""
+    k = w.shape[0]
+    out = x * w[k - 1]
+    for j in range(1, k):
+        pad = torch.zeros_like(x[:, :j])
+        out = out + torch.cat([pad, x[:, :-j]], dim=1) * w[k - 1 - j]
+    return out if b is None else out + b
 
 
 # --------------------------------------------------------------------------
@@ -162,7 +175,7 @@ def attn_q(p: Attention, x, cfg, positions):
         q = q + p.bq
     q = _split_heads(q, cfg.n_heads)
     if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm)
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
     return q
@@ -179,7 +192,7 @@ def attn_qkv(p: Attention, x, cfg, positions):
     k = _split_heads(k, cfg.n_kv_heads)
     v = _split_heads(v, cfg.n_kv_heads)
     if cfg.qk_norm:
-        k = rms_norm(k, p.k_norm)
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
     if cfg.use_rope:
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -206,7 +219,9 @@ class MLA(nn.Module):
     """The projections of one multi-head latent attention block
     (DeepSeek-V2 §2.1.2-2.1.3, as Kimi K2 and DeepSeek-V3 run it): the
     query's down- and up-projection ``wq_a`` ``(d, q_rank)``, its norm
-    ``q_norm`` and ``wq_b`` ``(q_rank, H·(qk_nope_dim + qk_rope_dim))``;
+    ``q_norm`` and ``wq_b`` ``(q_rank, H·(qk_nope_dim + qk_rope_dim))``,
+    or with ``q_rank`` 0 (Kimi Linear) the direct ``wq`` ``(d,
+    H·(qk_nope_dim + qk_rope_dim))``;
     the joint key-value down-projection ``wkv_a`` ``(d, kv_rank +
     qk_rope_dim)`` (the latent and the one rotary key a token shares over
     the heads), the latent's norm ``kv_norm`` and ``wkv_b`` ``(kv_rank,
@@ -216,11 +231,13 @@ class MLA(nn.Module):
     def __init__(self, cfg, *, device=None):
         super().__init__()
         dt, d, h = cfg.param_dtype, cfg.d_model, cfg.n_heads
-        self.wq_a = _param((d, cfg.q_rank), dt, device)
-        self.q_norm = _param((cfg.q_rank,), dt, device)
-        self.wq_b = _param((cfg.q_rank,
-                            h * (cfg.qk_nope_dim + cfg.qk_rope_dim)), dt,
-                           device)
+        qk = h * (cfg.qk_nope_dim + cfg.qk_rope_dim)
+        if cfg.q_rank:
+            self.wq_a = _param((d, cfg.q_rank), dt, device)
+            self.q_norm = _param((cfg.q_rank,), dt, device)
+            self.wq_b = _param((cfg.q_rank, qk), dt, device)
+        else:
+            self.wq = _param((d, qk), dt, device)
         self.wkv_a = _param((d, cfg.kv_rank + cfg.qk_rope_dim), dt, device)
         self.kv_norm = _param((cfg.kv_rank,), dt, device)
         self.wkv_b = _param((cfg.kv_rank,
@@ -231,9 +248,12 @@ class MLA(nn.Module):
     @torch.no_grad()
     def init_weights(self, cfg, generator: torch.Generator) -> None:
         """Projections N(0, 1/d_in), norms one."""
-        for w in (self.wq_a, self.wq_b, self.wkv_a, self.wkv_b, self.wo):
-            normal_(w, 1.0 / math.sqrt(w.shape[0]), generator)
-        self.q_norm.fill_(1.0)
+        for name in ("wq_a", "wq_b", "wq", "wkv_a", "wkv_b", "wo"):
+            if hasattr(self, name):
+                w = getattr(self, name)
+                normal_(w, 1.0 / math.sqrt(w.shape[0]), generator)
+        if hasattr(self, "q_norm"):
+            self.q_norm.fill_(1.0)
         self.kv_norm.fill_(1.0)
 
 
@@ -242,24 +262,29 @@ def mla_block(p: MLA, x, cfg, positions, *, causal=True,
     """Multi-head latent attention over ``x`` (B, S, d), in training's
     form (the latent expanded to every head's k and v):
 
-    c_q = RMSNorm(x W_qa); [q_nope | q_pe] = c_q W_qb per head, q_pe
-    roped; a = x W_kva; c_kv = RMSNorm(a[:kv_rank]), k_pe = rope(a[kv_rank:])
-    shared by the heads; [k_nope | v] = c_kv W_kvb per head; q = [q_nope |
-    q_pe], k = [k_nope | k_pe] (qk_nope_dim + qk_rope_dim each), v of
-    v_head_dim; softmax at that width^-1/2 through the dispatcher (the
-    flash kernel at (192, 128) on the card); out = merge(o) W_o. Counts a
-    host ``mla.calls``."""
+    c_q = RMSNorm(x W_qa); [q_nope | q_pe] = c_q W_qb per head (x W_q
+    without a query latent), q_pe roped; a = x W_kva; c_kv =
+    RMSNorm(a[:kv_rank]), k_pe = rope(a[kv_rank:]) shared by the heads;
+    [k_nope | v] = c_kv W_kvb per head; q = [q_nope | q_pe], k = [k_nope |
+    k_pe] (qk_nope_dim + qk_rope_dim each), v of v_head_dim; softmax at
+    that width^-1/2 through the dispatcher (the flash kernel at (192, 128)
+    on the card); out = merge(o) W_o. Without rotary embedding
+    (``use_rope`` False, Kimi Linear's NoPE) q_pe and k_pe keep their
+    channels unrotated. Counts a host ``mla.calls``."""
     tracing.add("mla.calls", 1)
     b, s, _ = x.shape
     h, nope, rope_d = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
-    q = (rms_norm(x @ p.wq_a, p.q_norm) @ p.wq_b).view(b, s, h, -1)
+    eps = cfg.norm_eps
+    q = (rms_norm(x @ p.wq_a, p.q_norm, eps) @ p.wq_b if cfg.q_rank
+         else x @ p.wq).view(b, s, h, -1)
     a = x @ p.wkv_a
-    kv = (rms_norm(a[..., :cfg.kv_rank], p.kv_norm) @ p.wkv_b).view(
+    kv = (rms_norm(a[..., :cfg.kv_rank], p.kv_norm, eps) @ p.wkv_b).view(
         b, s, h, -1)
-    q_pe = apply_rope(q[..., nope:].transpose(1, 2), positions,
-                      cfg.rope_theta)
-    k_pe = apply_rope(a[:, :, None, cfg.kv_rank:].transpose(1, 2),
-                      positions, cfg.rope_theta)
+    q_pe = q[..., nope:].transpose(1, 2)
+    k_pe = a[:, :, None, cfg.kv_rank:].transpose(1, 2)
+    if cfg.use_rope:
+        q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
+        k_pe = apply_rope(k_pe, positions, cfg.rope_theta)
     q = torch.cat([q[..., :nope].transpose(1, 2), q_pe], dim=-1)
     k = torch.cat([kv[..., :nope].transpose(1, 2),
                    k_pe.expand(b, h, s, rope_d)], dim=-1)

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import _param, normal_, rms_norm
+from .layers import _causal_conv, _param, normal_, rms_norm
 
 
 def _dims(cfg) -> tuple[int, int, int]:
@@ -70,16 +70,6 @@ class Mamba2(nn.Module):
             w.zero_()
         self.D.fill_(1.0)
         self.norm.fill_(1.0)
-
-
-def _causal_conv(x, w, b):
-    """Depthwise causal conv: x (B,S,C), w (K,C) -> (B,S,C)."""
-    k = w.shape[0]
-    out = x * w[k - 1]
-    for j in range(1, k):
-        pad = torch.zeros_like(x[:, :j])
-        out = out + torch.cat([pad, x[:, :-j]], dim=1) * w[k - 1 - j]
-    return out + b
 
 
 def _split_zxbcdt(cfg, zxbcdt):

@@ -28,7 +28,9 @@ The KV cache is a preallocated ``(L, B, Hkv, S, D)`` pair updated in place
 signature stays the reference's. An MoE config's first
 ``moe_start_layer`` layers are dense and the rest MoE (the reference's
 ``layers`` and ``moe_layers`` groups, in that order in the cache;
-docs/port.md §moe). A VLM config prepends its frontend's ``embeds`` to
+docs/port.md §moe). A config with Kimi Delta Attention (``cfg.linear``)
+runs it in the layers its pattern names and its attention in the others
+(docs/port.md §kda). A VLM config prepends its frontend's ``embeds`` to
 the tokens (docs/port.md §vlm). An encoder-decoder config (``enc_dec``,
 whisper) holds ``enc_layers``, ``dec_layers`` (:class:`CrossLayer`) and
 ``ln_enc`` instead of ``layers``; its cache adds the cross-attention K/V
@@ -53,6 +55,7 @@ from repro_torch.interop import resolve_device
 from repro_torch.parallel.hints import constrain, hint
 from repro_torch.parallel.sharding import P
 
+from .kda import KDA, kda_block
 from .layers import (
     MLA,
     MLP,
@@ -139,15 +142,19 @@ def _remat(layer, policy: str, *args, **kwargs):
 
 class DecoderLayer(nn.Module):
     """Pre-norm attention + MLP block, or + MoE block with ``moe=True``
-    (``_init_layer`` / ``_layer_apply``); the attention is multi-head
-    latent attention (:class:`~repro_torch.models.layers.MLA`) where the
-    config says so (``cfg.mla``)."""
+    (``_init_layer`` / ``_layer_apply``); the attention is Kimi Delta
+    Attention (:class:`~repro_torch.models.kda.KDA`) with ``kda=True``,
+    else multi-head latent attention
+    (:class:`~repro_torch.models.layers.MLA`) where the config says so
+    (``cfg.mla``)."""
 
-    def __init__(self, cfg, *, moe: bool = False, device=None):
+    def __init__(self, cfg, *, moe: bool = False, kda: bool = False,
+                 device=None):
         super().__init__()
         self.ln1 = _param((cfg.d_model,), cfg.param_dtype, device)
         self.ln2 = _param((cfg.d_model,), cfg.param_dtype, device)
-        self.attn = (MLA if cfg.mla else Attention)(cfg, device=device)
+        self.attn = (KDA if kda else MLA if cfg.mla else Attention)(
+            cfg, device=device)
         if moe:
             self.moe = MoE(cfg, device=device)
         else:
@@ -175,13 +182,14 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, cfg, positions, *, causal: bool = True,
                 use_kernel: bool | None = None):
-        h = constrain(rms_norm(x, self.ln1), _sp_spec)
-        block = mla_block if cfg.mla else attention_block
+        h = constrain(rms_norm(x, self.ln1, cfg.norm_eps), _sp_spec)
+        block = (kda_block if isinstance(self.attn, KDA) else mla_block
+                 if cfg.mla else attention_block)
         attn_out = block(self.attn, h, cfg, positions, causal=causal,
                          use_kernel=use_kernel)
         attn_out = checkpoint_name(attn_out, "attn_out")
         x = constrain(x + attn_out, _sp_spec)
-        h = constrain(rms_norm(x, self.ln2), _sp_spec)
+        h = constrain(rms_norm(x, self.ln2, cfg.norm_eps), _sp_spec)
         ff_out = checkpoint_name(self.feed_forward(h, cfg), "ff_out")
         return constrain(x + ff_out, _sp_spec)
 
@@ -211,17 +219,19 @@ class CrossLayer(nn.Module):
     def cross(self, x, cfg, positions, enc_kv, use_kernel=None):
         """The cross-attention sublayer's output: q from the decoder
         stream (rope at ``positions``), K/V from the encoder, no mask."""
-        return attention_block(self.xattn, rms_norm(x, self.ln_x), cfg,
+        return attention_block(self.xattn,
+                               rms_norm(x, self.ln_x, cfg.norm_eps), cfg,
                                positions, causal=False, kv_override=enc_kv,
                                use_kernel=use_kernel)
 
     def forward(self, x, cfg, positions, enc_kv, *,
                 use_kernel: bool | None = None):
-        x = x + attention_block(self.attn, rms_norm(x, self.ln1), cfg,
+        eps = cfg.norm_eps
+        x = x + attention_block(self.attn, rms_norm(x, self.ln1, eps), cfg,
                                 positions, causal=True,
                                 use_kernel=use_kernel)
         x = x + self.cross(x, cfg, positions, enc_kv, use_kernel)
-        return x + mlp_apply(self.mlp, rms_norm(x, self.ln2), cfg)
+        return x + mlp_apply(self.mlp, rms_norm(x, self.ln2, eps), cfg)
 
 
 class Transformer(nn.Module):
@@ -248,7 +258,8 @@ class Transformer(nn.Module):
             return
         moe_start = cfg.moe.moe_start_layer if cfg.moe else cfg.n_layers
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, moe=i >= moe_start, device=device)
+            DecoderLayer(cfg, moe=i >= moe_start, kda=cfg.is_kda(i),
+                         device=device)
             for i in range(cfg.n_layers)
         )
 
@@ -304,7 +315,7 @@ def logits(model: Transformer, tokens, embeds=None, positions=None, *,
     for layer in model.layers:
         x = _remat(layer, policy, x, cfg, positions, causal=True,
                    use_kernel=use_kernel)
-    x = rms_norm(x, model.ln_f)
+    x = rms_norm(x, model.ln_f, cfg.norm_eps)
     return x @ model.head()
 
 
@@ -315,9 +326,15 @@ def forward(model: Transformer, tokens, embeds=None, positions=None, *,
     return logits(model, tokens, embeds, positions, use_kernel=use_kernel)
 
 
-def _no_mla_decode(cfg) -> None:
-    """Multi-head latent attention trains and prefills here; its decode
-    (an absorbed latent cache) is not ported."""
+def _no_decode(cfg) -> None:
+    """Kimi Delta Attention and multi-head latent attention train and
+    prefill here; their decode (a recurrent state cache, an absorbed
+    latent cache) is not ported."""
+    if cfg.linear:
+        raise NotImplementedError(
+            f"{cfg.name}: Kimi Delta Attention has no recurrent state cache "
+            "or decode path in the port (training and prefill only; "
+            "docs/port.md §kda)")
     if cfg.mla:
         raise NotImplementedError(
             f"{cfg.name}: multi-head latent attention has no KV cache or "
@@ -330,9 +347,9 @@ def init_cache(cfg, batch: int, seq: int, device="cuda",
     """Zeroed ``(L, B, Hkv, S, D)`` K and V caches in the model dtype; an
     encoder-decoder config adds the cross-attention ``xk``/``xv`` over
     ``enc_len`` frames (default ``4 * seq``), which
-    :func:`prime_cross_cache` fills once. Raises for multi-head latent
-    attention."""
-    _no_mla_decode(cfg)
+    :func:`prime_cross_cache` fills once. Raises for Kimi Delta Attention
+    and multi-head latent attention."""
+    _no_decode(cfg)
     dev = resolve_device(device)
 
     def kv(s):
@@ -357,17 +374,18 @@ def decode_step(model: Transformer, token, cache: dict, pos: int,
     dispatches those rows alone (its capacity counts ``len(rows)``
     tokens), and only their logits are defined (docs/port.md §moe)."""
     cfg = model.cfg
-    _no_mla_decode(cfg)
+    _no_decode(cfg)
     x = model.embed[token]
     if rows is not None:  # one host-to-device copy per step, not per layer
         rows = torch.as_tensor(rows, dtype=torch.int64, device=x.device)
+    eps = cfg.norm_eps
     for i, layer in enumerate(model.layers):
-        h = rms_norm(x, layer.ln1)
+        h = rms_norm(x, layer.ln1, eps)
         o, _, _ = decode_attention(layer.attn, h, cfg, cache["k"][i],
                                    cache["v"][i], pos, rows)
         x = x + o
-        x = x + layer.feed_forward(rms_norm(x, layer.ln2), cfg, rows)
-    x = rms_norm(x, model.ln_f)
+        x = x + layer.feed_forward(rms_norm(x, layer.ln2, eps), cfg, rows)
+    x = rms_norm(x, model.ln_f, eps)
     return x @ model.head(), cache
 
 
@@ -386,7 +404,7 @@ def _encode(model: Transformer, frames, *, use_kernel: bool | None = None):
     for layer in model.enc_layers:
         x = _remat(layer, policy, x, cfg, positions, causal=False,
                    use_kernel=use_kernel)
-    return rms_norm(x, model.ln_enc)
+    return rms_norm(x, model.ln_enc, cfg.norm_eps)
 
 
 @torch.no_grad()
@@ -426,7 +444,7 @@ def logits_enc_dec(model: Transformer, frames, tokens, *,
     for layer in model.dec_layers:
         x = _remat(_cross_layer, "off" if off else "none", layer, x, cfg,
                    positions, enc, use_kernel)
-    x = rms_norm(x, model.ln_f)
+    x = rms_norm(x, model.ln_f, cfg.norm_eps)
     return x @ model.head()
 
 
@@ -467,14 +485,15 @@ def decode_step_enc_dec(model: Transformer, token, cache: dict, pos: int,
     x = model.embed[token]
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int64,
                            device=x.device)
+    eps = cfg.norm_eps
     for i, layer in enumerate(model.dec_layers):
-        o, _, _ = decode_attention(layer.attn, rms_norm(x, layer.ln1), cfg,
-                                   cache["k"][i], cache["v"][i], pos)
+        o, _, _ = decode_attention(layer.attn, rms_norm(x, layer.ln1, eps),
+                                   cfg, cache["k"][i], cache["v"][i], pos)
         x = x + o
         x = x + layer.cross(x, cfg, positions,
                             (cache["xk"][i], cache["xv"][i]), use_kernel)
-        x = x + mlp_apply(layer.mlp, rms_norm(x, layer.ln2), cfg)
-    x = rms_norm(x, model.ln_f)
+        x = x + mlp_apply(layer.mlp, rms_norm(x, layer.ln2, eps), cfg)
+    x = rms_norm(x, model.ln_f, eps)
     return x @ model.head(), cache
 
 
